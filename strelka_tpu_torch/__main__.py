@@ -1,0 +1,36 @@
+"""Top-level CLI dispatcher of the PyTorch/CUDA port.
+
+Reference analog: the configureStrelka*Workflow.py entry scripts.
+
+  python -m strelka_tpu_torch germline --reference ... --align-file ... \\
+      --output-dir ... [--device cuda|cpu]
+
+The other subcommands of strelka_tpu (somatic, denovo, noise-extractor,
+tools) are not ported yet and exit 2.
+"""
+from __future__ import annotations
+
+import sys
+
+NOT_PORTED = ("somatic", "denovo", "noise-extractor", "tools")
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "germline":
+        from .workflow.germline import run_germline
+        return run_germline(rest)
+    if cmd in NOT_PORTED:
+        print(f"{cmd}: not yet ported to strelka_tpu_torch "
+              "(use python -m strelka_tpu)", file=sys.stderr)
+        return 2
+    print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

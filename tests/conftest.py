@@ -35,3 +35,8 @@ def demo_bams():
         os.path.join(DEMO_DIR, "NA12891_demo20.bam"),
         os.path.join(DEMO_DIR, "NA12892_demo20.bam"),
     ]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA; skipped without one")
