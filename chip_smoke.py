@@ -10,13 +10,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. k1: the scoring kernel against its plain torch version on the card,
    bit for bit, at the main path's shapes plus tie and code-4 cases,
    with both timed by CUDA events;
+2b. k1h: the kernel's mode="highest" instantiation against its plain
+   version (one-hot f32 bmm), scores within 1e-4 and offsets equal
+   outside near-ties, at bench.py's shape and two main-path shapes,
+   timed; plus bench.py's unquantized deltas held to an f32 rounding
+   bound;
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
+3b. somatic: the somatic SNV model on the card against the port's CPU
+   path on a 200,000-row random tile (grid states bit-equal, integer
+   fields equal), and its peak bytes per row against the sizes from
+   which the port chooses its chunk heights;
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
    set to 0 just before and read just after;
 5. cuda-vs-cpu: the same CLI with --device cpu on the same data; no
-   record may differ in CHROM, POS, REF, ALT, FILTER or GT.
+   record may differ in CHROM, POS, REF, ALT, FILTER or GT;
+6. somatic e2e: the somatic CLI with --device cuda (WGS mode) on a
+   synthetic tumor/normal contig (default 2 Mb, normal 30x, tumor 60x,
+   150 bp reads), counters set to 0 just before and read just after;
+   90% or more of the planted somatic SNVs must be called with FILTER
+   PASS;
+7. somatic cuda-vs-cpu: the same with --device cpu; no record may
+   differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT.
 
 The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
@@ -38,9 +54,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s and
+# f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+K1H_ATOL = 1e-4   # tests/test_pallas_kernel.py:107-108
 
 
 def fail(msg: str) -> None:
@@ -136,6 +155,15 @@ def k1_bound_ms(B, R, L, W) -> tuple[float, str]:
     ops = 2 * B * R * L * W
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT8_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1h_bound_ms(B, R, L, W) -> tuple[float, str]:
+    """K1-h's least time: K1's bytes against 2*B*R*L*W f32 operations at
+    the non-tensor FP32 peak."""
+    nbytes = B * (5 * R * L + L * W + 8 * R)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 2 * B * R * L * W / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -235,6 +263,71 @@ def phase_k1(np, torch, dev, cuda: bool, shapes, iters: int,
     return rows, max_err
 
 
+def bench_inputs(np, rng, B, R, L, W):
+    """bench.py's inputs: unquantized deltas uniform(2, 20)."""
+    codes = rng.integers(0, 5, (B, R, L)).astype(np.int8)
+    delta = rng.uniform(2, 20, (B, R, L)).astype(np.float32)
+    lnmis = rng.normal(-100, 10, (B, R)).astype(np.float32)
+    win = rng.integers(0, 5, (B, L, W)).astype(np.int8)
+    return codes, delta, lnmis, win
+
+
+def phase_k1h(np, torch, dev, cuda: bool, shapes, iters: int):
+    """mode="highest" kernel vs its plain version: scores within
+    K1H_ATOL with the quantized LUT's deltas (whose f32 sums are exact),
+    offsets equal except where the plain version's top two scores lie
+    within K1H_ATOL (counted); bench.py's unquantized deltas at the first
+    shape, held per row to the f32 bound 2 (L+1) 2^-24 sum|terms| of two
+    summation orders. Returns (rows, max_abs_err)."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    rng = np.random.default_rng(2025)
+    rows = []
+    max_err = 0.0
+    cases = [("lut", s, k1_random) for s in shapes]
+    cases.append(("bench_unquantized", shapes[0], bench_inputs))
+    for kind, (B, R, L, W), make in cases:
+        arrs = make(np, rng, B, R, L, W)
+        t = [torch.from_numpy(a).to(dev) for a in arrs]
+        kb, ko = sk.score_best_offsets(*t, mode="highest")
+        s = sk.highest_scores(*t)
+        top2 = torch.topk(s, 2, dim=-1).values
+        del s
+        pb, po = sk.reference_best_offsets(*t)
+        if cuda:
+            torch.cuda.synchronize()
+        err = (kb - pb).abs()
+        if kind == "lut":
+            bad = int((err > K1H_ATOL).sum())
+        else:
+            c, d, m, _w = t
+            terms = torch.where((c >= 0) & (c < 4), d.abs(), 0.0).sum(-1)
+            bound = 2 * (L + 1) * 2.0 ** -24 * (terms + m.abs())
+            bad = int((err > bound).sum())
+        near = (top2[..., 0] - top2[..., 1]) <= K1H_ATOL
+        differ = ko != po
+        n_off_bad = int((differ & ~near).sum())
+        if bad or n_off_bad:
+            fail(f"k1h {kind} {[B, R, L, W]}: {bad} scores outside the "
+                 f"tolerance (max err {float(err.max())}), {n_off_bad} "
+                 f"offsets differ outside near-ties")
+        row = {"case": kind, "shape": [B, R, L, W],
+               "max_abs_err": float(err.max()),
+               "near_ties": int(near.sum()),
+               "near_tie_offsets_differ": int((differ & near).sum())}
+        max_err = max(max_err, row["max_abs_err"])
+        if kind == "lut":
+            row["ms"] = time_ms(torch, cuda, lambda: sk.score_best_offsets(
+                *t, mode="highest"), iters)
+            row["plain_ms"] = time_ms(
+                torch, cuda, lambda: sk.reference_best_offsets(*t),
+                max(1, iters // 5), warm=1)
+            row["bound_ms"], row["bound_by"] = k1h_bound_ms(B, R, L, W)
+        rows.append(row)
+        log("k1h: " + json.dumps(row))
+        del t
+    return rows, max_err
+
+
 def phase_snv(np, torch, dev, cuda: bool, L: int):
     """Tile functions on `dev` against the port's CPU path."""
     from strelka_tpu_torch.models import snv_digt as sd
@@ -283,6 +376,93 @@ def phase_snv(np, torch, dev, cuda: bool, L: int):
         log(f"snv D={D}: " + json.dumps(diffs))
 
 
+def phase_somatic_snv(np, torch, dev, L: int):
+    """Grid lhoods and joint posterior on `dev` against the port's CPU
+    path on a random tumor/normal tile with q=0 calls, masked lanes and
+    all-masked rows: -inf positions and grid states bit-equal, integer
+    fields equal; prints the lhood ulp distance and the phred flips."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    rng = np.random.default_rng(8)
+    tiles = []
+    for D, alt in ((32, 0.1), (96, 0.3)):
+        ref = rng.integers(0, 5, L).astype(np.int32)
+        base = rng.integers(-1, 4, (L, D)).astype(np.int8)
+        base = np.where(rng.random((L, D)) < 1 - alt,
+                        np.minimum(ref, 3)[:, None], base).astype(np.int8)
+        qual = rng.integers(0, 45, (L, D)).astype(np.int16)
+        qual = np.where(rng.random((L, D)) < 0.02, 0, qual).astype(np.int16)
+        mask = rng.random((L, D)) < 0.85
+        mask[10:20] = False
+        tiles.append((base, qual, mask, rng.random((L, D)) < 0.5, ref))
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        lh = [ss.freq_grid_lhoods(*(torch.from_numpy(a).to(d) for a in t))
+              for t in tiles]
+        post = ss.somatic_snv_call_capped(*lh)
+        res[d.type] = ([x.cpu() for x in lh],
+                       {f: getattr(post, f).cpu()
+                        for f in ss.SomaticSnvResult._fields})
+    (lh_d, post_d), (lh_c, post_c) = res[dev.type], res["cpu"]
+    max_ulp = {}
+    for i, (a, b) in enumerate(zip(lh_d, lh_c)):
+        if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+            fail(f"somatic tile {i}: -inf positions differ")
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        u = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+        u = torch.where(fin, u, 0)
+        g = ss.PRESTRAND_SIZE
+        if int(u[:, :g].max()):
+            fail(f"somatic tile {i}: grid states differ by up to "
+                 f"{int(u[:, :g].max())} ulp")
+        max_ulp[f"sample{i}"] = int(u.max())
+    flips = {f: int((post_d[f] != post_c[f]).sum())
+             for f in ("qphred", "from_ntype_qphred", "nonsomatic_qphred",
+                       "ntype", "max_gt")}
+    if any(flips.values()):
+        fail(f"somatic posterior: integer fields differ {flips}")
+    log("somatic: " + json.dumps({
+        "rows": L, "lhood_max_ulp": max_ulp, "phred_flips": flips,
+        "somatic_rows": int((post_c["qphred"] > 0).sum()),
+        "strand_bias_max_abs_diff": float(
+            (post_d["strand_bias"] - post_c["strand_bias"]).abs().max())}))
+    if dev.type == "cuda":
+        somatic_row_bytes(torch, dev, ss, tiles)
+
+
+def somatic_row_bytes(torch, dev, ss, tiles):
+    """Peak bytes per row that the caching allocator hands out while
+    freq_grid_lhoods and one somatic_snv_call run on the card, against
+    the per-row sizes from which the port chooses its chunk heights
+    (somatic_snv.CALL_ROW_BYTES, GRID_ROW_BYTES + GRID_LANE_BYTES * D)."""
+    def peak_per_row(fn, rows):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        return peak / rows
+    got = {}
+    lh = []
+    for t in tiles:
+        L, D = t[0].shape
+        x = [torch.from_numpy(a).to(dev) for a in t]
+        got[f"grid_D{D}"] = peak_per_row(lambda: ss.freq_grid_lhoods(*x), L)
+        limit = ss.GRID_ROW_BYTES + ss.GRID_LANE_BYTES * D
+        if got[f"grid_D{D}"] > limit:
+            fail(f"freq_grid_lhoods held {got[f'grid_D{D}']:.0f} bytes a "
+                 f"row at D={D}, over the {limit} the chunking assumes")
+        lh.append(ss.freq_grid_lhoods(*x))
+    got["call"] = peak_per_row(lambda: ss.somatic_snv_call(*lh),
+                               lh[0].shape[0])
+    if got["call"] > ss.CALL_ROW_BYTES:
+        fail(f"somatic_snv_call held {got['call']:.0f} bytes a row, over "
+             f"the {ss.CALL_ROW_BYTES} the chunking assumes")
+    log("somatic row bytes (measured peak): " + json.dumps(got) + " chunk "
+        f"rows now: posterior {ss.rows_per_launch(dev, ss.CALL_ROW_BYTES)}")
+
+
 def make_dataset(np, workdir: str, mb: float, seed: int = 11):
     from strelka_tpu_torch import synth
     from strelka_tpu_torch.io.bam import BamHeader
@@ -304,6 +484,146 @@ def make_dataset(np, workdir: str, mb: float, seed: int = 11):
     log(f"data: {mb} Mb contig, {batch.n} reads at 30x/150 bp, "
         f"made in {time.perf_counter() - t0:.1f} s")
     return fa, bam, batch.n
+
+
+def make_tn_dataset(np, workdir: str, mb: float):
+    """Tumor/normal on one contig: a germline grid (SNVs every 900 bp,
+    indels every 1200 bp) in both, the normal at 30x and the tumor at 60x
+    with somatic SNVs every 1500 bp at VAF 0.35 and somatic indels every
+    2100 bp; 150 bp reads. Returns (fa, normal bam, tumor bam, reads,
+    planted somatic SNV positions)."""
+    from strelka_tpu_torch import synth
+    from strelka_tpu_torch.io.bam import BamHeader
+    from strelka_tpu_torch.io.bam_writer import write_bam
+    t0 = time.perf_counter()
+    common = dict(L=int(mb * 1_000_000), read_len=150, snv_every=900,
+                  indel_every=1200, ref_seed=11)
+    refs, normal, _ = synth.generate(depth=30, seed=21, **common)
+    _, tumor, truth = synth.generate(depth=60, seed=22, somatic_every=1500,
+                                     somatic_vaf=0.35,
+                                     somatic_indel_every=2100, **common)
+    os.makedirs(workdir, exist_ok=True)
+    fa = os.path.join(workdir, "tn_ref.fa")
+    with open(fa, "w") as f:
+        f.write(">syn\n")
+        for i in range(0, len(refs), 60):
+            f.write(refs[i:i + 60] + "\n")
+    hdr = BamHeader(text="", ref_names=["syn"], ref_lengths=[len(refs)])
+    nbam = os.path.join(workdir, "normal.bam")
+    tbam = os.path.join(workdir, "tumor.bam")
+    write_bam(nbam, hdr, normal)
+    write_bam(tbam, hdr, tumor)
+    n = normal.n + tumor.n
+    log(f"data: {mb} Mb tumor/normal contig, {normal.n} normal reads at "
+        f"30x + {tumor.n} tumor reads at 60x, 150 bp, "
+        f"{len(truth['som_snv'])} somatic SNVs planted, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return fa, nbam, tbam, n, truth["som_snv"]
+
+
+def run_somatic_cli(fa, nbam, tbam, out, device):
+    from strelka_tpu_torch.__main__ import main
+    if os.path.exists(out):
+        import shutil
+        shutil.rmtree(out)
+    t0 = time.perf_counter()
+    rc = main(["somatic", "--reference", fa, "--normal-align-file", nbam,
+               "--tumor-align-file", tbam, "--output-dir", out,
+               "--device", device])
+    wall = time.perf_counter() - t0
+    if rc not in (0, None):
+        fail(f"somatic --device {device} exited {rc}")
+    return wall
+
+
+SOMATIC_OUTPUTS = ("somatic.snvs.vcf.gz", "somatic.indels.vcf.gz")
+
+
+def info_of(rec, keys):
+    kv = dict(f.split("=", 1) for f in rec[7].split(";") if "=" in f)
+    return tuple(kv.get(k) for k in keys)
+
+
+def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
+                      mb, out, device):
+    """The somatic CLI on `device` with the counters set to 0 just before
+    and read just after; stream time of each device phase by CUDA
+    events; somatic SNV recall against the planted truth (all records,
+    and the PASS records that the 0.9 gate reads). Returns the kernel
+    launches (mode="exact", mode="highest")."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import score_kernel as sk
+    timer = StreamTimer(torch, cuda)
+    timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
+    timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods")
+    timer.wrap(ss, "somatic_snv_call", "somatic_posterior")
+    sk.LAUNCHES = 0
+    sk.LAUNCHES_HIGHEST = 0
+    ss.LAUNCH_STATS.clear()
+    try:
+        wall = run_somatic_cli(fa, nbam, tbam, out, device)
+    finally:
+        launches = sk.LAUNCHES
+        launches_highest = sk.LAUNCHES_HIGHEST
+        tiles = dict(ss.LAUNCH_STATS)
+        timer.restore()
+    phase_ms = timer.totals_ms()
+    snvs = vcf_records(os.path.join(out, SOMATIC_OUTPUTS[0]))
+    indels = vcf_records(os.path.join(out, SOMATIC_OUTPUTS[1]))
+    for rec in snvs + indels:
+        if len(rec) != 11:
+            fail(f"malformed somatic record: {rec[:5]}")
+    called = {int(r[1]) - 1 for r in snvs}
+    passed = {int(r[1]) - 1 for r in snvs if r[6] == "PASS"}
+    recall = sum(p in called for p in som_snv) / max(len(som_snv), 1)
+    pass_recall = sum(p in passed for p in som_snv) / max(len(som_snv), 1)
+    n_grid = sum(v for k, v in tiles.items()
+                 if k[0] == "grid" and k[1] == device)
+    n_post = sum(v for k, v in tiles.items()
+                 if k[0] == "post" and k[1] == device)
+    if cuda and launches == 0:
+        fail("the somatic path launched the k1 kernel no time")
+    if n_grid == 0 or n_post == 0:
+        fail(f"the somatic path ran no grid-lhood or posterior tile on "
+             f"{device}")
+    if pass_recall < 0.9:
+        fail(f"somatic SNV PASS recall {pass_recall:.4f} is below 0.9")
+    dev_ms = sum(phase_ms.values())
+    log("somatic_e2e: " + json.dumps({
+        "device": device, "contig_mb": mb, "reads": n_reads, "wall_s": wall,
+        "reads_per_s": n_reads / wall, "snv_records": len(snvs),
+        "indel_records": len(indels), "som_snv_planted": len(som_snv),
+        "som_snv_recall": recall, "som_snv_pass_recall": pass_recall,
+        "k1_launches": launches, "k1h_launches": launches_highest,
+        "grid_tile_launches": n_grid, "posterior_launches": n_post,
+        "stream_ms_by_phase": phase_ms,
+        "device_phase_share_of_wall": dev_ms / 1e3 / wall}))
+    return launches, launches_highest
+
+
+def compare_somatic_runs(a_dir, b_dir):
+    """(records compared, records differing beyond the key fields);
+    fails on any CHROM/POS/REF/ALT/FILTER/QSS/QSI/NT difference."""
+    n = other = 0
+    for name in SOMATIC_OUTPUTS:
+        a = vcf_records(os.path.join(a_dir, name))
+        b = vcf_records(os.path.join(b_dir, name))
+        if len(a) != len(b):
+            fail(f"{name}: {len(a)} records on cuda, {len(b)} on cpu")
+        for ra, rb in zip(a, b):
+            keys = ("QSS", "QSI", "NT")
+            key_a = (*ra[:2], ra[3], ra[4], ra[6], *info_of(ra, keys))
+            key_b = (*rb[:2], rb[3], rb[4], rb[6], *info_of(rb, keys))
+            if key_a != key_b:
+                fail(f"{name}: record differs in a key field:\n "
+                     f"cuda {ra[:8]}\n cpu  {rb[:8]}")
+            n += 1
+            if ra != rb:
+                other += 1
+                if other <= 5:
+                    log(f"cuda-vs-cpu {name} differs:\n  cuda "
+                        f"{chr(9).join(ra)}\n  cpu  {chr(9).join(rb)}")
+    return n, other
 
 
 def run_cli(fa, bam, out, device):
@@ -369,7 +689,7 @@ def compare_runs(a_dir, b_dir):
 def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     """The CLI on `device` with the launch counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
-    events. Returns (k1 launches, k1 launch shapes)."""
+    events. Returns (k1 launches, k1h launches, k1 launch shapes)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.pipeline import realign_batch as rb
@@ -381,12 +701,14 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
     timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
     sk.LAUNCHES = 0
+    sk.LAUNCHES_HIGHEST = 0
     sd.LAUNCH_STATS.clear()
     rb.LAUNCH_STATS = {}
     try:
         wall = run_cli(fa, bam, out, device)
     finally:
         launches = sk.LAUNCHES
+        launches_highest = sk.LAUNCHES_HIGHEST
         snv_tiles = dict(sd.LAUNCH_STATS)
         score_shapes = dict(rb.LAUNCH_STATS)
         rb.LAUNCH_STATS = None
@@ -404,14 +726,14 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     e2e = {"contig_mb": mb, "reads": n_reads, "wall_s": wall,
            "reads_per_s": n_reads / wall,
            "variant_records": len(var), "gvcf_records": len(gv),
-           "k1_launches": launches,
+           "k1_launches": launches, "k1h_launches": launches_highest,
            "snv_tile_launches": {",".join(map(str, k)): v
                                  for k, v in snv_tiles.items()},
            "stream_ms_by_phase": phase_ms,
            "k1_launch_shapes": {",".join(map(str, k)): v
                                 for k, v in score_shapes.items()}}
     log("e2e: " + json.dumps(e2e))
-    return launches, score_shapes
+    return launches, launches_highest, score_shapes
 
 
 def main(argv=None) -> int:
@@ -430,6 +752,7 @@ def main(argv=None) -> int:
     try:
         import strelka_tpu_torch  # noqa: F401
         from strelka_tpu_torch.pipeline import germline_caller  # noqa: F401
+        from strelka_tpu_torch.pipeline import somatic_caller  # noqa: F401
     except ImportError as e:
         fail(f"strelka_tpu_torch is not importable beside chip_smoke.py: "
              f"{e}")
@@ -437,6 +760,7 @@ def main(argv=None) -> int:
         fail("jax or strelka_tpu was imported")
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     mb = 0.1 if rehearse else 4.0
+    tn_mb = 0.1 if rehearse else 2.0
     t_start = time.perf_counter()
 
     log("== phase 1: build")
@@ -451,15 +775,26 @@ def main(argv=None) -> int:
     k1_rows, k1_err = phase_k1(np, torch, dev, cuda, main_shapes,
                                iters=1 if rehearse else 20)
 
+    log("== phase 2b: k1h (mode=highest) kernel vs plain version")
+    k1h_shapes = [(512, 128, 128, 128), (256, 128, 160, 256),
+                  (256, 32, 160, 192)]
+    if rehearse:
+        k1h_shapes = [(8, 128, 128, 128), (4, 32, 160, 192)]
+    k1h_rows, k1h_err = phase_k1h(np, torch, dev, cuda, k1h_shapes,
+                                  iters=1 if rehearse else 20)
+
     log("== phase 3: snv tiles vs the CPU path")
     phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000)
+
+    log("== phase 3b: somatic SNV model vs the CPU path")
+    phase_somatic_snv(np, torch, dev, 2000 if rehearse else 200_000)
 
     workdir = os.path.join(HERE, "build", "smoke")
     log(f"== phase 4: germline --device {dev.type} end to end")
     fa, bam, n_reads = make_dataset(np, workdir, mb)
     out_dev = os.path.join(workdir, f"out_{dev.type}")
-    launches, score_shapes = phase_e2e(torch, cuda, fa, bam, n_reads, mb,
-                                       out_dev, dev.type)
+    launches, h_launches, score_shapes = phase_e2e(
+        torch, cuda, fa, bam, n_reads, mb, out_dev, dev.type)
     # k1 again at the main path's most frequent launch shape
     top = max(score_shapes, key=score_shapes.get)
     rows, err = phase_k1(np, torch, dev, cuda, [top],
@@ -476,21 +811,59 @@ def main(argv=None) -> int:
             "records": n, "differ_other_fields": other,
             "cpu_wall_s": wall_cpu}))
 
+    log(f"== phase 6: somatic --device {dev.type} end to end")
+    tn = make_tn_dataset(np, workdir, tn_mb)
+    fa_tn, nbam, tbam, n_tn, som_snv = tn
+    som_dev = os.path.join(workdir, f"som_{dev.type}")
+    som_launches, som_h_launches = phase_somatic_e2e(
+        torch, cuda, fa_tn, nbam, tbam, n_tn, som_snv, tn_mb, som_dev,
+        dev.type)
+    if cuda:
+        log("== phase 7: the same somatic run with --device cpu")
+        som_cpu = os.path.join(workdir, "som_cpu")
+        phase_somatic_e2e(torch, False, fa_tn, nbam, tbam, n_tn, som_snv,
+                          tn_mb, som_cpu, "cpu")
+        n, other = compare_somatic_runs(som_dev, som_cpu)
+        log("somatic cuda-vs-cpu: " + json.dumps({
+            "records": n, "differ_other_fields": other}))
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     top = k1_rows[-1]
+    k1h = k1h_rows[0]   # bench.py's shape
     kernels = [{
         "name": "score_best_offsets",
         "route": "cuda",
         "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
         "replaces": "strelka_tpu/ops/pallas_readlik.py:76",
-        "launches": launches,
+        "launches": launches + som_launches,
+        "launches_by_path": {"germline": launches,
+                             "somatic": som_launches},
         "max_abs_err": k1_err,
         "shape": top["shape"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "score_best_offsets_highest",
+        "route": "cuda",
+        "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
+        "replaces": "strelka_tpu/ops/pallas_readlik.py:170",
+        # counted in phases 4 and 6 like K1; no CLI path runs
+        # mode="highest", so phase 2b alone is expected to launch it
+        "launches": h_launches + som_h_launches,
+        "launches_by_path": {"germline": h_launches,
+                             "somatic": som_h_launches},
+        "max_abs_err": k1h_err,
+        "tolerance": f"atol {K1H_ATOL} (quantized deltas); f32 rounding "
+                     f"bound (unquantized)",
+        "shape": k1h["shape"],
+        "ms": k1h["ms"],
+        "plain_ms": k1h["plain_ms"],
+        "bound_ms": k1h["bound_ms"],
+        "bound_by": k1h["bound_by"],
         "library_ms": None,
     }]
     if rehearse:

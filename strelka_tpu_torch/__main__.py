@@ -4,15 +4,18 @@ Reference analog: the configureStrelka*Workflow.py entry scripts.
 
   python -m strelka_tpu_torch germline --reference ... --align-file ... \\
       --output-dir ... [--device cuda|cpu]
+  python -m strelka_tpu_torch somatic --reference ... \\
+      --normal-align-file ... --tumor-align-file ... \\
+      --output-dir ... [--device cuda|cpu]
 
-The other subcommands of strelka_tpu (somatic, denovo, noise-extractor,
-tools) are not ported yet and exit 2.
+The other subcommands of strelka_tpu (denovo, noise-extractor, tools)
+are not ported yet and exit 2.
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("somatic", "denovo", "noise-extractor", "tools")
+NOT_PORTED = ("denovo", "noise-extractor", "tools")
 
 
 def main(argv=None) -> int:
@@ -24,6 +27,9 @@ def main(argv=None) -> int:
     if cmd == "germline":
         from .workflow.germline import run_germline
         return run_germline(rest)
+    if cmd == "somatic":
+        from .workflow.somatic import run_somatic
+        return run_somatic(rest)
     if cmd in NOT_PORTED:
         print(f"{cmd}: not yet ported to strelka_tpu_torch "
               "(use python -m strelka_tpu)", file=sys.stderr)

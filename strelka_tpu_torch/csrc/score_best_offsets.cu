@@ -25,6 +25,16 @@
 // so nothing crosses blocks. The compare-adds run on the CUDA cores, well
 // above the byte bound; an int8 wgmma/IMMA formulation with s32 accumulators
 // and TMA staging is the later redesign.
+//
+// The same kernel, instantiated with kHighest, replaces the TPU kernel's
+// mode="highest" path (pallas_readlik.py:170-177, an f32 HIGHEST matmul of
+// one-hot deltas): s[w] = sum_l delta[r,l] * [codes[r,l] == win[l,w]] +
+// lnmis[r] with unquantized f32 deltas. Each lane keeps four f32 sums and
+// adds every matching delta in ascending l with __fadd_rn, so the order is
+// fixed and nvcc cannot contract it; the result is an f32 sum in another
+// order than the reference's matmul, equal to it within rounding, not bit
+// for bit. It moves the same bytes as the exact mode and does 2*B*R*L*W f32
+// operations, which on the CUDA cores (67 TFLOP/s) bound it by operations.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -46,6 +56,7 @@ __device__ __forceinline__ bool better(float s, int w, float bs, int bw) {
     return s > bs || (s == bs && w < bw);
 }
 
+template <bool kHighest>
 __global__ void __launch_bounds__(kWarps * 32)
 score_best_offsets_kernel(const int8_t* __restrict__ codes,
                           const float* __restrict__ delta,
@@ -89,30 +100,47 @@ score_best_offsets_kernel(const int8_t* __restrict__ codes,
             const float* dr = delta_b + (size_t)r * L;
             int s1[4] = {0, 0, 0, 0};
             int s0[4] = {0, 0, 0, 0};
+            float fs[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // kHighest sums
             for (int l0 = 0; l0 < L; l0 += 32) {
                 // lane t holds base l0+t as (code << 16) | d_int bits 0-15
+                // (kHighest: code << 16, and the f32 delta in dv)
                 const int l = l0 + lane;
                 unsigned packed = kNoRead << 16;
+                float dv = 0.0f;
                 if (l < L) {
                     const int c = cr[l];
-                    const int d = (int)(dr[l] * 2048.0f);
                     const unsigned cc = (c >= 0 && c < 4) ? (unsigned)c
                                                           : kNoRead;
-                    packed = (cc << 16) | ((unsigned)d & 0xFFFFu);
+                    if constexpr (kHighest) {
+                        dv = dr[l];
+                        packed = cc << 16;
+                    } else {
+                        const int d = (int)(dr[l] * 2048.0f);
+                        packed = (cc << 16) | ((unsigned)d & 0xFFFFu);
+                    }
                 }
                 const int n = min(32, L - l0);
                 for (int t = 0; t < n; ++t) {
                     const unsigned p = __shfl_sync(0xffffffffu, packed, t);
                     const unsigned c = p >> 16;
-                    const int limb1 = (int)((p >> 8) & 255u);
-                    const int limb0 = (int)(p & 255u);
                     const unsigned wv = *reinterpret_cast<const unsigned*>(
                         &win_s[(l0 + t) * kWChunk + 4 * lane]);
+                    if constexpr (kHighest) {
+                        const float d = __shfl_sync(0xffffffffu, dv, t);
 #pragma unroll
-                    for (int k = 0; k < 4; ++k) {
-                        const bool m = ((wv >> (8 * k)) & 255u) == c;
-                        s1[k] += m ? limb1 : 0;
-                        s0[k] += m ? limb0 : 0;
+                        for (int k = 0; k < 4; ++k) {
+                            if (((wv >> (8 * k)) & 255u) == c)
+                                fs[k] = __fadd_rn(fs[k], d);
+                        }
+                    } else {
+                        const int limb1 = (int)((p >> 8) & 255u);
+                        const int limb0 = (int)(p & 255u);
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const bool m = ((wv >> (8 * k)) & 255u) == c;
+                            s1[k] += m ? limb1 : 0;
+                            s0[k] += m ? limb0 : 0;
+                        }
                     }
                 }
             }
@@ -123,9 +151,14 @@ score_best_offsets_kernel(const int8_t* __restrict__ codes,
             for (int k = 0; k < 4; ++k) {
                 const int w = w0 + 4 * lane + k;
                 if (w < W) {
-                    const float comb = __fadd_rn(
-                        __fmul_rn((float)s1[k], 256.0f), (float)s0[k]);
-                    const float s = __fadd_rn(__fmul_rn(comb, kQuantInv), ls);
+                    float s;
+                    if constexpr (kHighest) {
+                        s = __fadd_rn(fs[k], ls);
+                    } else {
+                        const float comb = __fadd_rn(
+                            __fmul_rn((float)s1[k], 256.0f), (float)s0[k]);
+                        s = __fadd_rn(__fmul_rn(comb, kQuantInv), ls);
+                    }
                     if (s > bs) {  // k ascending: strict keeps the first
                         bs = s;
                         bw = w;
@@ -160,12 +193,37 @@ score_best_offsets_kernel(const int8_t* __restrict__ codes,
     }
 }
 
+constexpr int kMaxLen = 232448 / kWChunk;  // L * kWChunk bytes of smem
+
+template <bool kHighest>
+int launch(const void* codes, const void* delta, const void* lnmis,
+           const void* win, long long B, long long R, long long L,
+           long long W, void* best, void* off, void* stream) {
+    if (B < 1 || R < 1 || L < 1 || W < 1 || B > 65535 || R > INT_MAX ||
+        L > kMaxLen || W > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    auto kernel = score_best_offsets_kernel<kHighest>;
+    const size_t smem = (size_t)L * kWChunk;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((unsigned)((R + kReadsPerBlock - 1) / kReadsPerBlock),
+                    (unsigned)B);
+    kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const int8_t*)codes, (const float*)delta, (const float*)lnmis,
+        (const int8_t*)win, (int)R, (int)L, (int)W, (float*)best,
+        (int32_t*)off);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Largest read length the launch takes: L * kWChunk bytes of shared memory.
-int score_best_offsets_max_len() { return 232448 / kWChunk; }
+int score_best_offsets_max_len() { return kMaxLen; }
 
 // codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R] f32, win [B,L,W] int8,
 // all contiguous on the device; best [B,R] f32 and off [B,R] int32 out.
@@ -175,24 +233,18 @@ int score_best_offsets_launch(const void* codes, const void* delta,
                               long long B, long long R, long long L,
                               long long W, void* best, void* off,
                               void* stream) {
-    if (B < 1 || R < 1 || L < 1 || W < 1 || B > 65535 || R > INT_MAX ||
-        L > score_best_offsets_max_len() || W > INT_MAX)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)L * kWChunk;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            score_best_offsets_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const dim3 grid((unsigned)((R + kReadsPerBlock - 1) / kReadsPerBlock),
-                    (unsigned)B);
-    score_best_offsets_kernel<<<grid, kWarps * 32, smem,
-                                (cudaStream_t)stream>>>(
-        (const int8_t*)codes, (const float*)delta, (const float*)lnmis,
-        (const int8_t*)win, (int)R, (int)L, (int)W, (float*)best,
-        (int32_t*)off);
-    return (int)cudaGetLastError();
+    return launch<false>(codes, delta, lnmis, win, B, R, L, W, best, off,
+                         stream);
+}
+
+// The mode="highest" function: the same arguments, deltas any f32.
+int score_best_offsets_highest_launch(const void* codes, const void* delta,
+                                      const void* lnmis, const void* win,
+                                      long long B, long long R, long long L,
+                                      long long W, void* best, void* off,
+                                      void* stream) {
+    return launch<true>(codes, delta, lnmis, win, B, R, L, W, best, off,
+                        stream);
 }
 
 }  // extern "C"

@@ -17,6 +17,14 @@ JAX package's exact_best_offsets and its interpret-mode Pallas kernel.
 
 score_best_offsets launches the CUDA kernel for CUDA tensors and uses
 the plain version only for tensors on the CPU.
+
+mode="highest" is the TPU kernel's other path (K1-h): the same max and
+first argmax of sum_l delta[r,l] * [codes[r,l] == win_t[l,w]] + lnmis
+in f32 with unquantized deltas. Its plain version is
+reference_best_offsets (a one-hot f32 bmm), and its CUDA kernel adds
+the deltas in ascending l; an f32 sum is not exact, so the two agree
+within rounding (the tests hold scores to atol 1e-4). No pipeline path
+uses this mode.
 """
 from __future__ import annotations
 
@@ -27,8 +35,11 @@ import torch
 from .readlik import LIMBS, QUANT_INV, QUANT_SCALE
 from .readlik import N_BASE_CODES as N_BASE
 
-# launches of the CUDA kernel (plain-version calls do not count)
+# launches of the CUDA kernel (plain-version calls do not count):
+# mode="exact" in LAUNCHES, mode="highest" in LAUNCHES_HIGHEST
 LAUNCHES = 0
+LAUNCHES_HIGHEST = 0
+MODES = ("exact", "highest")
 
 
 def exact_best_offsets(codes, delta, lnmis, win_t):
@@ -62,32 +73,63 @@ def exact_best_offsets(codes, delta, lnmis, win_t):
     return best, off.to(torch.int32)
 
 
+def highest_scores(codes, delta, lnmis, win_t):
+    """[B, R, W] f32 scores of mode="highest": a one-hot f32 bmm over
+    the (l, base) axis plus lnmis. A code outside 0..3 matches
+    nothing."""
+    B, R, L = codes.shape
+    W = win_t.shape[2]
+    c = codes.to(torch.int64)
+    w = win_t.to(torch.int64)
+    oh_r = torch.stack([c == k for k in range(N_BASE)], dim=-1)
+    a = (oh_r.to(torch.float32) * delta[..., None]).reshape(B, R, L * N_BASE)
+    oh_w = torch.stack([w == k for k in range(N_BASE)], dim=2)  # [B,L,4,W]
+    s = torch.bmm(a, oh_w.to(torch.float32).reshape(B, L * N_BASE, W))
+    return s + lnmis[..., None]
+
+
+def reference_best_offsets(codes, delta, lnmis, win_t):
+    """Plain torch version of mode="highest" — counterpart of
+    pallas_readlik.reference_best_offsets: max and first argmax of
+    highest_scores. Same layout and outputs as exact_best_offsets."""
+    s = highest_scores(codes, delta, lnmis, win_t)
+    off = torch.argmax(s, dim=-1)       # first max
+    best = torch.gather(s, -1, off[..., None])[..., 0]
+    return best, off.to(torch.int32)
+
+
 def _lib():
     from .. import _build
     lib = _build.load("score_best_offsets")
     if not getattr(lib, "_bound", False):
         vp = ctypes.c_void_p
         ll = ctypes.c_longlong
-        lib.score_best_offsets_launch.restype = ctypes.c_int
-        lib.score_best_offsets_launch.argtypes = [
-            vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
+        for fn in (lib.score_best_offsets_launch,
+                   lib.score_best_offsets_highest_launch):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
         lib.score_best_offsets_max_len.restype = ctypes.c_int
         lib._bound = True
     return lib
 
 
-def score_best_offsets(codes, delta, lnmis, win_t):
+def score_best_offsets(codes, delta, lnmis, win_t, mode="exact"):
     """Best score and first argmax offset per (pair, read).
 
     On CUDA tensors this launches the hand-written kernel on the
     current stream (outputs allocated here); on CPU tensors it runs the
-    plain version. Shapes and layout as exact_best_offsets; the kernel
-    takes int8 codes/windows, f32 delta/lnmis, all contiguous.
+    plain version (exact_best_offsets, or reference_best_offsets for
+    mode="highest"). Shapes and layout as exact_best_offsets; the
+    kernel takes int8 codes/windows, f32 delta/lnmis, all contiguous.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_HIGHEST
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     dev = codes.device
     if dev.type == "cpu":
-        return exact_best_offsets(codes, delta, lnmis, win_t)
+        plain = exact_best_offsets if mode == "exact" else \
+            reference_best_offsets
+        return plain(codes, delta, lnmis, win_t)
     if dev.type != "cuda":
         raise ValueError(f"score_best_offsets: unsupported device {dev}")
     B, R, L = codes.shape
@@ -115,12 +157,16 @@ def score_best_offsets(codes, delta, lnmis, win_t):
     best = torch.empty((B, R), dtype=torch.float32, device=dev)
     off = torch.empty((B, R), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.score_best_offsets_launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
-        stream)
+    fn = (lib.score_best_offsets_launch if mode == "exact"
+          else lib.score_best_offsets_highest_launch)
+    rc = fn(codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+            win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
+            stream)
     if rc != 0:
-        raise RuntimeError(f"score_best_offsets launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"score_best_offsets ({mode}) launch failed: "
+                           f"CUDA error {rc}")
+    if mode == "exact":
+        LAUNCHES += 1
+    else:
+        LAUNCHES_HIGHEST += 1
     return best, off

@@ -86,5 +86,6 @@ def test_unported_options_raise(dataset, flag):
 
 
 def test_unported_subcommands_exit_2():
-    assert torch_main(["somatic"]) == 2
+    assert torch_main(["denovo"]) == 2
+    assert torch_main(["noise-extractor"]) == 2
     assert torch_main(["tools"]) == 2

@@ -45,10 +45,13 @@ def test_import_and_cli_help_load_no_jax():
         "import strelka_tpu_torch\n"
         "from strelka_tpu_torch.__main__ import main\n"
         "from strelka_tpu_torch.pipeline import germline_caller, gvcf\n"
-        "try:\n"
-        "    main(['germline', '--help'])\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
+        "from strelka_tpu_torch.pipeline import somatic_caller\n"
+        "from strelka_tpu_torch.models import evs, somatic_indel\n"
+        "for cmd in ('germline', 'somatic'):\n"
+        "    try:\n"
+        "        main([cmd, '--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
@@ -56,7 +59,8 @@ def test_import_and_cli_help_load_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
-    assert "--device" in r.stdout
+    assert r.stdout.count("--device") >= 2
+    assert "--tumor-align-file" in r.stdout
 
 
 def test_cuda_without_gpu_raises(monkeypatch, tmp_path):
@@ -69,6 +73,10 @@ def test_cuda_without_gpu_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         main(["germline", "--reference", "x.fa", "--align-file", "x.bam",
               "--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        main(["somatic", "--reference", "x.fa", "--normal-align-file",
+              "n.bam", "--tumor-align-file", "t.bam", "--output-dir",
+              str(tmp_path), "--device", "cuda"])
     assert devmod.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         devmod.resolve("meta")

@@ -190,3 +190,125 @@ def test_per_locus_path_bit_identical_to_batched():
     bb, bo = port(codes, delta, lnmis, win_t.astype(np.int8))
     np.testing.assert_array_equal(best[:, 0], bb[0])
     np.testing.assert_array_equal(off[:, 0], bo[0])
+
+
+# --- K1-h: mode="highest" (pallas_readlik.py:139-180) ----------------------
+
+HIGHEST_ATOL = 1e-4   # test_pallas_kernel.py:107-108
+
+
+def highest_inputs(rng, B, R, L, W, quantized):
+    """mode="highest" takes any f32 delta: the quantized LUT's, or
+    unquantized values in the LUT's range (whose f32 sums round)."""
+    codes, delta, lnmis, win_t = make_inputs(rng, B, R, L, W)
+    if not quantized:
+        delta = rng.uniform(0.5, 9.5, delta.shape).astype(np.float32)
+    return codes, delta, lnmis, win_t
+
+
+def port_highest(codes, delta, lnmis, win_t):
+    b, o = sk.reference_best_offsets(*(torch.from_numpy(np.asarray(a))
+                                       for a in (codes, delta, lnmis, win_t)))
+    return b.numpy(), o.numpy()
+
+
+def jax_highest_reference(codes, delta, lnmis, win_t):
+    b, o = pk.reference_best_offsets(*(jnp.asarray(a)
+                                       for a in (codes, delta, lnmis, win_t)))
+    return np.asarray(b), np.asarray(o)
+
+
+def jax_highest_interpret(codes, delta, lnmis, win_t):
+    b, o = pk.score_best_offsets(*(jnp.asarray(a)
+                                   for a in (codes, delta, lnmis, win_t)),
+                                 interpret=True, mode="highest")
+    return np.asarray(b), np.asarray(o)
+
+
+def near_tie_rows(codes, delta, lnmis, win_t):
+    """[B, R] bool: the top two scores (f64) lie within HIGHEST_ATOL, so
+    an f32 sum in another order may pick either offset."""
+    oh_r = (codes[..., None] == np.arange(4)) * delta[..., None].astype(
+        np.float64)
+    oh_w = (win_t[..., None] == np.arange(4)).astype(np.float64)
+    s = np.einsum("brlc,blwc->brw", oh_r, oh_w) + lnmis[..., None]
+    s = np.sort(s, axis=-1)
+    return (s[..., -1] - s[..., -2]) <= HIGHEST_ATOL
+
+
+def assert_highest_close(got, want, inp):
+    """Scores within HIGHEST_ATOL; offsets equal outside near-ties.
+    Returns the number of near-tie rows whose offsets differ."""
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=HIGHEST_ATOL)
+    assert got[0].dtype == np.float32 and got[1].dtype == np.int32
+    differ = got[1] != want[1]
+    near = near_tie_rows(*inp)
+    assert not (differ & ~near).any()
+    return int((differ & near).sum())
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,R,L,W", [(4, 32, 128, 128), (2, 128, 160, 256),
+                                     (3, 40, 100, 70)])
+def test_highest_plain_matches_jax_reference(B, R, L, W, quantized):
+    inp = highest_inputs(np.random.default_rng(B + R + L + W), B, R, L, W,
+                         quantized)
+    flips = assert_highest_close(port_highest(*inp),
+                                 jax_highest_reference(*inp), inp)
+    assert flips <= B * R // 100
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_highest_plain_matches_interpret_kernel(quantized):
+    inp = highest_inputs(np.random.default_rng(17), 2, 32, 64, 128,
+                         quantized)
+    assert_highest_close(port_highest(*inp), jax_highest_interpret(*inp),
+                         inp)
+
+
+def test_highest_quantized_deltas_are_exact():
+    """With the quantized LUT's deltas every partial sum is a multiple
+    of 2^-11 below 2^13, so the f32 sums are exact in any order: the
+    highest path then equals the JAX reference bit for bit."""
+    inp = highest_inputs(np.random.default_rng(4), 4, 32, 128, 128, True)
+    assert_same(port_highest(*inp), jax_highest_reference(*inp))
+
+
+def test_highest_ties_and_code4():
+    """Exact ties (the read tiled across the window) resolve to the
+    first offset; a code of 4 on either side matches nothing."""
+    rng = np.random.default_rng(9)
+    B, R, L, W = 4, 32, 64, 192
+    read = rng.integers(0, 4, (L,))
+    codes = np.broadcast_to(read, (B, R, L)).astype(np.int8).copy()
+    hp = np.tile(read, (W + L) // L + 1)
+    win_t = np.stack([hp[l:l + W] for l in range(L)], axis=0)
+    win_t = np.broadcast_to(win_t, (B, L, W)).astype(np.int8).copy()
+    delta_lut, lmis_lut = rl.quantized_qscore_luts()
+    q = rng.integers(2, 42, (B, R, L))
+    delta = delta_lut[q]
+    lnmis = lmis_lut[q].sum(axis=2).astype(np.float32)
+    codes[1, :, :5] = 4
+    win_t[1, :5, :] = 4
+    codes[2] = 4                      # all-4 reads score exactly lnmis
+    inp = (codes, delta, lnmis, win_t)
+    got = port_highest(*inp)
+    for want in (jax_highest_reference(*inp), jax_highest_interpret(*inp)):
+        np.testing.assert_allclose(got[0], want[0], rtol=0,
+                                   atol=HIGHEST_ATOL)
+        np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0][2], lnmis[2])
+    np.testing.assert_array_equal(got[1][2], 0)
+    assert int(got[1][0].max()) == 0  # ties at w and w+L: the first
+
+
+def test_wrapper_highest_on_cpu_runs_plain_version():
+    inp = highest_inputs(np.random.default_rng(6), 2, 32, 64, 128, False)
+    before = (sk.LAUNCHES, sk.LAUNCHES_HIGHEST)
+    b, o = sk.score_best_offsets(*(torch.from_numpy(a) for a in inp),
+                                 mode="highest")
+    assert (sk.LAUNCHES, sk.LAUNCHES_HIGHEST) == before
+    assert_same((b.numpy(), o.numpy()), port_highest(*inp))
+    with pytest.raises(ValueError):
+        sk.score_best_offsets(*(torch.from_numpy(a) for a in inp),
+                              mode="fast")

@@ -46,3 +46,58 @@ def test_tables_from_numpy_rejects_bad_input():
     bad = dict(arrays, snv_qtab=arrays["snv_qtab"].astype(np.float64))
     with pytest.raises(TypeError):
         convert.tables_from_numpy(bad, "cpu")
+
+
+def jax_somatic_arrays(prior):
+    from strelka_tpu.models import somatic_snv as jss
+    grid = jss._freq_grid_matmul_tables()
+    pf, gp = jss.build_joint_prior(*prior)
+    return {**dict(zip(convert.SOMATIC_GRID_DTYPES, grid)),
+            "joint_pf": pf, "joint_gp": gp}
+
+
+def default_prior():
+    from strelka_tpu_torch.options import SomaticOptions
+    return convert.somatic_prior_args(SomaticOptions())
+
+
+@pytest.mark.parametrize("prior", [default_prior(),
+                                   (0.15, 5e-10, 1e-4, 0.001, 0.5)])
+def test_somatic_tables_bit_identical(prior):
+    ours = convert.tables_from_numpy(convert.somatic_numpy_tables(prior),
+                                     "cpu", convert.SOMATIC_TABLE_DTYPES)
+    theirs = convert.tables_from_numpy(jax_somatic_arrays(prior), "cpu",
+                                       convert.SOMATIC_TABLE_DTYPES)
+    assert set(ours) == set(theirs) == set(convert.SOMATIC_TABLE_DTYPES)
+    assert ours["grid_ref"].shape == (128, 21)
+    assert ours["grid_on_ref"].shape == (128, 9)
+    assert ours["joint_pf"].shape == (3, 2, 21, 21)
+    assert ours["joint_gp"].shape == (3, 2)
+    assert torch.isneginf(ours["joint_pf"]).any()
+    for name in convert.SOMATIC_TABLE_DTYPES:
+        a, b = ours[name], theirs[name]
+        assert a.dtype == b.dtype == torch.float32, name
+        # -inf entries of the joint prior compare equal bitwise too
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+def test_somatic_prior_defaults_are_the_somatic_options():
+    """somatic_snv_call's keyword defaults (the JAX signature's) are the
+    default SomaticOptions, and the cached device tables are the numpy
+    ones: the grid tables per device, the joint prior per argument."""
+    import inspect
+
+    from strelka_tpu_torch.models import somatic_snv
+    sig = inspect.signature(somatic_snv.somatic_snv_call).parameters
+    names = ("contam_tolerance", "shared_error_rate", "somatic_rate",
+             "theta", "sse_strand_fraction")
+    assert tuple(sig[n].default for n in names) == default_prior()
+    cpu = torch.device("cpu")
+    want = convert.somatic_numpy_tables(default_prior())
+    got = {**convert.somatic_grid_tables(cpu),
+           **convert.somatic_prior_tables(cpu, default_prior())}
+    assert set(got) == set(convert.SOMATIC_TABLE_DTYPES)
+    for name, a in got.items():
+        assert torch.equal(a.view(torch.int32),
+                           torch.from_numpy(want[name]).view(torch.int32)), name
+    assert convert.somatic_grid_tables(cpu) is convert.somatic_grid_tables(cpu)
