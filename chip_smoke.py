@@ -15,6 +15,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    outside near-ties, at bench.py's shape and two main-path shapes,
    timed; plus bench.py's unquantized deltas held to an f32 rounding
    bound;
+2c. kx: the K1-x variants' runner (python -m
+   strelka_tpu_torch.ops.score_variants) on every variant name of the
+   harness at its shapes, with the launch counters set to 0 just before
+   and read just after (every variant equal to its body's function,
+   every K1-x kernel and K1 launched); its times are the kernels' times
+   at the harness's shape. Then each K1-x kernel of
+   ops/score_variants.KERNELS (KX-P in two instantiations, KX-K, KX-H,
+   KX-I, the four ablations KX-A) against its plain version bit for bit
+   at the harness's shape and the main path's, with tie, ragged and
+   code-4 cases; its plain version timed at both shapes, the kernel and
+   K1 at the main path's;
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -23,7 +34,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    which the port chooses its chunk heights;
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
-   set to 0 just before and read just after;
+   set to 0 just before and read just after (the K1-x kernels' must
+   read 0);
 5. cuda-vs-cpu: the same CLI with --device cpu on the same data; no
    record may differ in CHROM, POS, REF, ALT, FILTER or GT;
 6. somatic e2e: the somatic CLI with --device cuda (WGS mode) on a
@@ -147,24 +159,59 @@ def time_ms(torch, cuda: bool, fn, iters: int, warm: int = 2) -> float:
     return s.elapsed_time(e) / iters
 
 
-def k1_bound_ms(B, R, L, W) -> tuple[float, str]:
-    """Least time for the function on the card: each input read once
-    and each output written once over HBM, against 2*B*R*L*W int8
-    compare-adds at the tensor-core peak."""
-    nbytes = B * (5 * R * L + L * W + 8 * R)
-    ops = 2 * B * R * L * W
+def bound_ms(nbytes, ops, ops_per_s) -> tuple[float, str]:
+    """The larger of the bytes over HBM's rate and the operations over
+    the engine's peak, and which of the two it is."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT8_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_bytes(B, R, L, W) -> int:
+    """codes and delta (5 bytes a base), the window, lnmis in, best and
+    off out: each read or written once."""
+    return B * (5 * R * L + L * W + 12 * R)
+
+
+def k1_bound_ms(B, R, L, W) -> tuple[float, str]:
+    """Least time for the function on the card: its bytes over HBM
+    against 2*B*R*L*W int8 compare-adds at the tensor-core peak."""
+    return bound_ms(k1_bytes(B, R, L, W), 2 * B * R * L * W, INT8_OPS_PER_S)
 
 
 def k1h_bound_ms(B, R, L, W) -> tuple[float, str]:
     """K1-h's least time: K1's bytes against 2*B*R*L*W f32 operations at
     the non-tensor FP32 peak."""
-    nbytes = B * (5 * R * L + L * W + 8 * R)
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = 2 * B * R * L * W / F32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    return bound_ms(k1_bytes(B, R, L, W), 2 * B * R * L * W, F32_OPS_PER_S)
+
+
+def kx_bound_ms(kind, B, R, L, W, H=1, G=1) -> tuple[float, str]:
+    """A K1-x kernel's least time, by K1's rule: the bytes of its own
+    operands (packed: 4 bytes a base; folded: lnmis inside the packed
+    rows; hap: H windows and H outputs a read; noA: no codes; noW: one
+    window in G pairs; nodot: the bases and window rows its slices
+    read) against its compare-adds at the int8 tensor-core peak (KX-I:
+    the 2R x 4L x W product's multiply-adds, which its tensor cores
+    run; nodot: 2 f32 operations an output score)."""
+    ops, peak = 2 * H * B * R * L * W, INT8_OPS_PER_S
+    if kind == "packed":
+        nbytes = B * (4 * R * L + 4 * R + L * W + 8 * R)
+    elif kind == "packed_fold":
+        nbytes = B * (4 * (R + -(-R // L)) * L + L * W + 8 * R)
+    elif kind == "hap":
+        nbytes = B * (5 * R * L + 4 * R + L * H * W + 8 * R * H)
+    elif kind == "noA":
+        nbytes = B * (4 * R * L + L * W + 12 * R)
+    elif kind == "noW":
+        nbytes = B * (5 * R * L + 12 * R) + -(-B // G) * L * W
+    elif kind == "nodot":
+        nbytes = B * (5 * R * min(L, W) + min(R, L) * W + 12 * R)
+        ops, peak = 2 * B * R * W, F32_OPS_PER_S
+    else:
+        nbytes = k1_bytes(B, R, L, W)
+    if kind == "int8":
+        ops = 16 * B * R * L * W
+    return bound_ms(nbytes, ops, peak)
 
 
 def k1_random(np, rng, B, R, L, W):
@@ -196,6 +243,135 @@ def k1_ties(np, rng, B, R, L, W):
     delta = dl[q]
     lnmis = ll[q].sum(axis=2).astype(np.float32)
     return codes, delta, lnmis, win
+
+
+def k1_code4(np, rng, B, R, L, W):
+    """Random inputs with pair 0's reads all code 4 under non-zero
+    deltas and its window code 4 at the first 7 offsets: pair 0 scores
+    exactly lnmis at offset 0."""
+    codes, delta, lnmis, win = k1_random(np, rng, B, R, L, W)
+    codes[0] = 4
+    win[0, :, :7] = 4
+    return codes, delta, lnmis, win
+
+
+# the variant whose runner time is each K1-x kernel's at the harness's
+# shape: the kernel alone, on operands staged as it takes them
+KX_TIMED_BY = {"packed": "fusedin", "packed_fold": "fusedlm",
+               "onesum": "limb2k", "hap": "hap2", "int8": "int8",
+               "noA": "limb2-noA", "noW": "limb2-noW",
+               "nomax": "limb2-nomax", "nodot": "limb2-nodot"}
+
+
+def kx_zero(sv):
+    for k in sv.KERNELS.values():
+        setattr(sv, k.counter, 0)
+
+
+def kx_read(sv) -> dict[str, int]:
+    return {k.counter: getattr(sv, k.counter) for k in sv.KERNELS.values()}
+
+
+def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
+    """The variants runner, this slice's path, on every variant name,
+    with every counter set to 0 just before and read just after. Fails
+    unless every variant equals its body's function and, on the card,
+    every K1-x kernel and K1 launched. Returns (counters, {name: row})."""
+    names = [*sv.K1_VARIANTS, "limb2r@8", "fused", "fusedwhole", "fusedin",
+             "fusedlm", "limb2k", "hap2", "int8", "limb2-noA", "limb2-noW",
+             "limb2-nomax", "limb2-nodot"]
+    kx_zero(sv)
+    sk.LAUNCHES = 0
+    sk.LAUNCHES_HIGHEST = 0
+    try:
+        rows = sv.run(names, dev.type, B, R)
+    finally:
+        got = kx_read(sv)
+        got["k1"] = sk.LAUNCHES
+        got["k1h"] = sk.LAUNCHES_HIGHEST
+    bad = [r["name"] for r in rows if not r["body_exact"]]
+    if bad:
+        fail(f"the variants runner: {bad} differ from their body's function")
+    idle = [c for c, n in got.items() if c != "k1h" and n == 0]
+    if cuda and idle:
+        fail(f"the variants runner launched {idle} no time")
+    log("kx runner launches: " + json.dumps(got))
+    return got, {r["name"]: r for r in rows}
+
+
+def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
+             runner):
+    """Each K1-x kernel against its plain version, bit for bit, at
+    `shapes` (hap: `hap_shapes`, B loci x sv.HAP_WINDOWS windows of W) on
+    random inputs (code 4 under non-zero deltas), plus the `edge` cases
+    (ties, ragged, code 4). At the first shape, the harness's, the
+    kernel's and K1's times are the runner's (`runner` rows); at the
+    others both are timed here, K1 at the same shape (hap: one launch a
+    window). The plain version is timed at each shape. Returns {kind:
+    rows}."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
+    rng = np.random.default_rng(2026)
+    H, G = sv.HAP_WINDOWS, sv.DEFAULT_G
+    cache = {}
+
+    def inputs(make, B, R, L, W):
+        key = (make.__name__, B, R, L, W)
+        if key not in cache:
+            arrs = make(np, rng, B, R, L, W)
+            cache[key] = [torch.from_numpy(a).to(dev) for a in arrs]
+        return cache[key]
+
+    def ms(fn, iters=20, warm=3):
+        return sv.median_ms(fn, dev, iters if cuda else 1, warm if cuda else 0)
+
+    out = {}
+    for kind, k in sv.KERNELS.items():
+        hap = kind == "hap"
+        cases = [("random", s, k1_random)
+                 for s in (hap_shapes if hap else shapes)] + edge
+        rows = []
+        for i, (case, (B, R, L, W), make) in enumerate(cases):
+            t = inputs(make, B, R, L, H * W if hap else W)
+            args = k.prepare(t, G)
+            got, want = k.call(*args), k.plain(*args)
+            if cuda:
+                torch.cuda.synchronize()
+            bad = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(got, want)]
+            if any(bad):
+                fail(f"kx {k.label} {case} {[B, R, L, W]}: kernel differs "
+                     f"from the plain version ({bad} entries)")
+            row = {"case": case, "shape": [B, R, L, W],
+                   "max_abs_err": float((got[0] - want[0]).abs().max())}
+            if hap:
+                row["windows"] = H
+            if kind == "noW":
+                row["G"] = G
+            if case == "random":
+                if i == 0:
+                    row["ms"] = runner[KX_TIMED_BY[kind]]["step_ms"]
+                    row["k1_ms"] = runner["base"]["step_ms"]
+                    row["timed_by"] = "runner"
+                else:
+                    row["ms"] = ms(lambda: k.call(*args))
+                    if hap:
+                        c, d, m, w = t
+                        wins = [w[:, :, h * W:(h + 1) * W].contiguous()
+                                for h in range(H)]
+                        k1 = lambda: [sk.score_best_offsets(c, d, m, x)  # noqa: E731
+                                      for x in wins]
+                    else:
+                        k1 = lambda: sk.score_best_offsets(*t)  # noqa: E731
+                    row["k1_ms"] = ms(k1)
+                row["plain_ms"] = ms(lambda: k.plain(*args), 5, 1)
+                row["bound_ms"], row["bound_by"] = kx_bound_ms(
+                    kind, B, R, L, W, H if hap else 1, G)
+            rows.append(row)
+            log(f"kx {k.label}: " + json.dumps(row))
+            del t, args, got, want
+        out[kind] = rows
+    return out
 
 
 def phase_build(torch, cuda: bool):
@@ -550,21 +726,24 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     and read just after; stream time of each device phase by CUDA
     events; somatic SNV recall against the planted truth (all records,
     and the PASS records that the 0.9 gate reads). Returns the kernel
-    launches (mode="exact", mode="highest")."""
+    launches (mode="exact", mode="highest", the K1-x counters)."""
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
     timer = StreamTimer(torch, cuda)
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods")
     timer.wrap(ss, "somatic_snv_call", "somatic_posterior")
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
+    kx_zero(sv)
     ss.LAUNCH_STATS.clear()
     try:
         wall = run_somatic_cli(fa, nbam, tbam, out, device)
     finally:
         launches = sk.LAUNCHES
         launches_highest = sk.LAUNCHES_HIGHEST
+        kx = kx_read(sv)
         tiles = dict(ss.LAUNCH_STATS)
         timer.restore()
     phase_ms = timer.totals_ms()
@@ -588,6 +767,8 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
              f"{device}")
     if pass_recall < 0.9:
         fail(f"somatic SNV PASS recall {pass_recall:.4f} is below 0.9")
+    if any(kx.values()):
+        fail(f"the somatic path launched a K1-x kernel: {kx}")
     dev_ms = sum(phase_ms.values())
     log("somatic_e2e: " + json.dumps({
         "device": device, "contig_mb": mb, "reads": n_reads, "wall_s": wall,
@@ -595,10 +776,11 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
         "indel_records": len(indels), "som_snv_planted": len(som_snv),
         "som_snv_recall": recall, "som_snv_pass_recall": pass_recall,
         "k1_launches": launches, "k1h_launches": launches_highest,
+        "kx_launches": kx,
         "grid_tile_launches": n_grid, "posterior_launches": n_post,
         "stream_ms_by_phase": phase_ms,
         "device_phase_share_of_wall": dev_ms / 1e3 / wall}))
-    return launches, launches_highest
+    return launches, launches_highest, kx
 
 
 def compare_somatic_runs(a_dir, b_dir):
@@ -689,9 +871,11 @@ def compare_runs(a_dir, b_dir):
 def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     """The CLI on `device` with the launch counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
-    events. Returns (k1 launches, k1h launches, k1 launch shapes)."""
+    events. Returns (k1 launches, k1h launches, k1 launch shapes, the
+    K1-x counters)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
     from strelka_tpu_torch.pipeline import realign_batch as rb
     if cuda:
         from strelka_tpu_torch import _build
@@ -702,6 +886,7 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
+    kx_zero(sv)
     sd.LAUNCH_STATS.clear()
     rb.LAUNCH_STATS = {}
     try:
@@ -709,6 +894,7 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     finally:
         launches = sk.LAUNCHES
         launches_highest = sk.LAUNCHES_HIGHEST
+        kx = kx_read(sv)
         snv_tiles = dict(sd.LAUNCH_STATS)
         score_shapes = dict(rb.LAUNCH_STATS)
         rb.LAUNCH_STATS = None
@@ -723,17 +909,20 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
         fail("the main path ran no SNV tile on the card")
     if not score_shapes:
         fail("the main path scored no read x haplotype pair")
+    if any(kx.values()):
+        fail(f"the germline path launched a K1-x kernel: {kx}")
     e2e = {"contig_mb": mb, "reads": n_reads, "wall_s": wall,
            "reads_per_s": n_reads / wall,
            "variant_records": len(var), "gvcf_records": len(gv),
            "k1_launches": launches, "k1h_launches": launches_highest,
+           "kx_launches": kx,
            "snv_tile_launches": {",".join(map(str, k)): v
                                  for k, v in snv_tiles.items()},
            "stream_ms_by_phase": phase_ms,
            "k1_launch_shapes": {",".join(map(str, k)): v
                                 for k, v in score_shapes.items()}}
     log("e2e: " + json.dumps(e2e))
-    return launches, launches_highest, score_shapes
+    return launches, launches_highest, score_shapes, kx
 
 
 def main(argv=None) -> int:
@@ -768,7 +957,8 @@ def main(argv=None) -> int:
 
     main_shapes = [(256, r, 160, w) for r in (32, 128, 512)
                    for w in (256, 320)]
-    main_shapes += [(256, 128, 128, 192), (128, 32, 128, 192)]
+    main_shapes += [(256, 128, 128, 192), (128, 32, 128, 192),
+                    (512, 128, 128, 128)]   # the K1-x harness's shape
     if rehearse:
         main_shapes = [(8, 32, 64, 64), (4, 128, 96, 128)]
     log("== phase 2: k1 kernel vs plain version")
@@ -783,6 +973,30 @@ def main(argv=None) -> int:
     k1h_rows, k1h_err = phase_k1h(np, torch, dev, cuda, k1h_shapes,
                                   iters=1 if rehearse else 20)
 
+    log("== phase 2c: the K1-x variants' runner, then each kernel vs its "
+        "plain version")
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
+    t_kx = time.perf_counter()
+    B, R, L, W = sv.HARNESS_SHAPE
+    if rehearse:
+        B, R = 8, 16
+    kx_runner, runner_rows = phase_kx_runner(torch, sv, sk, dev, cuda, B, R)
+    kx_shapes = [(B, R, L, W), (256, 128, 160, 256)]
+    kx_hap = [(B // 2, R, L, W), (128, 128, 160, 256)]
+    if rehearse:
+        kx_shapes = [(B, R, L, W), (4, 32, 160, 64)]
+        kx_hap = [(B // 2, R, L, W), (2, 32, 160, 64)]
+    kx_edge = [("ties", (8, 32, 32, 96) if rehearse else (64, 32, 128, 320),
+                k1_ties),
+               ("ties", (4, 32, 64, 64) if rehearse else (16, 128, 160, 256),
+                k1_ties),
+               ("ragged", (3, 40, 100, 70), k1_random),
+               ("code4", (4, 32, 64, 64), k1_code4)]
+    kx_rows = phase_kx(np, torch, dev, cuda, kx_shapes, kx_hap, kx_edge,
+                       runner_rows)
+    log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
+
     log("== phase 3: snv tiles vs the CPU path")
     phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000)
 
@@ -793,7 +1007,7 @@ def main(argv=None) -> int:
     log(f"== phase 4: germline --device {dev.type} end to end")
     fa, bam, n_reads = make_dataset(np, workdir, mb)
     out_dev = os.path.join(workdir, f"out_{dev.type}")
-    launches, h_launches, score_shapes = phase_e2e(
+    launches, h_launches, score_shapes, kx_germline = phase_e2e(
         torch, cuda, fa, bam, n_reads, mb, out_dev, dev.type)
     # k1 again at the main path's most frequent launch shape
     top = max(score_shapes, key=score_shapes.get)
@@ -815,7 +1029,7 @@ def main(argv=None) -> int:
     tn = make_tn_dataset(np, workdir, tn_mb)
     fa_tn, nbam, tbam, n_tn, som_snv = tn
     som_dev = os.path.join(workdir, f"som_{dev.type}")
-    som_launches, som_h_launches = phase_somatic_e2e(
+    som_launches, som_h_launches, kx_somatic = phase_somatic_e2e(
         torch, cuda, fa_tn, nbam, tbam, n_tn, som_snv, tn_mb, som_dev,
         dev.type)
     if cuda:
@@ -836,9 +1050,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
         "replaces": "strelka_tpu/ops/pallas_readlik.py:76",
-        "launches": launches + som_launches,
+        "launches": launches + som_launches + kx_runner["k1"],
         "launches_by_path": {"germline": launches,
-                             "somatic": som_launches},
+                             "somatic": som_launches,
+                             "variants_runner": kx_runner["k1"]},
         "max_abs_err": k1_err,
         "shape": top["shape"],
         "ms": top["ms"],
@@ -853,9 +1068,10 @@ def main(argv=None) -> int:
         "replaces": "strelka_tpu/ops/pallas_readlik.py:170",
         # counted in phases 4 and 6 like K1; no CLI path runs
         # mode="highest", so phase 2b alone is expected to launch it
-        "launches": h_launches + som_h_launches,
+        "launches": h_launches + som_h_launches + kx_runner["k1h"],
         "launches_by_path": {"germline": h_launches,
-                             "somatic": som_h_launches},
+                             "somatic": som_h_launches,
+                             "variants_runner": kx_runner["k1h"]},
         "max_abs_err": k1h_err,
         "tolerance": f"atol {K1H_ATOL} (quantized deltas); f32 rounding "
                      f"bound (unquantized)",
@@ -866,6 +1082,32 @@ def main(argv=None) -> int:
         "bound_by": k1h["bound_by"],
         "library_ms": None,
     }]
+    for kind, k in sv.KERNELS.items():
+        rows = kx_rows[kind]
+        top = rows[0]   # the harness's shape
+        c = k.counter
+        kernels.append({
+            "name": k.label,
+            "route": "cuda",
+            "source": sv.SOURCE,
+            "replaces": k.replaces,
+            "launches": kx_runner[c] + kx_germline[c] + kx_somatic[c],
+            "launches_by_path": {"germline": kx_germline[c],
+                                 "somatic": kx_somatic[c],
+                                 "variants_runner": kx_runner[c]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "tolerance": "bit for bit",
+            "shape": top["shape"] + ([sv.HAP_WINDOWS] if kind == "hap"
+                                     else []),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "k1_ms": top["k1_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            # no PyTorch call computes max and first argmax over the
+            # product (torch._int_mm gives only KX-I's product)
+            "library_ms": None,
+        })
     if rehearse:
         log(json.dumps({"kernels": kernels}))
         log("rehearsal done (CPU): no result line")

@@ -16,22 +16,35 @@ import numpy as np
 
 from ..ops.rf import Forest, load_scoring_model
 
+# Default model locations, read when no model file is given. The
+# reference ships its trained models under
+# src/config/empiricalVariantScoring/models; the port looks for them
+# under the same relative path inside its own package, so it reads
+# nothing outside its checkout. Deployments may pass their own files.
+_REF_MODEL_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "config", "empiricalVariantScoring", "models")
+DEFAULT_SOMATIC_SNV_MODEL = os.path.join(_REF_MODEL_DIR, "somaticSNVScoringModels.json")
+DEFAULT_SOMATIC_INDEL_MODEL = os.path.join(_REF_MODEL_DIR, "somaticIndelScoringModels.json")
+
 MAX_EVS = 60.0  # somaticAlleleUtil.cpp:36
 
 
 def load_somatic_snv_model(path: str | None = None) -> Forest | None:
-    """The somatic SNV forest at `path`, or None when no model file is
-    given or it does not exist. The port ships no default model: with
-    no file the rule-based filters apply, as in the JAX package when
-    its default model directory is absent."""
-    if not path or not os.path.exists(path):
+    """The somatic SNV forest at `path`, else at the default location;
+    None when that file does not exist (the rule-based filters then
+    apply)."""
+    path = path or DEFAULT_SOMATIC_SNV_MODEL
+    if not os.path.exists(path):
         return None
     return load_scoring_model(path, "SNV", "Somatic")
 
 
 def load_somatic_indel_model(path: str | None = None) -> Forest | None:
-    """The somatic indel forest at `path` (None as for SNVs)."""
-    if not path or not os.path.exists(path):
+    """The somatic indel forest at `path` or the default (None as for
+    SNVs)."""
+    path = path or DEFAULT_SOMATIC_INDEL_MODEL
+    if not os.path.exists(path):
         return None
     return load_scoring_model(path, "INDEL", "Somatic")
 

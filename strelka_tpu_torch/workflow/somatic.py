@@ -384,12 +384,15 @@ def run_somatic(argv=None) -> int:
     p.add_argument("--min-qss-filter", type=int, default=15)
     p.add_argument("--max-region-size", type=int, default=1_000_000)
     p.add_argument("--somatic-snv-scoring-model-file", default=None,
-                   help="EVS model JSON for somatic SNVs; no default model "
-                        "ships with this package, so without this file "
-                        "the rule-based filters apply")
+                   help="EVS model JSON for somatic SNVs (default: "
+                        "config/empiricalVariantScoring/models/"
+                        "somaticSNVScoringModels.json in the package; "
+                        "where no model exists the rule-based filters "
+                        "apply)")
     p.add_argument("--somatic-indel-scoring-model-file", default=None,
-                   help="EVS model JSON for somatic indels (no default, "
-                        "as for SNVs)")
+                   help="EVS model JSON for somatic indels (default: "
+                        "somaticIndelScoringModels.json beside the SNV "
+                        "model)")
     p.add_argument("--disable-evs", action="store_true")
     p.add_argument("--report-evs-features", action="store_true",
                    help="append ;EVSF=<scoring features> to records for "

@@ -1,7 +1,9 @@
-"""Tests of the port that need the card: the CUDA kernel (both modes)
-against its plain versions, the SNV tiles and the somatic SNV model on
-the card against the CPU path, and the germline and somatic CLIs with
---device cuda against --device cpu. They skip without a GPU. On a machine with one (which need not have jax):
+"""Tests of the port that need the card: the CUDA kernels (K1 in both
+modes and the K1-x variants) against their plain versions, the SNV
+tiles and the somatic SNV model on the card against the CPU path, and
+the germline and somatic CLIs with --device cuda against --device cpu.
+They skip without a GPU. On a machine with one (which need not have
+jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -205,3 +207,79 @@ def test_somatic_cli_cuda_matches_cpu(cuda, tmp_path):
                 recs.append([l for l in f if not l.startswith("#")])
         assert recs[0] == recs[1], name
         assert recs[0], name
+
+
+# --- the K1-x kernels (ops/score_variants.py) -------------------------------
+
+KX_KINDS = ("packed", "packed_fold", "onesum", "hap", "int8", "noA", "noW",
+            "nomax", "nodot")
+
+
+@pytest.mark.parametrize("kind", KX_KINDS)
+@pytest.mark.parametrize("B,R,L,W", [(16, 128, 160, 256), (3, 40, 100, 70)])
+def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
+    """Each K1-x kernel (ops/score_variants.KERNELS) equals its plain
+    version bit for bit, with pair 0's reads all code 4 under non-zero
+    deltas (K1's functions then score exactly lnmis there)."""
+    from strelka_tpu_torch.ops import score_variants as sv
+    k = sv.KERNELS[kind]
+    Wt = 2 * W if kind == "hap" else W
+    arrs = k1_inputs(np.random.default_rng(B + R + L + W), B, R, L, Wt)
+    arrs[0][0] = 4                      # pair 0: all code 4 under deltas
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    args = k.prepare(t, 2)
+    before = getattr(sv, k.counter)
+    got = k.call(*args)
+    assert getattr(sv, k.counter) == before + 1
+    want = k.plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if kind not in ("noA", "nodot"):
+        assert torch.equal(got[0][0].reshape(R, -1)[:, 0], t[2][0])
+
+
+def test_kx_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from strelka_tpu_torch.ops import score_variants as sv
+    c, d, m, w = (torch.from_numpy(a).to(cuda)
+                  for a in k1_inputs(np.random.default_rng(1), 2, 32, 64, 64))
+    for fn in (sv.score_onesum, sv.score_int8,
+               lambda *a: sv.score_hap(*a, 2),
+               lambda *a: sv.score_ablation("noW", *a, G=2)):
+        with pytest.raises(ValueError):
+            fn(c.to(torch.int32), d, m, w)
+        with pytest.raises(ValueError):  # not contiguous
+            fn(c, d, m, w.transpose(1, 2))
+        with pytest.raises(ValueError):
+            fn(c, d.cpu(), m, w)
+    p = sv.pack_operands(c, d, m)
+    with pytest.raises(ValueError):
+        sv.score_packed(p.to(torch.int64), m, w)
+    with pytest.raises(ValueError):
+        sv.score_packed(p[:, :, ::2], m, w[:, ::2])
+    with pytest.raises(ValueError):
+        sv.score_packed(p, m.cpu(), w)
+    with pytest.raises(ValueError):  # folded rows need the read count
+        sv.score_packed(sv.pack_operands(c, d, m, fold_lnmis=True), None, w)
+    with pytest.raises(ValueError):
+        sv.score_onesum(*(torch.zeros(s, dtype=dt, device=cuda) for s, dt in (
+            ((1, 2, 257), torch.int8), ((1, 2, 257), torch.float32),
+            ((1, 2), torch.float32), ((1, 257, 8), torch.int8))))
+    with pytest.raises(ValueError, match="4L"):
+        sv.score_ablation("nodot", c, d, m,
+                          torch.zeros((2, 64, 257), dtype=torch.int8,
+                                      device=cuda))
+
+
+def test_kx_runner_on_card_is_exact(cuda, capsys):
+    """K1's function and hap2 are exact against the harness's oracle;
+    every variant, int8 and the ablations included, equals its body's
+    own function."""
+    from strelka_tpu_torch.ops import score_variants as sv
+    names = ["base", "fused", "fusedin", "fusedlm", "limb2k", "hap2",
+             "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
+    assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(names)
+    assert all("body_exact=True" in l for l in lines)
+    assert all(" exact=True" in l for l in lines[:6])

@@ -35,14 +35,25 @@ TUMOR = dict(COMMON, depth=50, seed=22, somatic_every=1500,
              somatic_vaf=0.35, somatic_indel_every=2100)
 
 
+DEFAULT_MODELS = ("DEFAULT_SOMATIC_SNV_MODEL", "DEFAULT_SOMATIC_INDEL_MODEL")
+
+
+def _pin_default_models(monkeypatch, paths):
+    """Point both packages' default somatic SNV and indel model paths at
+    `paths` (one per name in DEFAULT_MODELS)."""
+    from strelka_tpu.models import evs as jevs
+    from strelka_tpu_torch.models import evs as tevs
+    for mod in (jevs, tevs):
+        for name, path in zip(DEFAULT_MODELS, paths):
+            monkeypatch.setattr(mod, name, path)
+
+
 @pytest.fixture(autouse=True)
 def no_default_evs_model(monkeypatch, tmp_path):
-    """strelka_tpu scores with EVS by default where the reference's model
-    directory exists; the port ships no default model (ROADMAP §3), so
-    both packages run without one unless a test passes model files."""
-    from strelka_tpu.models import evs as jevs
-    for name in ("DEFAULT_SOMATIC_SNV_MODEL", "DEFAULT_SOMATIC_INDEL_MODEL"):
-        monkeypatch.setattr(jevs, name, str(tmp_path / "absent.json"))
+    """Both packages score with EVS by default where their default model
+    files exist; pin both defaults to an absent file so that they run
+    without a model unless a test passes or pins model files."""
+    _pin_default_models(monkeypatch, [str(tmp_path / "absent.json")] * 2)
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +154,24 @@ def test_scoring_model_files_byte_identical_to_jax(dataset, evs_models):
     jout, tout = str(d / "jax_models"), str(d / "torch_models")
     assert jax_somatic(_args(fa, nbam, tbam, jout, extra)) in (0, None)
     assert torch_main(["somatic", *_args(fa, nbam, tbam, tout, extra),
+                       "--device", "cpu"]) == 0
+    for name in OUTPUTS:
+        a, b = _lines(jout, name), _lines(tout, name)
+        assert a == b, name
+        recs = [l for l in a if not l.startswith("#")]
+        assert recs and all(";SomaticEVS=" in l for l in recs), name
+
+
+def test_default_models_byte_identical_to_jax(dataset, evs_models,
+                                             monkeypatch):
+    """With no model flag both packages load their default model files:
+    pointed at the same forests, the VCFs are byte-identical and scored
+    with EVS."""
+    _pin_default_models(monkeypatch, evs_models)
+    d, fa, nbam, tbam, _ = dataset
+    jout, tout = str(d / "jax_default"), str(d / "torch_default")
+    assert jax_somatic(_args(fa, nbam, tbam, jout, ["--exome"])) in (0, None)
+    assert torch_main(["somatic", *_args(fa, nbam, tbam, tout, ["--exome"]),
                        "--device", "cpu"]) == 0
     for name in OUTPUTS:
         a, b = _lines(jout, name), _lines(tout, name)
