@@ -7,9 +7,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build: the host library (make -C native) and every CUDA kernel of
    strelka_tpu_torch/csrc (one nvcc per source, started together);
-2. k1: the scoring kernel against its plain torch version on the card,
-   bit for bit, at the main path's shapes plus tie and code-4 cases,
-   with both timed by CUDA events;
+2. k1: the scoring kernel (tensor cores, csrc/score_best_offsets_tc.cu)
+   against its plain torch version on the card, bit for bit, at the main
+   path's shapes plus tie, ragged and code-4 cases, timed by CUDA events
+   beside the plain version and K1-s (the earlier SIMT kernel, held bit
+   for bit too), with each time's share of the bound;
 2b. k1h: the kernel's mode="highest" instantiation against its plain
    version (one-hot f32 bmm), scores within 1e-4 and offsets equal
    outside near-ties, at bench.py's shape and two main-path shapes,
@@ -22,10 +24,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every K1-x kernel and K1 launched); its times are the kernels' times
    at the harness's shape. Then each K1-x kernel of
    ops/score_variants.KERNELS (KX-P in two instantiations, KX-K, KX-H,
-   KX-I, the four ablations KX-A) against its plain version bit for bit
-   at the harness's shape and the main path's, with tie, ragged and
-   code-4 cases; its plain version timed at both shapes, the kernel and
-   K1 at the main path's;
+   KX-I, the four ablations KX-A, and K1-s) against its plain version
+   bit for bit at the harness's shape and the main path's, with tie,
+   ragged and code-4 cases; its plain version timed at both shapes, the
+   kernel and K1 at the main path's (K1-s, which no variant name runs,
+   at both);
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -34,15 +37,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    which the port chooses its chunk heights;
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
-   set to 0 just before and read just after (the K1-x kernels' must
-   read 0);
+   set to 0 just before and read just after (the K1-x kernels' and
+   K1-s's must read 0), K1's launches by shape and its stream ms;
 5. cuda-vs-cpu: the same CLI with --device cpu on the same data; no
    record may differ in CHROM, POS, REF, ALT, FILTER or GT;
 6. somatic e2e: the somatic CLI with --device cuda (WGS mode) on a
    synthetic tumor/normal contig (default 2 Mb, normal 30x, tumor 60x,
-   150 bp reads), counters set to 0 just before and read just after;
-   90% or more of the planted somatic SNVs must be called with FILTER
-   PASS;
+   150 bp reads), counters set to 0 just before and read just after,
+   K1's launches by shape and its stream ms; 90% or more of the
+   planted somatic SNVs must be called with FILTER PASS;
 7. somatic cuda-vs-cpu: the same with --device cpu; no record may
    differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT.
 
@@ -227,8 +230,9 @@ def k1_random(np, rng, B, R, L, W):
 
 def k1_ties(np, rng, B, R, L, W):
     """Windows that tie exactly (the read content tiled with period L,
-    so offsets w and w+L tie, across the kernel's 128-offset chunks)
-    plus one near-tie per pair a single q=2 base away."""
+    so offsets w and w+L tie, across K1's 64-offset N tiles and K1-s's
+    128-offset chunks) plus one near-tie per pair a single q=2 base
+    away."""
     from strelka_tpu_torch.ops import readlik
     dl, ll = readlik.quantized_qscore_luts()
     read = rng.integers(0, 4, (L,))
@@ -245,6 +249,29 @@ def k1_ties(np, rng, B, R, L, W):
     return codes, delta, lnmis, win
 
 
+def k1_tile_ties(np, rng, B, R, L, W):
+    """Each pair's reads all carry one sequence, and two offsets of its
+    window carry it exactly, so they tie at the top for every read: on
+    both sides of, left of, right of and a tile across a boundary of
+    K1's N tiles, the pairs taking the boundaries and placements in
+    turn."""
+    from strelka_tpu_torch.ops import readlik
+    from strelka_tpu_torch.ops.score_kernel import TC_N_TILE as n_tile
+    dl, ll = readlik.quantized_qscore_luts()
+    cols = [(t + a, t + b) for t in range(n_tile, W, n_tile)
+            for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, n_tile))
+            if t + b < W]
+    reads = rng.integers(0, 4, (B, L))
+    codes = np.repeat(reads[:, None], R, axis=1).astype(np.int8)
+    q = rng.integers(2, 42, (B, R, L))
+    win = rng.integers(0, 4, (B, L, W)).astype(np.int8)
+    for b in range(B):
+        for w in cols[b % len(cols)]:
+            win[b, :, w] = reads[b]
+    lnmis = ll[q].sum(axis=2).astype(np.float32)
+    return codes, dl[q], lnmis, win
+
+
 def k1_code4(np, rng, B, R, L, W):
     """Random inputs with pair 0's reads all code 4 under non-zero
     deltas and its window code 4 at the first 7 offsets: pair 0 scores
@@ -256,7 +283,8 @@ def k1_code4(np, rng, B, R, L, W):
 
 
 # the variant whose runner time is each K1-x kernel's at the harness's
-# shape: the kernel alone, on operands staged as it takes them
+# shape: the kernel alone, on operands staged as it takes them (K1-s,
+# which no variant name runs, is timed by phase_kx itself)
 KX_TIMED_BY = {"packed": "fusedin", "packed_fold": "fusedlm",
                "onesum": "limb2k", "hap": "hap2", "int8": "int8",
                "noA": "limb2-noA", "noW": "limb2-noW",
@@ -292,7 +320,8 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     bad = [r["name"] for r in rows if not r["body_exact"]]
     if bad:
         fail(f"the variants runner: {bad} differ from their body's function")
-    idle = [c for c, n in got.items() if c != "k1h" and n == 0]
+    runs = {sv.KERNELS[k].counter for k in KX_TIMED_BY} | {"k1"}
+    idle = [c for c, n in got.items() if c in runs and n == 0]
     if cuda and idle:
         fail(f"the variants runner launched {idle} no time")
     log("kx runner launches: " + json.dumps(got))
@@ -349,7 +378,7 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
             if kind == "noW":
                 row["G"] = G
             if case == "random":
-                if i == 0:
+                if i == 0 and kind in KX_TIMED_BY:
                     row["ms"] = runner[KX_TIMED_BY[kind]]["step_ms"]
                     row["k1_ms"] = runner["base"]["step_ms"]
                     row["timed_by"] = "runner"
@@ -364,6 +393,8 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
                     else:
                         k1 = lambda: sk.score_best_offsets(*t)  # noqa: E731
                     row["k1_ms"] = ms(k1)
+                    if i == 0:
+                        row["timed_by"] = "phase_kx"
                 row["plain_ms"] = ms(lambda: k.plain(*args), 5, 1)
                 row["bound_ms"], row["bound_by"] = kx_bound_ms(
                     kind, B, R, L, W, H if hap else 1, G)
@@ -400,39 +431,61 @@ def phase_build(torch, cuda: bool):
 def phase_k1(np, torch, dev, cuda: bool, shapes, iters: int,
              edge_cases: bool = True):
     """Kernel vs plain version at each shape (random inputs, code 4
-    under non-zero deltas), plus exact ties across offset chunks and a
-    ragged shape; returns per-case rows."""
+    under non-zero deltas), plus exact ties across N tiles and offset
+    chunks, a ragged shape and code 4 against window code 4; K1-s held
+    to the same plain version. At each random shape the kernel, K1-s
+    (prev_ms) and the plain version are timed, and the kernel's time
+    set against the bound (bound_share). Returns per-case rows."""
     from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
     rng = np.random.default_rng(2024)
     rows = []
     cases = [("random", s, k1_random) for s in shapes]
     if edge_cases:
         cases += [("ties", (64, 32, 128, 320), k1_ties),
                   ("ties", (16, 128, 160, 256), k1_ties),
-                  ("ragged", (3, 40, 100, 70), k1_random)]
+                  ("tile_ties", (64, 40, 160, 320), k1_tile_ties),
+                  ("tile_ties", (32, 128, 128, 192), k1_tile_ties),
+                  ("ragged", (3, 40, 100, 70), k1_random),
+                  ("code4", (4, 32, 160, 192), k1_code4)]
     max_err = 0.0
     for kind, (B, R, L, W), make in cases:
         arrs = make(np, rng, B, R, L, W)
         t = [torch.from_numpy(a).to(dev) for a in arrs]
-        kb, ko = sk.score_best_offsets(*t)
         pb, po = sk.exact_best_offsets(*t)
-        if cuda:
-            torch.cuda.synchronize()
-        if not torch.equal(kb, pb) or not torch.equal(ko, po):
-            nb = int((kb != pb).sum())
-            no = int((ko != po).sum())
-            fail(f"k1 {kind} {[B, R, L, W]}: kernel differs from the plain "
-                 f"version ({nb} scores, {no} offsets)")
-        err = float((kb - pb).abs().max())
+        for name, fn in (("k1", sk.score_best_offsets),
+                         ("k1-s", sv.score_simt)):
+            kb, ko = fn(*t)
+            if cuda:
+                torch.cuda.synchronize()
+            if not torch.equal(kb, pb) or not torch.equal(ko, po):
+                nb = int((kb != pb).sum())
+                no = int((ko != po).sum())
+                fail(f"{name} {kind} {[B, R, L, W]}: kernel differs from "
+                     f"the plain version ({nb} scores, {no} offsets)")
+            if name == "k1":
+                err = float((kb - pb).abs().max())
         max_err = max(max_err, err)
         row = {"case": kind, "shape": [B, R, L, W], "max_abs_err": err}
         if kind == "random":
             row["ms"] = time_ms(torch, cuda,
                                 lambda: sk.score_best_offsets(*t), iters)
+            row["prev_ms"] = time_ms(torch, cuda,
+                                     lambda: sv.score_simt(*t), iters)
+            # the wrapper's host time a call (checks, outputs, launch),
+            # which the phase 4 and 6 stream spans also hold
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                sk.score_best_offsets(*t)
+            row["wrapper_host_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+            if cuda:
+                torch.cuda.synchronize()
             row["plain_ms"] = time_ms(torch, cuda,
                                       lambda: sk.exact_best_offsets(*t),
                                       max(1, iters // 5), warm=1)
             row["bound_ms"], row["bound_by"] = k1_bound_ms(B, R, L, W)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["prev_bound_share"] = row["bound_ms"] / row["prev_ms"]
         rows.append(row)
         log("k1: " + json.dumps(row))
         del t
@@ -726,10 +779,12 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     and read just after; stream time of each device phase by CUDA
     events; somatic SNV recall against the planted truth (all records,
     and the PASS records that the 0.9 gate reads). Returns the kernel
-    launches (mode="exact", mode="highest", the K1-x counters)."""
+    launches (mode="exact", mode="highest", the K1-x counters) and K1's
+    launches by shape."""
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
+    from strelka_tpu_torch.pipeline import realign_batch as rb
     timer = StreamTimer(torch, cuda)
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods")
@@ -738,6 +793,7 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     sk.LAUNCHES_HIGHEST = 0
     kx_zero(sv)
     ss.LAUNCH_STATS.clear()
+    rb.LAUNCH_STATS = {}
     try:
         wall = run_somatic_cli(fa, nbam, tbam, out, device)
     finally:
@@ -745,6 +801,8 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
         launches_highest = sk.LAUNCHES_HIGHEST
         kx = kx_read(sv)
         tiles = dict(ss.LAUNCH_STATS)
+        score_shapes = dict(rb.LAUNCH_STATS)
+        rb.LAUNCH_STATS = None
         timer.restore()
     phase_ms = timer.totals_ms()
     snvs = vcf_records(os.path.join(out, SOMATIC_OUTPUTS[0]))
@@ -778,9 +836,16 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
         "k1_launches": launches, "k1h_launches": launches_highest,
         "kx_launches": kx,
         "grid_tile_launches": n_grid, "posterior_launches": n_post,
+        "k1_launch_shapes": shape_keys(score_shapes),
+        "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
         "stream_ms_by_phase": phase_ms,
         "device_phase_share_of_wall": dev_ms / 1e3 / wall}))
-    return launches, launches_highest, kx
+    return launches, launches_highest, kx, score_shapes
+
+
+def shape_keys(counts):
+    """{(B, R, L, W): n} as JSON keys "B,R,L,W"."""
+    return {",".join(map(str, k)): v for k, v in counts.items()}
 
 
 def compare_somatic_runs(a_dir, b_dir):
@@ -879,7 +944,7 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     from strelka_tpu_torch.pipeline import realign_batch as rb
     if cuda:
         from strelka_tpu_torch import _build
-        _build.load("score_best_offsets")
+        _build.load(sk.KERNEL_FUNCTIONS["exact"][0])
     timer = StreamTimer(torch, cuda)
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
@@ -918,9 +983,9 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
            "kx_launches": kx,
            "snv_tile_launches": {",".join(map(str, k)): v
                                  for k, v in snv_tiles.items()},
+           "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
            "stream_ms_by_phase": phase_ms,
-           "k1_launch_shapes": {",".join(map(str, k)): v
-                                for k, v in score_shapes.items()}}
+           "k1_launch_shapes": shape_keys(score_shapes)}
     log("e2e: " + json.dumps(e2e))
     return launches, launches_highest, score_shapes, kx
 
@@ -1029,7 +1094,7 @@ def main(argv=None) -> int:
     tn = make_tn_dataset(np, workdir, tn_mb)
     fa_tn, nbam, tbam, n_tn, som_snv = tn
     som_dev = os.path.join(workdir, f"som_{dev.type}")
-    som_launches, som_h_launches, kx_somatic = phase_somatic_e2e(
+    som_launches, som_h_launches, kx_somatic, som_shapes = phase_somatic_e2e(
         torch, cuda, fa_tn, nbam, tbam, n_tn, som_snv, tn_mb, som_dev,
         dev.type)
     if cuda:
@@ -1048,18 +1113,23 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "score_best_offsets",
         "route": "cuda",
-        "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
-        "replaces": "strelka_tpu/ops/pallas_readlik.py:76",
+        "source": "strelka_tpu_torch/csrc/score_best_offsets_tc.cu",
+        "replaces": sv.K1_TPU,
         "launches": launches + som_launches + kx_runner["k1"],
         "launches_by_path": {"germline": launches,
                              "somatic": som_launches,
                              "variants_runner": kx_runner["k1"]},
+        "launches_by_shape": {"germline": shape_keys(score_shapes),
+                              "somatic": shape_keys(som_shapes)},
         "max_abs_err": k1_err,
+        "tolerance": "bit for bit",
         "shape": top["shape"],
         "ms": top["ms"],
+        "prev_ms": top["prev_ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
+        "bound_share": top["bound_share"],
         "library_ms": None,
     }, {
         "name": "score_best_offsets_highest",
@@ -1089,7 +1159,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": k.label,
             "route": "cuda",
-            "source": sv.SOURCE,
+            "source": k.source,
             "replaces": k.replaces,
             "launches": kx_runner[c] + kx_germline[c] + kx_somatic[c],
             "launches_by_path": {"germline": kx_germline[c],

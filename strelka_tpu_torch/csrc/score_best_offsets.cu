@@ -13,18 +13,20 @@
 // __fmul_rn/__fadd_rn so nvcc cannot contract it, gives the reference's
 // bits. A read code >= 4 matches nothing, a window code of 4 included.
 //
-// Bound on the H100: it moves B*(5*R*L + L*W + 8*R) bytes and does
-// 2*B*R*L*W compare-adds. At the main path's shapes (R=128, L=160, W=256)
-// that is ~11 us of HBM traffic against ~1.4 us of int8 tensor-core work
-// per 256 pairs, so a fast kernel would be bound by bytes.
+// Bound on the H100: it moves B*(5*R*L + L*W + 12*R) bytes (lnmis in, best
+// and off out: 4 bytes each a read) and does 2*B*R*L*W compare-adds. At the
+// main path's shapes (R=128, L=160, W=256) that is ~11 us of HBM traffic
+// against ~1.4 us of int8 tensor-core work per 256 pairs, so a fast kernel
+// would be bound by bytes.
 //
-// This design is the simple one: one block per (pair, 32 reads), the window
-// staged in shared memory 128 offsets at a time, each warp scoring 4 reads
-// with its lanes over 4 consecutive offsets each, int32 accumulators in
-// registers and the running best per read kept in registers across chunks,
-// so nothing crosses blocks. The compare-adds run on the CUDA cores, well
-// above the byte bound; an int8 wgmma/IMMA formulation with s32 accumulators
-// and TMA staging is the later redesign.
+// This is K1-s, the SIMT design that the tensor-core kernel
+// (score_best_offsets_tc.cu) replaced on every path; it stays as that
+// kernel's before-number (ops/score_variants.KERNELS["simt"]). One block
+// per (pair, 32 reads), the window staged in shared memory 128 offsets at a
+// time, each warp scoring 4 reads with its lanes over 4 consecutive offsets
+// each, int32 accumulators in registers and the running best per read kept
+// in registers across chunks, so nothing crosses blocks. The compare-adds
+// run on the CUDA cores, well above the byte bound.
 //
 // The same kernel, instantiated with kHighest, replaces the TPU kernel's
 // mode="highest" path (pallas_readlik.py:170-177, an f32 HIGHEST matmul of

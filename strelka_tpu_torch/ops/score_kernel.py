@@ -12,8 +12,16 @@ the first (lowest-w) argmax. Deltas are multiples of 2^-11 from the
 quantized LUT (ops/readlik.quantized_qscore_luts), so every per-limb
 sum is an exact integer < 2^24 in any accumulation order, and the
 fixed-order f32 combination gives the same bits on every device: the
-plain version below, the CUDA kernel (csrc/score_best_offsets.cu), the
-JAX package's exact_best_offsets and its interpret-mode Pallas kernel.
+plain version below, the CUDA kernel, the JAX package's
+exact_best_offsets and its interpret-mode Pallas kernel.
+
+K1 is csrc/score_best_offsets_tc.cu: the one-hot product on the u8
+tensor cores (wgmma, s32 sums), the two limbs combined in int32
+(S = S1*256 + S0) and converted to f32 once, which rounds as the
+reference's f32 combination does for every S < 2^31. Its first max runs
+over N tiles of TC_N_TILE offsets in ascending order. The earlier SIMT
+kernel (csrc/score_best_offsets.cu, K1-s) is kept as a K1-x row of
+ops/score_variants.KERNELS, the before-number of this one.
 
 score_best_offsets launches the CUDA kernel for CUDA tensors and uses
 the plain version only for tensors on the CPU.
@@ -21,10 +29,10 @@ the plain version only for tensors on the CPU.
 mode="highest" is the TPU kernel's other path (K1-h): the same max and
 first argmax of sum_l delta[r,l] * [codes[r,l] == win_t[l,w]] + lnmis
 in f32 with unquantized deltas. Its plain version is
-reference_best_offsets (a one-hot f32 bmm), and its CUDA kernel adds
-the deltas in ascending l; an f32 sum is not exact, so the two agree
-within rounding (the tests hold scores to atol 1e-4). No pipeline path
-uses this mode.
+reference_best_offsets (a one-hot f32 bmm), and its CUDA kernel
+(csrc/score_best_offsets.cu) adds the deltas in ascending l; an f32
+sum is not exact, so the two agree within rounding (the tests hold
+scores to atol 1e-4). No pipeline path uses this mode.
 """
 from __future__ import annotations
 
@@ -40,6 +48,17 @@ from .readlik import N_BASE_CODES as N_BASE
 LAUNCHES = 0
 LAUNCHES_HIGHEST = 0
 MODES = ("exact", "highest")
+TC_N_TILE = 64      # offsets per N tile of csrc/score_best_offsets_tc.cu
+# kernel -> (csrc/<library>.cu, its launch function, its max_len function);
+# "simt" is K1-s, launched by ops/score_variants.score_simt
+KERNEL_FUNCTIONS = {
+    "exact": ("score_best_offsets_tc", "score_best_offsets_tc_launch",
+              "score_best_offsets_tc_max_len"),
+    "highest": ("score_best_offsets", "score_best_offsets_highest_launch",
+                "score_best_offsets_max_len"),
+    "simt": ("score_best_offsets", "score_best_offsets_launch",
+             "score_best_offsets_max_len"),
+}
 
 
 def exact_best_offsets(codes, delta, lnmis, win_t):
@@ -98,38 +117,31 @@ def reference_best_offsets(codes, delta, lnmis, win_t):
     return best, off.to(torch.int32)
 
 
-def _lib():
-    from .. import _build
-    lib = _build.load("score_best_offsets")
-    if not getattr(lib, "_bound", False):
-        vp = ctypes.c_void_p
-        ll = ctypes.c_longlong
-        for fn in (lib.score_best_offsets_launch,
-                   lib.score_best_offsets_highest_launch):
-            fn.restype = ctypes.c_int
-            fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
-        lib.score_best_offsets_max_len.restype = ctypes.c_int
-        lib._bound = True
-    return lib
+_BOUND: dict = {}
 
 
-def score_best_offsets(codes, delta, lnmis, win_t, mode="exact"):
-    """Best score and first argmax offset per (pair, read).
+def _functions(kernel):
+    """(launch, max_len) of `kernel` (a KERNEL_FUNCTIONS key), bound
+    with ctypes; builds its library first if stale."""
+    if kernel not in _BOUND:
+        from .. import _build
+        name, launch_name, len_name = KERNEL_FUNCTIONS[kernel]
+        lib = _build.load(name)
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        launch = getattr(lib, launch_name)
+        launch.restype = ctypes.c_int
+        launch.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
+        max_len = getattr(lib, len_name)
+        max_len.restype = ctypes.c_int
+        _BOUND[kernel] = (launch, max_len)
+    return _BOUND[kernel]
 
-    On CUDA tensors this launches the hand-written kernel on the
-    current stream (outputs allocated here); on CPU tensors it runs the
-    plain version (exact_best_offsets, or reference_best_offsets for
-    mode="highest"). Shapes and layout as exact_best_offsets; the
-    kernel takes int8 codes/windows, f32 delta/lnmis, all contiguous.
-    """
-    global LAUNCHES, LAUNCHES_HIGHEST
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+def launch(kernel, codes, delta, lnmis, win_t):
+    """Check the operands and launch `kernel` (a KERNEL_FUNCTIONS key)
+    on CUDA tensors, on the current stream; raises on what it does not
+    take and when the launch is refused. Returns (best, off)."""
     dev = codes.device
-    if dev.type == "cpu":
-        plain = exact_best_offsets if mode == "exact" else \
-            reference_best_offsets
-        return plain(codes, delta, lnmis, win_t)
     if dev.type != "cuda":
         raise ValueError(f"score_best_offsets: unsupported device {dev}")
     B, R, L = codes.shape
@@ -149,24 +161,40 @@ def score_best_offsets(codes, delta, lnmis, win_t, mode="exact"):
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = _lib()
-    if L > lib.score_best_offsets_max_len() or B > 65535 or min(
-            B, R, L, W) < 1:
+    fn, max_len = _functions(kernel)
+    if L > max_len() or B > 65535 or min(B, R, L, W) < 1:
         raise ValueError(f"score_best_offsets: shape B={B} R={R} L={L} "
                          f"W={W} outside the kernel's range")
     best = torch.empty((B, R), dtype=torch.float32, device=dev)
     off = torch.empty((B, R), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = (lib.score_best_offsets_launch if mode == "exact"
-          else lib.score_best_offsets_highest_launch)
     rc = fn(codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
             win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
-            stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"score_best_offsets ({mode}) launch failed: "
+        raise RuntimeError(f"score_best_offsets ({kernel}) launch failed: "
                            f"CUDA error {rc}")
+    return best, off
+
+
+def score_best_offsets(codes, delta, lnmis, win_t, mode="exact"):
+    """Best score and first argmax offset per (pair, read).
+
+    On CUDA tensors this launches the hand-written kernel on the
+    current stream (outputs allocated here); on CPU tensors it runs the
+    plain version (exact_best_offsets, or reference_best_offsets for
+    mode="highest"). Shapes and layout as exact_best_offsets; the
+    kernel takes int8 codes/windows, f32 delta/lnmis, all contiguous.
+    """
+    global LAUNCHES, LAUNCHES_HIGHEST
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if codes.device.type == "cpu":
+        plain = exact_best_offsets if mode == "exact" else \
+            reference_best_offsets
+        return plain(codes, delta, lnmis, win_t)
+    out = launch(mode, codes, delta, lnmis, win_t)
     if mode == "exact":
         LAUNCHES += 1
     else:
         LAUNCHES_HIGHEST += 1
-    return best, off
+    return out

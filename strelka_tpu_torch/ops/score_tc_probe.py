@@ -1,0 +1,168 @@
+"""Timing probe of the tensor-core K1's design on the card.
+
+    python -m strelka_tpu_torch.ops.score_tc_probe [variant ...]
+
+Builds variants of csrc/score_best_offsets_tc.cu, each a textual edit of
+the source, into build/tc_probe/ (one nvcc per variant, started
+together), and times each beside the source as it stands at the main
+path's shapes: CUDA events around 50 launches back to back, after
+warm-up, in turns (source, variants, variants reversed, source; the
+least of each kernel's two times). Variants:
+
+- ``wg2``, ``wg1``: a CTA capped at 2 or 1 warpgroups instead of 4,
+  and ``nofence``: no accumulator fence in front of each step's wgmma
+  (exact: held bit for bit to the plain version);
+- the stage ablations, wrong by design and timed only: ``nomma`` (no
+  wgmma), ``nobw`` (no one-hot expansion of the window), ``nocopy`` (no
+  window copies or waits in the loop), ``noa`` (no expansion of the
+  reads).
+
+Prints what ptxas reports for the source (registers, spills, injected
+waits), then one JSON line per shape: each kernel's ms, and K1-s's.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+from .. import _build
+from .. import device as devmod
+from . import score_variants as sv
+from .score_kernel import exact_best_offsets
+
+SOURCE = os.path.join(_build.CSRC, "score_best_offsets_tc.cu")
+OUT = os.path.join(_build.BUILD_DIR, "tc_probe")
+_CAP = "constexpr int kMaxWg = 4;"
+_MMA = """            wgmma_u8(acc, desc(a_op + 2 * s * kCore, kCore, sbo_a),
+                     desc(b_op + 2 * s * kCore, kCore, 8 * kChunkK),
+                     kc > 0 || s > 0);"""
+# name -> (exact, [(text of the source, its replacement), ...])
+VARIANTS = {
+    "wg2": (True, [(_CAP, "constexpr int kMaxWg = 2;")]),
+    "wg1": (True, [(_CAP, "constexpr int kMaxWg = 1;")]),
+    "nofence": (True, [("        fence_acc(acc);\n        wgmma_fence();",
+                        "        wgmma_fence();")]),
+    "nomma": (False, [(_MMA, "            acc[s] += (int)(size_t)a_op + "
+                             "(int)(size_t)b_op;")]),
+    "nobw": (False, [("            expand_w(a, it + 1, raw + s1 * kRawBytes, "
+                      "bw + s1 * kOpBytes);\n", "")]),
+    "nocopy": (False, [("        if (it + 2 < total)\n            stage_window",
+                        "        if (false)\n            stage_window"),
+                       ("            mbar_wait(&full[s1], ((it + 1) / kStages)"
+                        " & 1);\n", "")]),
+    "noa": (False, [("    expand_a(a, b, r0, n_reads, 0, a.resident ? a.Lp / 4"
+                     " : kChunkBases / 4,\n             as, sbo_a);\n", "")]),
+}
+SHAPES = [(256, r, 160, w) for r in (32, 128, 512) for w in (256, 320)] + [
+    (256, 128, 128, 192), (128, 32, 128, 192), (512, 128, 128, 128),
+    (256, 32, 160, 192)]
+
+
+def variant_source(name: str) -> str:
+    """The source with `name`'s edits; raises if one does not apply."""
+    with open(SOURCE) as f:
+        text = f.read()
+    for old, new in VARIANTS[name][1]:
+        if text.count(old) != 1:
+            raise ValueError(f"variant {name}: the source no longer holds "
+                             f"{old.strip()[:60]!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def build(names) -> dict:
+    """{name: the launch function} of the source ("k1") and each
+    variant, built together."""
+    os.makedirs(OUT, exist_ok=True)
+    with open(SOURCE) as f:
+        source = f.read()
+    procs = {}
+    for name in ["k1", *names]:
+        src = os.path.join(OUT, f"{name}.cu")
+        with open(src, "w") as f:
+            f.write(source if name == "k1" else variant_source(name))
+        lib = os.path.join(OUT, f"lib{name}.so")
+        verbose = ["-Xptxas", "-v"] if name == "k1" else []
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *verbose, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
+        for line in out.splitlines():
+            if any(k in line for k in ("registers", "spill", "C75")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+        fn = ctypes.CDLL(lib).score_best_offsets_tc_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
+        fns[name] = fn
+    return fns
+
+
+def launch(fn, codes, delta, lnmis, win_t):
+    B, R, L = codes.shape
+    best, off = sv._best_off((B, R), codes.device)
+    sv._raise_on("probe", fn(
+        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+        win_t.data_ptr(), B, R, L, win_t.shape[2], best.data_ptr(),
+        off.data_ptr(), sv._stream(codes.device)))
+    return best, off
+
+
+def loop_ms(fn, dev, iters=50) -> float:
+    """Mean ms a call of `fn` over `iters` calls back to back."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m strelka_tpu_torch.ops.score_tc_probe",
+        description="Time variants of the tensor-core K1 beside it.")
+    ap.add_argument("variants", nargs="*",
+                    help=f"of {' '.join(VARIANTS)} (default: all)")
+    names = ap.parse_args(argv).variants or list(VARIANTS)
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        ap.error(f"unknown variants {unknown}")
+    dev = devmod.resolve("cuda")
+    fns = build(names)
+    order = ["k1", *names, *names[::-1], "k1"]
+    for shape in SHAPES:
+        t = [torch.from_numpy(a).to(dev) for a in sv.harness_inputs(*shape)]
+        want = exact_best_offsets(*t)
+        times = {n: [] for n in fns}
+        for name in order:
+            got = launch(fns[name], *t)
+            torch.cuda.synchronize(dev)
+            if (name == "k1" or VARIANTS[name][0]) and not all(
+                    torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} at {shape} differs from the "
+                                     f"plain version")
+            times[name].append(loop_ms(lambda: launch(fns[name], *t), dev))
+        row = {"shape": list(shape), **{n: min(v) for n, v in times.items()}}
+        row["k1_s"] = loop_ms(lambda: sv.score_simt(*t), dev)
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

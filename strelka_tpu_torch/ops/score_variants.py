@@ -7,7 +7,9 @@ differ from K1 only in how the TPU schedules the same function, and
 their counterpart here is K1's kernel. The others compute a function or
 take an operand contract that K1 does not, and each is a kernel of
 csrc/score_variants.cu (``KERNELS`` maps each to its wrapper and plain
-version):
+version). ``KERNELS`` also holds K1-s ``score_simt``, K1's earlier SIMT
+kernel (csrc/score_best_offsets.cu, compare-adds on the CUDA cores): K1's
+function and operands, kept as the before-number of the tensor-core K1.
 
 - KX-P ``score_packed`` (``fused``, ``fusedwhole``, ``fusedin``,
   ``fusedlm``): K1 on one int32 per base, ``(d_int << 3) | code``,
@@ -61,6 +63,7 @@ import torch
 from .. import device as devmod
 from .readlik import LIMBS, QUANT_INV, QUANT_SCALE, quantized_qscore_luts
 from .readlik import N_BASE_CODES as N_BASE
+from . import score_kernel
 from .score_kernel import exact_best_offsets, score_best_offsets
 
 # launches of each CUDA kernel (plain-version calls do not count)
@@ -73,6 +76,7 @@ LAUNCHES_NOA = 0        # KX-A, score_ablation_kernel<kNoA>
 LAUNCHES_NOW = 0        # KX-A, score_ablation_kernel<kNoW>
 LAUNCHES_NOMAX = 0      # KX-A, score_ablation_kernel<kNoMax>
 LAUNCHES_NODOT = 0      # KX-A, score_ablation_kernel<kNoDot>
+LAUNCHES_SIMT = 0       # K1-s, score_best_offsets_kernel<false>
 
 SOURCE = "strelka_tpu_torch/csrc/score_variants.cu"
 HARNESS = "benchmarks/exp_exact_kernel.py"
@@ -419,6 +423,17 @@ def score_int8(codes, delta, lnmis, win_t):
     return best, off
 
 
+def score_simt(codes, delta, lnmis, win_t):
+    """K1-s: K1's (best, off) [B,R] from its earlier SIMT kernel.
+    Shapes, dtypes and range as score_best_offsets."""
+    global LAUNCHES_SIMT
+    if codes.device.type == "cpu":
+        return exact_best_offsets(codes, delta, lnmis, win_t)
+    out = score_kernel.launch("simt", codes, delta, lnmis, win_t)
+    LAUNCHES_SIMT += 1
+    return out
+
+
 # ablation: (kernel's `which`, launch counter, plain version)
 _ABLATIONS = {
     "noA": (0, "LAUNCHES_NOA", noa_best_offsets),
@@ -484,6 +499,7 @@ class Kernel(NamedTuple):
     prepare: Callable
     call: Callable
     plain: Callable
+    source: str = SOURCE    # the CUDA source, path in the repository
 
 
 def _standard(t, G):
@@ -525,9 +541,9 @@ def _ablation(which, variant, line):
                   plain)
 
 
-K1 = Kernel("score_best_offsets", "score_best_offsets_kernel<false>", "",
-            "strelka_tpu/ops/pallas_readlik.py:76", _standard,
-            score_best_offsets, exact_best_offsets)
+K1_TPU = "strelka_tpu/ops/pallas_readlik.py:76"
+K1 = Kernel("score_best_offsets", "score_best_offsets_tc_kernel", "", K1_TPU,
+            _standard, score_best_offsets, exact_best_offsets)
 
 KERNELS = {
     "packed": Kernel("score_packed", "score_packed_kernel<false>",
@@ -549,6 +565,10 @@ KERNELS = {
     "noW": _ablation("noW", "kNoW", 333),
     "nomax": _ablation("nomax", "kNoMax", 360),
     "nodot": _ablation("nodot", "kNoDot", 386),
+    "simt": Kernel("score_best_offsets_simt",
+                   "score_best_offsets_kernel<false>", "LAUNCHES_SIMT",
+                   K1_TPU, _standard, score_simt, exact_best_offsets,
+                   "strelka_tpu_torch/csrc/score_best_offsets.cu"),
 }
 
 

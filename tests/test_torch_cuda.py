@@ -1,7 +1,8 @@
-"""Tests of the port that need the card: the CUDA kernels (K1 in both
-modes and the K1-x variants) against their plain versions, the SNV
-tiles and the somatic SNV model on the card against the CPU path, and
-the germline and somatic CLIs with --device cuda against --device cpu.
+"""Tests of the port that need the card: the CUDA kernels (K1, the
+tensor-core kernel, and K1-h; the K1-x variants and K1-s) against their
+plain versions, the SNV tiles and the somatic SNV model on the card
+against the CPU path, and the germline and somatic CLIs with --device
+cuda against --device cpu.
 They skip without a GPU. On a machine with one (which need not have
 jax):
 
@@ -15,6 +16,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+from strelka_tpu_torch.ops import score_variants as sv
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +41,8 @@ def k1_inputs(rng, B, R, L, W):
 
 @pytest.mark.parametrize("B,R,L,W", [(8, 32, 160, 256), (4, 128, 128, 192),
                                      (2, 512, 160, 320), (3, 40, 100, 70),
-                                     (1, 32, 512, 64)])
+                                     (1, 32, 512, 64), (5, 200, 1000, 100),
+                                     (2, 33, 99, 129), (2, 7, 1816, 257)])
 def test_k1_kernel_bit_identical_to_plain(cuda, B, R, L, W):
     from strelka_tpu_torch.ops import score_kernel as sk
     arrs = k1_inputs(np.random.default_rng(B + R + L + W), B, R, L, W)
@@ -57,14 +61,92 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from strelka_tpu_torch.ops import score_kernel as sk
     c, d, m, w = (torch.from_numpy(a).to(cuda)
                   for a in k1_inputs(np.random.default_rng(0), 2, 32, 64, 64))
+    before = sk.LAUNCHES
     with pytest.raises(ValueError):
         sk.score_best_offsets(c.to(torch.int32), d, m, w)
+    with pytest.raises(ValueError):
+        sk.score_best_offsets(c, d.double(), m, w)
     with pytest.raises(ValueError):  # not contiguous
         sk.score_best_offsets(c, d, m, w.transpose(1, 2))
+    with pytest.raises(ValueError):  # not contiguous
+        sk.score_best_offsets(c[:, :, ::2], d[:, :, ::2], m, w[:, ::2])
     with pytest.raises(ValueError):  # window rows do not match L
         sk.score_best_offsets(c, d, m, w[:, :32].contiguous())
     with pytest.raises(ValueError):
         sk.score_best_offsets(c, d.cpu(), m, w)
+    L = 1817                          # one past the kernel's range
+    with pytest.raises(ValueError, match="range"):
+        sk.score_best_offsets(*(torch.zeros(s, dtype=dt, device=cuda)
+                                for s, dt in (((1, 2, L), torch.int8),
+                                              ((1, 2, L), torch.float32),
+                                              ((1, 2), torch.float32),
+                                              ((1, L, 8), torch.int8))))
+    assert sk.LAUNCHES == before
+
+
+def tile_tie_inputs(rng, L, W, n_tile):
+    """One pair per (N-tile boundary, placement): every read of a pair
+    has the same bases and two offsets of its window carry them, so they
+    tie at the top: across the boundary, both left, both right, and a
+    tile apart. Returns the inputs and the first offsets."""
+    from strelka_tpu_torch.ops import readlik
+    dl, ll = readlik.quantized_qscore_luts()
+    pairs = [(t + a, t + b) for t in range(n_tile, W, n_tile)
+             for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, n_tile))
+             if t + b < W]
+    B, R = len(pairs), 40
+    reads = rng.integers(0, 4, (B, L))
+    codes = np.repeat(reads[:, None], R, axis=1).astype(np.int8)
+    q = rng.integers(2, 42, (B, R, L))
+    win = rng.integers(0, 4, (B, L, W)).astype(np.int8)
+    for b, cols in enumerate(pairs):
+        for w in cols:
+            win[b, :, w] = reads[b]
+    lnmis = ll[q].sum(axis=2).astype(np.float32)
+    return (codes, dl[q], lnmis, win), [p[0] for p in pairs]
+
+
+@pytest.mark.parametrize("L,W", [(160, 320), (128, 192), (100, 200)])
+def test_k1_ties_across_n_tile_boundaries(cuda, L, W):
+    from strelka_tpu_torch.ops import score_kernel as sk
+    arrs, first = tile_tie_inputs(np.random.default_rng(L + W), L, W,
+                                  sk.TC_N_TILE)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    kb, ko = sk.score_best_offsets(*t)
+    pb, po = sk.exact_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+    assert ko[:, 0].tolist() == first
+
+
+def test_k1_longest_reads_all_limbs_255(cuda):
+    """L at the wrapper's maximum with every limb at 255: the sums pass
+    2^24 and f32(S) rounds; still bit for bit."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    rng = np.random.default_rng(5)
+    B, R, L, W = 3, 40, 1816, 130
+    codes = rng.integers(0, 5, (B, R, L)).astype(np.int8)
+    delta = np.full((B, R, L), np.float32(65535 / 2048))
+    lnmis = rng.uniform(-500, -100, (B, R)).astype(np.float32)
+    win = rng.integers(0, 5, (B, L, W)).astype(np.int8)
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    kb, ko = sk.score_best_offsets(*t)
+    pb, po = sk.exact_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+
+
+def test_k1_launches_the_tensor_core_kernel_not_k1s(cuda):
+    from strelka_tpu_torch.ops import score_kernel as sk
+    t = [torch.from_numpy(a).to(cuda)
+         for a in k1_inputs(np.random.default_rng(2), 4, 32, 160, 192)]
+    before = (sk.LAUNCHES, sv.LAUNCHES_SIMT)
+    got = sk.score_best_offsets(*t)
+    assert (sk.LAUNCHES, sv.LAUNCHES_SIMT) == (before[0] + 1, before[1])
+    prev = sv.score_simt(*t)
+    assert (sk.LAUNCHES, sv.LAUNCHES_SIMT) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, prev))
 
 
 def test_snv_tiles_on_card_match_cpu_path(cuda):
@@ -211,8 +293,7 @@ def test_somatic_cli_cuda_matches_cpu(cuda, tmp_path):
 
 # --- the K1-x kernels (ops/score_variants.py) -------------------------------
 
-KX_KINDS = ("packed", "packed_fold", "onesum", "hap", "int8", "noA", "noW",
-            "nomax", "nodot")
+KX_KINDS = tuple(sv.KERNELS)   # the nine K1-x kernels and K1-s
 
 
 @pytest.mark.parametrize("kind", KX_KINDS)
@@ -221,7 +302,6 @@ def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
     """Each K1-x kernel (ops/score_variants.KERNELS) equals its plain
     version bit for bit, with pair 0's reads all code 4 under non-zero
     deltas (K1's functions then score exactly lnmis there)."""
-    from strelka_tpu_torch.ops import score_variants as sv
     k = sv.KERNELS[kind]
     Wt = 2 * W if kind == "hap" else W
     arrs = k1_inputs(np.random.default_rng(B + R + L + W), B, R, L, Wt)
@@ -240,7 +320,6 @@ def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
 
 
 def test_kx_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    from strelka_tpu_torch.ops import score_variants as sv
     c, d, m, w = (torch.from_numpy(a).to(cuda)
                   for a in k1_inputs(np.random.default_rng(1), 2, 32, 64, 64))
     for fn in (sv.score_onesum, sv.score_int8,
@@ -275,7 +354,6 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     """K1's function and hap2 are exact against the harness's oracle;
     every variant, int8 and the ablations included, equals its body's
     own function."""
-    from strelka_tpu_torch.ops import score_variants as sv
     names = ["base", "fused", "fusedin", "fusedlm", "limb2k", "hap2",
              "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
