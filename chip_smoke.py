@@ -47,7 +47,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K1's launches by shape and its stream ms; 90% or more of the
    planted somatic SNVs must be called with FILTER PASS;
 7. somatic cuda-vs-cpu: the same with --device cpu; no record may
-   differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT.
+   differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT;
+8. germline fan-out: phase 4's contig with --jobs 4 (one 1 Mb segment a
+   worker), started cold (the host library removed and every kernel
+   library stale, so that the --jobs parent builds each once before it
+   spawns and no worker builds one), the parent in a process of its own
+   that must end with CUDA uninitialized; every record equal to phase
+   4's; the workers' launches from their STRELKA_TPU_LAUNCH_STATS
+   dumps, each worker's wall (its taskstate) and peak reserved device
+   memory (its log);
+9. somatic fan-out: phase 6's T/N contig with --jobs 4 (four 500 kb
+   segments, four posteriors sharing the card's memory budget); every
+   record equal to phase 6's, PASS recall of the planted SNVs;
+10. joint germline: three samples of one 1 Mb contig (shared reference
+   and planted variants, 30x each), --device cuda and --device cpu with
+   identical records in variants.vcf.gz and genome.S{1,2,3}.vcf.gz; the
+   calls at the planted sites per sample;
+11. CRAM: germline --device cuda on tests/data/cram/synth.cram (the
+   repository has no CRAM writer: the fixture is the only CRAM input)
+   and on synth.bam, with identical records. The fixture's pairs are
+   all improper, so no read reaches tier 1 and K1 is launched no time.
 
 The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
@@ -778,31 +797,18 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     """The somatic CLI on `device` with the counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
     events; somatic SNV recall against the planted truth (all records,
-    and the PASS records that the 0.9 gate reads). Returns the kernel
-    launches (mode="exact", mode="highest", the K1-x counters) and K1's
-    launches by shape."""
+    and the PASS records that the 0.9 gate reads). Returns the launch
+    counts of launches_during."""
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
-    from strelka_tpu_torch.ops import score_variants as sv
-    from strelka_tpu_torch.pipeline import realign_batch as rb
     timer = StreamTimer(torch, cuda)
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods")
     timer.wrap(ss, "somatic_snv_call", "somatic_posterior")
-    sk.LAUNCHES = 0
-    sk.LAUNCHES_HIGHEST = 0
-    kx_zero(sv)
-    ss.LAUNCH_STATS.clear()
-    rb.LAUNCH_STATS = {}
     try:
-        wall = run_somatic_cli(fa, nbam, tbam, out, device)
+        wall, _, counts = launches_during(
+            lambda: run_somatic_cli(fa, nbam, tbam, out, device))
     finally:
-        launches = sk.LAUNCHES
-        launches_highest = sk.LAUNCHES_HIGHEST
-        kx = kx_read(sv)
-        tiles = dict(ss.LAUNCH_STATS)
-        score_shapes = dict(rb.LAUNCH_STATS)
-        rb.LAUNCH_STATS = None
         timer.restore()
     phase_ms = timer.totals_ms()
     snvs = vcf_records(os.path.join(out, SOMATIC_OUTPUTS[0]))
@@ -814,38 +820,28 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     passed = {int(r[1]) - 1 for r in snvs if r[6] == "PASS"}
     recall = sum(p in called for p in som_snv) / max(len(som_snv), 1)
     pass_recall = sum(p in passed for p in som_snv) / max(len(som_snv), 1)
-    n_grid = sum(v for k, v in tiles.items()
-                 if k[0] == "grid" and k[1] == device)
-    n_post = sum(v for k, v in tiles.items()
-                 if k[0] == "post" and k[1] == device)
-    if cuda and launches == 0:
-        fail("the somatic path launched the k1 kernel no time")
+    n_grid = tile_count(counts, "somatic", "grid", device)
+    n_post = tile_count(counts, "somatic", "post", device)
+    check_path_launches("the somatic path", counts, cuda)
     if n_grid == 0 or n_post == 0:
         fail(f"the somatic path ran no grid-lhood or posterior tile on "
              f"{device}")
     if pass_recall < 0.9:
         fail(f"somatic SNV PASS recall {pass_recall:.4f} is below 0.9")
-    if any(kx.values()):
-        fail(f"the somatic path launched a K1-x kernel: {kx}")
     dev_ms = sum(phase_ms.values())
     log("somatic_e2e: " + json.dumps({
         "device": device, "contig_mb": mb, "reads": n_reads, "wall_s": wall,
         "reads_per_s": n_reads / wall, "snv_records": len(snvs),
         "indel_records": len(indels), "som_snv_planted": len(som_snv),
         "som_snv_recall": recall, "som_snv_pass_recall": pass_recall,
-        "k1_launches": launches, "k1h_launches": launches_highest,
-        "kx_launches": kx,
+        "k1_launches": counts["k1"], "k1h_launches": counts["k1h"],
+        "kx_launches": counts["kx"],
         "grid_tile_launches": n_grid, "posterior_launches": n_post,
-        "k1_launch_shapes": shape_keys(score_shapes),
+        "k1_launch_shapes": counts["score"],
         "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
         "stream_ms_by_phase": phase_ms,
         "device_phase_share_of_wall": dev_ms / 1e3 / wall}))
-    return launches, launches_highest, kx, score_shapes
-
-
-def shape_keys(counts):
-    """{(B, R, L, W): n} as JSON keys "B,R,L,W"."""
-    return {",".join(map(str, k)): v for k, v in counts.items()}
+    return counts
 
 
 def compare_somatic_runs(a_dir, b_dir):
@@ -873,14 +869,14 @@ def compare_somatic_runs(a_dir, b_dir):
     return n, other
 
 
-def run_cli(fa, bam, out, device):
+def run_cli(fa, bam, out, device, extra=()):
     from strelka_tpu_torch.__main__ import main
     if os.path.exists(out):
         import shutil
         shutil.rmtree(out)
     t0 = time.perf_counter()
     rc = main(["germline", "--reference", fa, "--align-file", bam,
-               "--output-dir", out, "--device", device])
+               "--output-dir", out, "--device", device, *extra])
     wall = time.perf_counter() - t0
     if rc not in (0, None):
         fail(f"germline --device {device} exited {rc}")
@@ -933,15 +929,13 @@ def compare_runs(a_dir, b_dir):
     return n, other
 
 
-def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
+def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
+              extra=()):
     """The CLI on `device` with the launch counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
-    events. Returns (k1 launches, k1h launches, k1 launch shapes, the
-    K1-x counters)."""
+    events. Returns (the launch counts of launches_during, the wall s)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
-    from strelka_tpu_torch.ops import score_variants as sv
-    from strelka_tpu_torch.pipeline import realign_batch as rb
     if cuda:
         from strelka_tpu_torch import _build
         _build.load(sk.KERNEL_FUNCTIONS["exact"][0])
@@ -949,45 +943,428 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device):
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
     timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
+    try:
+        wall, _, counts = launches_during(
+            lambda: run_cli(fa, bam, out, device, extra))
+    finally:
+        timer.restore()
+    phase_ms = timer.totals_ms()
+    var, gv = check_outputs(out, n_reads)
+    check_path_launches("the germline path", counts, cuda)
+    if cuda and tile_count(counts, "snv", "tile", device) == 0:
+        fail("the main path ran no SNV tile on the card")
+    if not counts["score"]:
+        fail("the main path scored no read x haplotype pair")
+    e2e = {"contig_mb": mb, "reads": n_reads, "wall_s": wall,
+           "reads_per_s": n_reads / wall,
+           "variant_records": len(var), "gvcf_records": len(gv),
+           "k1_launches": counts["k1"], "k1h_launches": counts["k1h"],
+           "kx_launches": counts["kx"], "snv_tile_launches": counts["snv"],
+           "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
+           "stream_ms_by_phase": phase_ms,
+           "k1_launch_shapes": counts["score"]}
+    log("e2e: " + json.dumps(e2e))
+    return counts, wall
+
+
+def keyed(counts):
+    """{tuple: n} as JSON keys "a,b,c"."""
+    return {",".join(map(str, k)): v for k, v in counts.items()}
+
+
+def launches_during(fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: (fn's result, the wall s, {"k1", "k1h", "kx", "score", "snv",
+    "somatic"} in the layout of the workers' STRELKA_TPU_LAUNCH_STATS
+    dumps)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.ops import score_variants as sv
+    from strelka_tpu_torch.pipeline import realign_batch as rb
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
     kx_zero(sv)
     sd.LAUNCH_STATS.clear()
+    ss.LAUNCH_STATS.clear()
     rb.LAUNCH_STATS = {}
+    t0 = time.perf_counter()
     try:
-        wall = run_cli(fa, bam, out, device)
+        out = fn()
     finally:
-        launches = sk.LAUNCHES
-        launches_highest = sk.LAUNCHES_HIGHEST
-        kx = kx_read(sv)
-        snv_tiles = dict(sd.LAUNCH_STATS)
-        score_shapes = dict(rb.LAUNCH_STATS)
+        wall = time.perf_counter() - t0
+        counts = {"k1": sk.LAUNCHES, "k1h": sk.LAUNCHES_HIGHEST,
+                  "kx": kx_read(sv), "score": keyed(rb.LAUNCH_STATS),
+                  "snv": keyed(sd.LAUNCH_STATS),
+                  "somatic": keyed(ss.LAUNCH_STATS)}
         rb.LAUNCH_STATS = None
-        timer.restore()
-    phase_ms = timer.totals_ms()
-    var, gv = check_outputs(out, n_reads)
-    n_dev_tiles = sum(v for k, v in snv_tiles.items()
-                      if k[0] == "tile" and k[1] == device)
-    if cuda and launches == 0:
-        fail("the main path launched the k1 kernel no time")
-    if cuda and n_dev_tiles == 0:
-        fail("the main path ran no SNV tile on the card")
-    if not score_shapes:
-        fail("the main path scored no read x haplotype pair")
-    if any(kx.values()):
-        fail(f"the germline path launched a K1-x kernel: {kx}")
-    e2e = {"contig_mb": mb, "reads": n_reads, "wall_s": wall,
-           "reads_per_s": n_reads / wall,
-           "variant_records": len(var), "gvcf_records": len(gv),
-           "k1_launches": launches, "k1h_launches": launches_highest,
-           "kx_launches": kx,
-           "snv_tile_launches": {",".join(map(str, k)): v
-                                 for k, v in snv_tiles.items()},
-           "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
-           "stream_ms_by_phase": phase_ms,
-           "k1_launch_shapes": shape_keys(score_shapes)}
-    log("e2e: " + json.dumps(e2e))
-    return launches, launches_highest, score_shapes, kx
+    return out, wall, counts
+
+
+def tile_count(counts, group, kind, device):
+    return sum(v for k, v in counts[group].items()
+               if k.startswith(f"{kind},{device},"))
+
+
+def check_path_launches(label, counts, cuda, k1_expected=True):
+    """Fails where the path launched a K1-x kernel or K1-h, or, on the
+    card, K1 no time (where its input has reads to score)."""
+    if any(counts["kx"].values()) or counts["k1h"]:
+        fail(f"{label} launched K1-x or K1-h: {counts['kx']}, "
+             f"k1h {counts['k1h']}")
+    if cuda and k1_expected and counts["k1"] == 0:
+        fail(f"{label} launched the k1 kernel no time")
+
+
+def compare_records(a_dir, b_dir, names, label) -> int:
+    """Fails unless every record of each output in `names` is the same
+    in both runs; returns the records compared."""
+    n = 0
+    for name in names:
+        a = vcf_records(os.path.join(a_dir, name))
+        b = vcf_records(os.path.join(b_dir, name))
+        if a != b:
+            diff = [(x, y) for x, y in zip(a, b) if x != y][:3]
+            fail(f"{label} {name}: {len(a)} and {len(b)} records, "
+                 f"first differing: {diff}")
+        n += len(a)
+    return n
+
+
+def card_free_gib(cuda: bool):
+    """The card's free memory after this process returns its cached
+    blocks, so that fan-out workers find the card as a deployment
+    would (None on the CPU)."""
+    if not cuda:
+        return None
+    import torch
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0] / 2**30
+
+
+def fanout_parent(args, stats_dir, timeout=900):
+    """`python -m strelka_tpu_torch <args>` with --jobs, the parent in a
+    process of its own (with its workers in a session of their own, so
+    that a timeout ends them all) and STRELKA_TPU_LAUNCH_STATS=stats_dir
+    (every process dumps its launch counts at exit). Fails unless the
+    parent exits 0 with CUDA uninitialized. Returns (wall s, stderr)."""
+    import shutil
+    import signal
+    if os.path.exists(stats_dir):
+        shutil.rmtree(stats_dir)
+    code = ("import sys, torch\n"
+            "from strelka_tpu_torch.__main__ import main\n"
+            "rc = main(sys.argv[1:])\n"
+            "if torch.cuda.is_initialized():\n"
+            "    sys.exit('the --jobs parent initialized CUDA')\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, STRELKA_TPU_LAUNCH_STATS=stats_dir)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        _out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{args[0]} --jobs took over {timeout} s")
+    wall = time.perf_counter() - t0
+    try:   # no worker outlives its parent
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    if proc.returncode != 0:
+        fail(f"{args[0]} --jobs exited {proc.returncode}:\n{err[-3000:]}")
+    return wall, err
+
+
+def read_launch_dumps(stats_dir) -> dict:
+    """The sum of every process's launch dump, and how many there are."""
+    tot = {"processes": 0, "k1": 0, "k1h": 0, "kx": {}, "score": {},
+           "snv": {}, "somatic": {}}
+    for name in sorted(os.listdir(stats_dir)):
+        with open(os.path.join(stats_dir, name)) as f:
+            d = json.load(f)
+        tot["processes"] += 1
+        tot["k1"] += d["k1"]
+        tot["k1h"] += d["k1h"]
+        for group in ("kx", "score", "snv", "somatic"):
+            for k, v in d[group].items():
+                tot[group][k] = tot[group].get(k, 0) + v
+    return tot
+
+
+def segment_walls(out, i=0) -> list[float]:
+    """The segment walls of process `i` of a run, from its taskstate."""
+    with open(os.path.join(out, "workspace", f"taskstate.p{i}.jsonl")) as f:
+        return [json.loads(l)["wall_sec"] for l in f if l.strip()]
+
+
+def worker_report(out, n, cuda: bool) -> list[dict]:
+    """Each worker's segments and wall (the sum of its taskstate walls)
+    and its peak reserved device memory (its log's done line); fails
+    where a worker built a kernel library itself."""
+    import re
+    ws = os.path.join(out, "workspace")
+    rows = []
+    for i in range(n):
+        walls = segment_walls(out, i)
+        with open(os.path.join(ws, "logs", f"worker.p{i}.stderr.log")) as f:
+            text = f.read()
+        if "built lib" in text:
+            fail(f"worker {i} built a kernel library itself:\n{text[-2000:]}")
+        m = re.search(r"peak device memory reserved ([0-9.]+) MiB", text)
+        if cuda and m is None:
+            fail(f"worker {i} reported no peak device memory:\n"
+                 f"{text[-2000:]}")
+        rows.append({"worker": i, "segments": len(walls),
+                     "wall_s": sum(walls),
+                     "peak_reserved_mib": float(m.group(1)) if m else None})
+    return rows
+
+
+JOBS = 4
+
+
+def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
+                        ref_wall, workdir):
+    """Phase 4's contig with --jobs 4 from a cold start; every record
+    equal to phase 4's. Returns the workers' summed launch counts."""
+    import re
+    from strelka_tpu_torch import _build
+    from strelka_tpu_torch.io import native
+    from strelka_tpu_torch.parallel import hardware
+    device = "cuda" if cuda else "cpu"
+    so = native.LIB_PATHS[0]
+    os.replace(so, so + ".prev")
+    if cuda:
+        for name in _build.sources():
+            os.utime(_build.lib_path(name), (0, 0))
+    out = os.path.join(workdir, "jobs_germline")
+    stats = os.path.join(workdir, "launches_germline_jobs")
+    free_gib = card_free_gib(cuda)
+    try:
+        wall, err = fanout_parent(
+            ["germline", "--reference", fa, "--align-file", bam,
+             "--output-dir", out, "--device", device, "--jobs", str(JOBS),
+             "--max-region-size", str(seg)], stats)
+    finally:
+        if os.path.exists(so):
+            os.remove(so + ".prev")
+        else:
+            os.replace(so + ".prev", so)
+            fail("the --jobs parent did not build the host library")
+    builds = re.findall(r"^built .*$", err, re.M)
+    if cuda and not any("before spawning" in b for b in builds):
+        fail(f"the --jobs parent built no kernel library:\n{err[-2000:]}")
+    n = compare_records(ref_out, out, ("variants.vcf.gz", "genome.S1.vcf.gz"),
+                        "germline --jobs 4 against phase 4")
+    workers = worker_report(out, JOBS, cuda)
+    counts = read_launch_dumps(stats)
+    check_path_launches("germline --jobs 4", counts, cuda)
+    tiles = tile_count(counts, "snv", "tile", device)
+    if cuda and tiles == 0:
+        fail("germline --jobs 4 ran no SNV tile on the card")
+    log("germline_jobs: " + json.dumps({
+        "jobs": JOBS, "segment_bp": seg, "reads": n_reads, "wall_s": wall,
+        "reads_per_s": n_reads / wall, "single_wall_s": ref_wall,
+        "single_reads_per_s": n_reads / ref_wall,
+        "single_segment_walls_s": segment_walls(ref_out), "records_equal": n,
+        "parent_builds": builds, "card_free_gib_at_spawn": free_gib,
+        "workers": workers,
+        "k1_launches": counts["k1"], "snv_tile_launches": tiles,
+        "launch_dumps": counts["processes"],
+        "k1_launch_shapes": counts["score"],
+        "suggest_jobs": hardware.suggest_jobs(),
+        "host_cores": hardware.core_count(),
+        "host_mem_mb": hardware.mem_total_mb()}))
+    return counts
+
+
+def phase_somatic_jobs(cuda: bool, fa, nbam, tbam, n_reads, som_snv, seg,
+                       ref_out, workdir):
+    """Phase 6's T/N contig with --jobs 4; every record equal to phase
+    6's. Returns the workers' summed launch counts."""
+    device = "cuda" if cuda else "cpu"
+    out = os.path.join(workdir, "jobs_somatic")
+    stats = os.path.join(workdir, "launches_somatic_jobs")
+    free_gib = card_free_gib(cuda)
+    wall, _err = fanout_parent(
+        ["somatic", "--reference", fa, "--normal-align-file", nbam,
+         "--tumor-align-file", tbam, "--output-dir", out, "--device",
+         device, "--jobs", str(JOBS), "--max-region-size", str(seg)],
+        stats)
+    n = compare_records(ref_out, out, SOMATIC_OUTPUTS,
+                        "somatic --jobs 4 against phase 6")
+    workers = worker_report(out, JOBS, cuda)
+    counts = read_launch_dumps(stats)
+    check_path_launches("somatic --jobs 4", counts, cuda)
+    n_grid = tile_count(counts, "somatic", "grid", device)
+    n_post = tile_count(counts, "somatic", "post", device)
+    if n_grid == 0 or n_post == 0:
+        fail(f"somatic --jobs 4 ran no grid-lhood or posterior tile on "
+             f"{device}")
+    snvs = vcf_records(os.path.join(out, SOMATIC_OUTPUTS[0]))
+    passed = {int(r[1]) - 1 for r in snvs if r[6] == "PASS"}
+    log("somatic_jobs: " + json.dumps({
+        "jobs": JOBS, "segment_bp": seg, "reads": n_reads, "wall_s": wall,
+        "reads_per_s": n_reads / wall,
+        "single_segment_walls_s": segment_walls(ref_out), "records_equal": n,
+        "som_snv_pass_recall": sum(p in passed for p in som_snv)
+        / max(len(som_snv), 1),
+        "card_free_gib_at_spawn": free_gib,
+        "workers": workers, "k1_launches": counts["k1"],
+        "grid_tile_launches": n_grid, "posterior_launches": n_post,
+        "launch_dumps": counts["processes"],
+        "k1_launch_shapes": counts["score"]}))
+    return counts
+
+
+def make_joint_dataset(workdir: str, mb: float, n: int = 3):
+    """`n` samples of one contig: the reference and the planted variants
+    from ref_seed 11 (SNVs every 1000 bp, indels every 1500 bp), each
+    sample's reads from its own seed at 30x, 150 bp. Returns (fa, bams,
+    reads, truth)."""
+    from strelka_tpu_torch import synth
+    from strelka_tpu_torch.io.bam import BamHeader
+    from strelka_tpu_torch.io.bam_writer import write_bam
+    t0 = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    bams, n_reads = [], 0
+    for i in range(n):
+        refs, batch, truth = synth.generate(
+            L=int(mb * 1_000_000), depth=30, read_len=150, snv_every=1000,
+            indel_every=1500, seed=31 + i, ref_seed=11)
+        bam = os.path.join(workdir, f"joint_S{i + 1}.bam")
+        write_bam(bam, BamHeader(text="", ref_names=["syn"],
+                                 ref_lengths=[len(refs)]), batch)
+        bams.append(bam)
+        n_reads += batch.n
+    fa = os.path.join(workdir, "joint_ref.fa")
+    with open(fa, "w") as f:
+        f.write(">syn\n")
+        for i in range(0, len(refs), 60):
+            f.write(refs[i:i + 60] + "\n")
+    log(f"data: {mb} Mb contig, {n} samples, {n_reads} reads at 30x/150 bp "
+        f"each, made in {time.perf_counter() - t0:.1f} s")
+    return fa, bams, n_reads, truth
+
+
+def planted_calls(var_path, truth, n_samples):
+    """Per sample, the planted SNVs (same position, a non-reference
+    allele in the sample's GT) and indels (a length-changing record
+    within 2 bp) that variants.vcf.gz calls, and how many PASS."""
+    recs = vcf_records(var_path)
+    by_pos = {}
+    for r in recs:
+        by_pos.setdefault(int(r[1]) - 1, []).append(r)
+
+    def has_alt(r, s):
+        gt = gt_of([*r[:8], r[8], r[9 + s]])
+        return gt is not None and any(a not in ("0", ".")
+                                      for a in gt.replace("|", "/").split("/"))
+    rows = []
+    for s in range(n_samples):
+        row = {"sample": s + 1}
+        for kind in ("snv", "del", "ins"):
+            hits = passed = 0
+            for p in truth[kind]:
+                near = [r for q in ((p,) if kind == "snv"
+                                    else range(p - 2, p + 3))
+                        for r in by_pos.get(q, [])
+                        if (kind == "snv") == (len(r[3]) == len(r[4]))]
+                hit = [r for r in near if has_alt(r, s)]
+                hits += bool(hit)
+                passed += any(r[6] == "PASS" for r in hit)
+            row[kind] = {"planted": len(truth[kind]), "called": hits,
+                         "pass": passed}
+        rows.append(row)
+    return rows
+
+
+def phase_joint(cuda: bool, fa, bams, n_reads, truth, workdir):
+    """Joint germline calling of the samples on cuda and on cpu:
+    identical records in every output. Returns the cuda run's launch
+    counts (the cpu run's in a rehearsal)."""
+    from strelka_tpu_torch.__main__ import main
+    outs, runs = {}, {}
+    for device in (("cuda", "cpu") if cuda else ("cpu",)):
+        out = os.path.join(workdir, f"joint_{device}")
+        args = ["germline", "--reference", fa, "--output-dir", out,
+                "--device", device]
+        for bam in bams:
+            args += ["--align-file", bam]
+        rc, wall, counts = launches_during(lambda: main(args))  # noqa: B023
+        if rc not in (0, None):
+            fail(f"joint germline --device {device} exited {rc}")
+        outs[device], runs[device] = out, (wall, counts)
+    names = ["variants.vcf.gz"] + [f"genome.S{i + 1}.vcf.gz"
+                                   for i in range(len(bams))]
+    for rec in vcf_records(os.path.join(outs["cpu"], names[0])):
+        if len(rec) != 9 + len(bams):
+            fail(f"malformed joint record: {rec[:5]}")
+    n = (compare_records(outs["cuda"], outs["cpu"], names,
+                         "joint germline cuda against cpu")
+         if cuda else 0)
+    wall, counts = runs["cuda" if cuda else "cpu"]
+    check_path_launches("joint germline", counts, cuda)
+    calls = planted_calls(os.path.join(outs["cpu"], names[0]), truth,
+                          len(bams))
+    filters: dict[str, int] = {}
+    for rec in vcf_records(os.path.join(outs["cpu"], names[0])):
+        filters[rec[6]] = filters.get(rec[6], 0) + 1
+    for row in calls:
+        if row["snv"]["called"] < 0.9 * row["snv"]["planted"]:
+            fail(f"joint germline called under 90% of the planted SNVs: "
+                 f"{row}")
+    log("germline_joint: " + json.dumps({
+        "samples": len(bams), "reads": n_reads, "wall_s": wall,
+        "reads_per_s": n_reads / wall,
+        "cpu_wall_s": runs["cpu"][0], "records_equal": n,
+        "k1_launches": counts["k1"],
+        "snv_tile_launches": tile_count(counts, "snv", "tile",
+                                        "cuda" if cuda else "cpu"),
+        "k1_launch_shapes": counts["score"], "planted_calls": calls,
+        "variant_filters": filters}))
+    return counts
+
+
+def phase_cram(cuda: bool, workdir):
+    """Germline on the CRAM fixture and on the BAM of the same records:
+    identical records. Returns the CRAM run's launch counts."""
+    from strelka_tpu_torch.__main__ import main
+    from strelka_tpu_torch.io.bam import read_alignments
+    data = os.path.join(HERE, "tests", "data", "cram")
+    fa = os.path.join(data, "synth.fa")
+    device = "cuda" if cuda else "cpu"
+    outs, runs = {}, {}
+    for label in ("cram", "bam"):
+        path = os.path.join(data, f"synth.{label}")
+        out = os.path.join(workdir, f"cram_{label}")
+        rc, wall, counts = launches_during(lambda: main(  # noqa: B023
+            ["germline", "--reference", fa, "--align-file", path,
+             "--output-dir", out, "--device", device]))
+        if rc not in (0, None):
+            fail(f"germline on synth.{label} exited {rc}")
+        outs[label], runs[label] = out, (wall, counts)
+    n = compare_records(outs["cram"], outs["bam"],
+                        ("variants.vcf.gz", "genome.S1.vcf.gz"),
+                        "germline on CRAM against BAM")
+    _hdr, batch = read_alignments(os.path.join(data, "synth.cram"), fa)
+    wall, counts = runs["cram"]
+    # the fixture's pairs are all improper (flag 0x2 unset): no read
+    # reaches tier 1, so no locus is scored
+    check_path_launches("germline on CRAM", counts, cuda,
+                        k1_expected=False)
+    log("cram: " + json.dumps({
+        "reads": batch.n, "wall_s": wall, "records_equal": n,
+        "improper_pairs": int(((batch.flag & 0x3) == 0x1).sum()),
+        "k1_launches": counts["k1"]}))
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1015,6 +1392,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     mb = 0.1 if rehearse else 4.0
     tn_mb = 0.1 if rehearse else 2.0
+    joint_mb = 0.1 if rehearse else 1.0
     t_start = time.perf_counter()
 
     log("== phase 1: build")
@@ -1072,10 +1450,14 @@ def main(argv=None) -> int:
     log(f"== phase 4: germline --device {dev.type} end to end")
     fa, bam, n_reads = make_dataset(np, workdir, mb)
     out_dev = os.path.join(workdir, f"out_{dev.type}")
-    launches, h_launches, score_shapes, kx_germline = phase_e2e(
-        torch, cuda, fa, bam, n_reads, mb, out_dev, dev.type)
+    # one segment a worker in phase 8: the CLI's default 1 Mb on the card
+    seg = int(mb * 1_000_000) // JOBS
+    germline, wall_dev = phase_e2e(torch, cuda, fa, bam, n_reads, mb,
+                                   out_dev, dev.type,
+                                   ["--max-region-size", str(seg)])
     # k1 again at the main path's most frequent launch shape
-    top = max(score_shapes, key=score_shapes.get)
+    shapes = germline["score"]
+    top = tuple(map(int, max(shapes, key=shapes.get).split(",")))
     rows, err = phase_k1(np, torch, dev, cuda, [top],
                          iters=1 if rehearse else 20, edge_cases=False)
     k1_rows.append(dict(rows[0], case="main_path_top"))
@@ -1084,7 +1466,8 @@ def main(argv=None) -> int:
     if cuda:
         log("== phase 5: the same run with --device cpu")
         out_cpu = os.path.join(workdir, "out_cpu")
-        wall_cpu = run_cli(fa, bam, out_cpu, "cpu")
+        wall_cpu = run_cli(fa, bam, out_cpu, "cpu",
+                           ["--max-region-size", str(seg)])
         n, other = compare_runs(out_dev, out_cpu)
         log("cuda-vs-cpu: " + json.dumps({
             "records": n, "differ_other_fields": other,
@@ -1094,9 +1477,8 @@ def main(argv=None) -> int:
     tn = make_tn_dataset(np, workdir, tn_mb)
     fa_tn, nbam, tbam, n_tn, som_snv = tn
     som_dev = os.path.join(workdir, f"som_{dev.type}")
-    som_launches, som_h_launches, kx_somatic, som_shapes = phase_somatic_e2e(
-        torch, cuda, fa_tn, nbam, tbam, n_tn, som_snv, tn_mb, som_dev,
-        dev.type)
+    somatic = phase_somatic_e2e(torch, cuda, fa_tn, nbam, tbam, n_tn,
+                                som_snv, tn_mb, som_dev, dev.type)
     if cuda:
         log("== phase 7: the same somatic run with --device cpu")
         som_cpu = os.path.join(workdir, "som_cpu")
@@ -1105,6 +1487,26 @@ def main(argv=None) -> int:
         n, other = compare_somatic_runs(som_dev, som_cpu)
         log("somatic cuda-vs-cpu: " + json.dumps({
             "records": n, "differ_other_fields": other}))
+
+    log(f"== phase 8: germline --device {dev.type} --jobs {JOBS}, cold")
+    jobs_g = phase_germline_jobs(cuda, fa, bam, n_reads, seg, out_dev,
+                                 wall_dev, workdir)
+
+    log(f"== phase 9: somatic --device {dev.type} --jobs {JOBS}")
+    jobs_s = phase_somatic_jobs(cuda, fa_tn, nbam, tbam, n_tn, som_snv,
+                                int(tn_mb * 1_000_000) // JOBS, som_dev,
+                                workdir)
+
+    log("== phase 10: joint germline, three samples, cuda against cpu")
+    joint = phase_joint(cuda, *make_joint_dataset(workdir, joint_mb),
+                        workdir)
+
+    log(f"== phase 11: germline --device {dev.type} on CRAM against BAM")
+    cram = phase_cram(cuda, workdir)
+    # each CLI path's launch counts, read just after it ran
+    paths = {"germline": germline, "somatic": somatic,
+             "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
+             "germline_joint": joint, "cram": cram}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1115,12 +1517,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "strelka_tpu_torch/csrc/score_best_offsets_tc.cu",
         "replaces": sv.K1_TPU,
-        "launches": launches + som_launches + kx_runner["k1"],
-        "launches_by_path": {"germline": launches,
-                             "somatic": som_launches,
+        "launches": kx_runner["k1"] + sum(c["k1"] for c in paths.values()),
+        "launches_by_path": {**{p: c["k1"] for p, c in paths.items()},
                              "variants_runner": kx_runner["k1"]},
-        "launches_by_shape": {"germline": shape_keys(score_shapes),
-                              "somatic": shape_keys(som_shapes)},
+        "launches_by_shape": {p: c["score"] for p, c in paths.items()},
         "max_abs_err": k1_err,
         "tolerance": "bit for bit",
         "shape": top["shape"],
@@ -1136,11 +1536,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
         "replaces": "strelka_tpu/ops/pallas_readlik.py:170",
-        # counted in phases 4 and 6 like K1; no CLI path runs
+        # counted on every CLI path like K1; no CLI path runs
         # mode="highest", so phase 2b alone is expected to launch it
-        "launches": h_launches + som_h_launches + kx_runner["k1h"],
-        "launches_by_path": {"germline": h_launches,
-                             "somatic": som_h_launches,
+        "launches": kx_runner["k1h"] + sum(c["k1h"] for c in paths.values()),
+        "launches_by_path": {**{p: c["k1h"] for p, c in paths.items()},
                              "variants_runner": kx_runner["k1h"]},
         "max_abs_err": k1h_err,
         "tolerance": f"atol {K1H_ATOL} (quantized deltas); f32 rounding "
@@ -1161,9 +1560,10 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": kx_runner[c] + kx_germline[c] + kx_somatic[c],
-            "launches_by_path": {"germline": kx_germline[c],
-                                 "somatic": kx_somatic[c],
+            "launches": kx_runner[c] + sum(n["kx"].get(c, 0)
+                                           for n in paths.values()),
+            "launches_by_path": {**{p: n["kx"].get(c, 0)
+                                    for p, n in paths.items()},
                                  "variants_runner": kx_runner[c]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": "bit for bit",

@@ -3,13 +3,19 @@
 Reference analog: the configureStrelka*Workflow.py entry scripts.
 
   python -m strelka_tpu_torch germline --reference ... --align-file ... \\
-      --output-dir ... [--device cuda|cpu]
+      [--align-file ...] --output-dir ... [--device cuda|cpu] [--jobs N]
   python -m strelka_tpu_torch somatic --reference ... \\
       --normal-align-file ... --tumor-align-file ... \\
-      --output-dir ... [--device cuda|cpu]
+      --output-dir ... [--device cuda|cpu] [--jobs N]
 
-The other subcommands of strelka_tpu (denovo, noise-extractor, tools)
-are not ported yet and exit 2.
+Both take BAM or CRAM input and the fan-out options of strelka_tpu
+(--jobs, --cluster-submit/--cluster-status with --retry-*,
+--process-index/--process-count with --merge-only, and coordinated
+processes through STRELKA_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID);
+germline calls one sample or several jointly. Not ported yet: germline
+--rna, --call-continuous-vf, --estimate-sequence-error and the germline
+EVS model files (they raise NotPortedError), and the other subcommands
+of strelka_tpu (denovo, noise-extractor, tools), which exit 2.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ import glob
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -29,10 +30,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str | None:
+    """nvcc on PATH or in the toolkit's default place, else None."""
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
+    return path
+
+
+def _nvcc() -> str:
+    path = nvcc_path()
     if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels of "
                            "strelka_tpu_torch build on a machine with the "
@@ -90,7 +97,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         if _stale(name):
+            t0 = time.perf_counter()
             _finish(name, *_start(name))
+            print(f"built lib{name}.so in {time.perf_counter() - t0:.1f} s",
+                  file=sys.stderr)
         lib = ctypes.CDLL(lib_path(name))
         _LIBS[name] = lib
     return lib

@@ -204,8 +204,8 @@ def read_alignments(path: str, reference=None,
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"CRAM":
-        from .. import NotPortedError
-        raise NotPortedError(f"CRAM input ({path})")
+        from .cram import read_cram
+        return read_cram(path, reference)
     return read_bam(path, use_native=use_native)
 
 
@@ -217,8 +217,8 @@ def read_alignments_regions(path: str, regions, reference=None,
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"CRAM":
-        from .. import NotPortedError
-        raise NotPortedError(f"CRAM input ({path})")
+        from .cram import read_cram_regions
+        return read_cram_regions(path, regions, reference)
     from .bai import read_bam_regions
     return read_bam_regions(path, regions)
 

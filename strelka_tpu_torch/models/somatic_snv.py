@@ -40,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as devmod
+
 # --- state space (strelka_digt_states.hh) ---------------------------------
 HET_RES = 9
 HET_COUNT = HET_RES * 2 + 1
@@ -343,7 +345,8 @@ CALL_ROW_BYTES = 96 << 10
 GRID_ROW_BYTES = 32 << 10
 GRID_LANE_BYTES = 64
 # the working-set budget on the host; a card offers half of its free
-# memory (the caching allocator's idle blocks included)
+# memory (the caching allocator's idle blocks included), divided among
+# the local workers that share it
 HOST_BUDGET_BYTES = 768 << 20
 # rows per launch at most, so that no tensor reaches 2^31 elements (the
 # padded [rows, 3, 2, 512] tree sum) and every op keeps 32-bit indexing
@@ -354,13 +357,17 @@ def rows_per_launch(dev, row_bytes: int) -> int:
     """How many rows of `row_bytes` each fit one launch on `dev`: the
     memory budget over the row's bytes, a multiple of 1024 between 1024
     and MAX_ROWS. Rows are independent, so the count never changes a
-    result; it only bounds the working set."""
+    result; it only bounds the working set.
+
+    N local workers (--jobs N) measure the card's free memory at about
+    the same moment, so each takes its 1/N share of the half: together
+    they stay inside the card."""
     dev = torch.device(dev)
     if dev.type == "cuda":
         free, _total = torch.cuda.mem_get_info(dev)
         idle = (torch.cuda.memory_reserved(dev)
                 - torch.cuda.memory_allocated(dev))
-        budget = (free + idle) // 2
+        budget = (free + idle) // 2 // devmod.workers_sharing()
     else:
         budget = HOST_BUDGET_BYTES
     rows = budget // row_bytes // 1024 * 1024

@@ -15,6 +15,9 @@ same bits. Shapes are fixed per bucket.
 """
 from __future__ import annotations
 
+import atexit
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +48,38 @@ _Q_LUT_LMIS = None
 # when set to a dict, every device kernel launch tallies its padded
 # shape: {(Bp, Rb, Lb, Wb): count}
 LAUNCH_STATS: dict | None = None
+
+# STRELKA_TPU_LAUNCH_STATS=<dir>: every process tallies its scoring
+# launches and dumps them at exit, with the scoring kernel's launch
+# counts and the SNV and somatic tile tallies, as <dir>/launch_<pid>.json
+# — how the launches of --jobs workers, which run in child processes,
+# are counted
+_STATS_DIR = os.environ.get("STRELKA_TPU_LAUNCH_STATS")
+
+
+def _dump_launch_stats():
+    from ..models import snv_digt, somatic_snv
+    from ..ops import score_kernel as sk
+    from ..ops import score_variants as sv
+
+    def keyed(d):
+        return {",".join(map(str, k)): v for k, v in (d or {}).items()}
+    payload = {"pid": os.getpid(), "k1": sk.LAUNCHES,
+               "k1h": sk.LAUNCHES_HIGHEST,
+               "kx": {k.counter: getattr(sv, k.counter)
+                      for k in sv.KERNELS.values()},
+               "score": keyed(LAUNCH_STATS),
+               "snv": keyed(snv_digt.LAUNCH_STATS),
+               "somatic": keyed(somatic_snv.LAUNCH_STATS)}
+    os.makedirs(_STATS_DIR, exist_ok=True)
+    with open(os.path.join(_STATS_DIR, f"launch_{os.getpid()}.json"),
+              "w") as f:
+        json.dump(payload, f)
+
+
+if _STATS_DIR:
+    LAUNCH_STATS = {}
+    atexit.register(_dump_launch_stats)
 
 
 def _batch_base_cache(batch: ReadBatch):

@@ -8,15 +8,22 @@ output fragments, and concatenates them in order into BGZF outputs
 (the reference's compress+concat merge tasks,
 strelkaSharedWorkflow.py:102-148).
 
-Port of strelka_tpu/workflow/germline.py for one sample in one
-process, with --device {cuda,cpu} in place of --platform/--mesh. The
-RNA, continuous-VF, sequence-error estimation, EVS model, --jobs and
-multi-sample paths raise NotPortedError.
+Port of strelka_tpu/workflow/germline.py, with --device {cuda,cpu} in
+place of --platform/--mesh: one or more samples (joint calling), BAM or
+CRAM input, and the fan-out of the JAX package (--jobs, the cluster
+options, --process-index/--process-count with --merge-only, and the
+coordinated STRELKA_TPU_* processes of parallel/runner.py). The RNA,
+continuous-VF, sequence-error estimation and EVS model paths raise
+NotPortedError.
+
+The --jobs parent and a --merge-only run touch no device: only the
+workers, each on its own segment groups, run on --device.
 
 Usage:
   python -m strelka_tpu_torch germline \
-      --reference ref.fa --align-file a.bam \
-      --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu]
+      --reference ref.fa --align-file a.bam [--align-file b.bam ...] \
+      --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu] \
+      [--jobs N|auto]
 """
 from __future__ import annotations
 
@@ -102,7 +109,7 @@ def run_germline(argv=None) -> int:
                         "fan-out (pyflow-style); run one process per "
                         "index 0..count-1, then --merge-only")
     p.add_argument("--process-count", type=int, default=None)
-    p.add_argument("--jobs", default=None)
+    rn.add_fanout_args(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scoring kernel and the SNV tiles run "
                         "(default cuda; cuda without a GPU is an error)")
@@ -124,14 +131,11 @@ def run_germline(argv=None) -> int:
                        (args.snv_scoring_model_file,
                         "--snv-scoring-model-file (EVS models)"),
                        (args.indel_scoring_model_file,
-                        "--indel-scoring-model-file (EVS models)"),
-                       (args.jobs, "--jobs"),
-                       (len(args.align_files) > 1,
-                        "more than one --align-file (multi-sample)")):
+                        "--indel-scoring-model-file (EVS models)")):
         if flag:
             raise NotPortedError(what)
-    with devmod.use(args.device):
-        return _run_germline(args, argv)
+    return rn.dispatch("strelka_tpu_torch.workflow.germline", args, argv,
+                       _run_germline)
 
 
 def _run_germline(args, argv) -> int:
@@ -335,8 +339,8 @@ def _run_germline(args, argv) -> int:
     if args.process_index is not None and not args.merge_only \
             and proc_cnt > 1:
         # worker shard done; a final --merge-only invocation concatenates
-        print(f"worker {proc_idx}/{proc_cnt} done "
-              f"({runner.stats.segments_completed} segments)",
+        print(rn.worker_done_line(proc_idx, proc_cnt,
+                                  runner.stats.segments_completed),
               file=sys.stderr)
         return 0
 
@@ -397,7 +401,8 @@ def _run_germline(args, argv) -> int:
     for line in surfaced["warnings"] + surfaced["errors"]:
         print(line, file=sys.stderr)
     elapsed = time.time() - t0
-    print(f"strelka_tpu_torch germline on {devmod.current()} done in "
+    where = "merge" if args.merge_only else f"on {devmod.current()}"
+    print(f"strelka_tpu_torch germline {where} done in "
           f"{elapsed:.1f}s; "
           f"stats={total_stats.to_dict()}; outputs: {var_path}",
           file=sys.stderr)

@@ -5,15 +5,18 @@ emission (somatic_call_shared.hh write_vcf_somatic_snv_genotype_
 strand_grid, SomaticIndelVcfWriter.cpp). Output format mirrors the
 demo's expected results (src/demo/expectedResults/somatic.*.vcf.gz).
 
-Port of strelka_tpu/workflow/somatic.py for one process, with
---device {cuda,cpu} in place of --platform/--mesh. --jobs,
---process-index/--process-count, the --cluster-* options and
---merge-only raise NotPortedError.
+Port of strelka_tpu/workflow/somatic.py, with --device {cuda,cpu} in
+place of --platform/--mesh: BAM or CRAM input, and the fan-out of the
+JAX package (--jobs, the cluster options, --process-index/
+--process-count with --merge-only, and the coordinated STRELKA_TPU_*
+processes of parallel/runner.py). The --jobs parent and a --merge-only
+run touch no device.
 
 Usage:
   python -m strelka_tpu_torch somatic --reference ref.fa \
       --normal-align-file n.bam --tumor-align-file t.bam \
-      --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu]
+      --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu] \
+      [--jobs N|auto]
 """
 from __future__ import annotations
 
@@ -24,13 +27,13 @@ import time
 
 import numpy as np
 
-from .. import NotPortedError
 from .. import device as devmod
 from ..io.bam import read_alignments, read_bam
 from ..io.vcf import identity_header_lines
 from ..io.bgzf import BgzfWriter
 from ..io.fasta import FastaReference, decode_bases
 from ..options import SomaticOptions
+from ..parallel import runner as rn
 from ..pipeline import somatic_caller as sc
 from ..pipeline.gvcf import format_evsf
 
@@ -351,16 +354,12 @@ def run_somatic(argv=None) -> int:
     p.add_argument("--tumor-align-file", required=True)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--region", action="append", default=None)
-    # not ported yet: each of these raises NotPortedError
     p.add_argument("--process-index", type=int, default=None,
                    help="this worker's index for local multi-process "
-                        "fan-out (pyflow-style)")
+                        "fan-out (pyflow-style); run one process per "
+                        "index 0..count-1, then --merge-only")
     p.add_argument("--process-count", type=int, default=None)
-    p.add_argument("--jobs", default=None,
-                   help="spawn N local worker processes and merge")
-    p.add_argument("--call-mem-mb", type=int, default=None)
-    p.add_argument("--cluster-submit", default=None)
-    p.add_argument("--cluster-status", default=None)
+    rn.add_fanout_args(p)
     p.add_argument("--merge-only", action="store_true",
                    help="skip calling; concatenate existing workspace "
                         "fragments into final outputs")
@@ -408,18 +407,8 @@ def run_somatic(argv=None) -> int:
                    help="panel-of-normals site noise VCF(s)")
     args = p.parse_args(argv)
 
-    for flag, what in ((args.jobs is not None, "--jobs"),
-                       (args.process_index is not None
-                        or args.process_count is not None,
-                        "--process-index/--process-count"),
-                       (args.cluster_submit or args.cluster_status,
-                        "--cluster-submit/--cluster-status"),
-                       (args.call_mem_mb is not None, "--call-mem-mb"),
-                       (args.merge_only, "--merge-only")):
-        if flag:
-            raise NotPortedError(what)
-    with devmod.use(args.device):
-        return _run_somatic(args, argv)
+    return rn.dispatch("strelka_tpu_torch.workflow.somatic", args, argv,
+                       _run_somatic)
 
 
 def _run_somatic(args, argv) -> int:
@@ -457,8 +446,10 @@ def _run_somatic(args, argv) -> int:
     # segment plan before input reads: fan-out processes use the BAM
     # index to load only their assigned halo'd spans (reference:
     # bam_streamer region open per 12Mb segment process)
-    from ..parallel import runner as rn
     proc_idx, proc_cnt = rn.init_distributed()
+    if args.process_index is not None:
+        proc_idx = args.process_index
+        proc_cnt = args.process_count or 1
     segments = []
     for chrom, beg, end in regions:
         for seg_beg in range(beg, end, args.max_region_size):
@@ -618,7 +609,14 @@ def _run_somatic(args, argv) -> int:
     if args.dry_run:
         runner.dry_run(groups)
         return 0
-    runner.run(groups, task_fn, on_complete)
+    if not args.merge_only:
+        runner.run(groups, task_fn, on_complete)
+    if args.process_index is not None and not args.merge_only \
+            and proc_cnt > 1:
+        print(rn.worker_done_line(proc_idx, proc_cnt,
+                                  runner.stats.segments_completed),
+              file=sys.stderr)
+        return 0
 
     # ordered concat + tabix-indexed bgzf
     from ..io.tabix import IndexedVcfWriter
@@ -685,7 +683,8 @@ def _run_somatic(args, argv) -> int:
     for line in surfaced["warnings"] + surfaced["errors"]:
         print(line, file=sys.stderr)
 
-    print(f"strelka_tpu_torch somatic on {devmod.current()} done in "
+    where = "merge" if args.merge_only else f"on {devmod.current()}"
+    print(f"strelka_tpu_torch somatic {where} done in "
           f"{time.time() - t0:.1f}s; "
           f"snvs={n_snv} indels={n_indel}", file=sys.stderr)
     return 0

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
 tensor-core kernel, and K1-h; the K1-x variants and K1-s) against their
 plain versions, the SNV tiles and the somatic SNV model on the card
-against the CPU path, and the germline and somatic CLIs with --device
-cuda against --device cpu.
+against the CPU path, the germline and somatic CLIs with --device
+cuda against --device cpu, and a cold --jobs 2 germline run on the card
+against a single-process one.
 They skip without a GPU. On a machine with one (which need not have
 jax):
 
@@ -200,6 +201,61 @@ def test_germline_cli_cuda_matches_cpu(cuda, tmp_path):
             with gzip.open(os.path.join(outs[dev], name), "rt") as f:
                 recs.append([l for l in f if not l.startswith("#")])
         assert recs[0] == recs[1], name
+
+
+def test_germline_jobs_cold_on_card_matches_single(cuda, tmp_path):
+    """A cold --jobs 2 run on the card (every kernel library made stale
+    first): the parent builds each library once before it spawns, no
+    worker builds one, the parent initializes no CUDA, and the records
+    equal a single-process --device cuda run's."""
+    import subprocess
+    import sys
+
+    from strelka_tpu_torch import _build, synth
+    from strelka_tpu_torch.io.bam import BamHeader
+    from strelka_tpu_torch.io.bam_writer import write_bam
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    refs, batch, _ = synth.generate(L=60_000, depth=25, snv_every=700,
+                                    indel_every=1000, seed=11)
+    fa = tmp_path / "ref.fa"
+    fa.write_text(">syn\n" + refs + "\n")
+    bam = str(tmp_path / "s.bam")
+    write_bam(bam, BamHeader(text="", ref_names=["syn"],
+                             ref_lengths=[len(refs)]), batch)
+    base = ["germline", "--reference", str(fa), "--align-file", bam,
+            "--max-region-size", "15000", "--device", "cuda"]
+    for name in _build.sources():
+        if os.path.exists(_build.lib_path(name)):
+            os.utime(_build.lib_path(name), (0, 0))
+    parent = ("import sys, torch\n"
+              "from strelka_tpu_torch.__main__ import main\n"
+              "rc = main(sys.argv[1:])\n"
+              "assert not torch.cuda.is_initialized()\n"
+              "sys.exit(rc)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    jobs = tmp_path / "jobs"
+    r = subprocess.run([sys.executable, "-c", parent, *base, "--output-dir",
+                        str(jobs), "--jobs", "2"], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "built before spawning the workers" in r.stderr, r.stderr[-2000:]
+    for name in _build.sources():
+        assert os.path.getmtime(_build.lib_path(name)) > 0, name
+    for i in (0, 1):
+        log = (jobs / "workspace" / "logs" /
+               f"worker.p{i}.stderr.log").read_text()
+        assert "built lib" not in log, log[-2000:]
+        assert "peak device memory reserved" in log, log[-2000:]
+    from strelka_tpu_torch.__main__ import main
+    single = str(tmp_path / "single")
+    assert main([*base, "--output-dir", single]) == 0
+    for name in ("variants.vcf.gz", "genome.S1.vcf.gz"):
+        recs = []
+        for out in (single, str(jobs)):
+            with gzip.open(os.path.join(out, name), "rt") as f:
+                recs.append([l for l in f if not l.startswith("#")])
+        assert recs[0] == recs[1] and recs[0], name
 
 
 @pytest.mark.parametrize("B,R,L,W", [(512, 128, 128, 128), (64, 32, 160, 256),

@@ -75,7 +75,8 @@ def test_synth_copy_matches_benchmarks_synth():
                                       err_msg=f)
 
 
-@pytest.mark.parametrize("flag", [["--rna"], ["--jobs", "2"],
+@pytest.mark.parametrize("flag", [["--rna"],
+                                  ["--snv-scoring-model-file", "m.json"],
                                   ["--estimate-sequence-error"],
                                   ["--call-continuous-vf", "syn"]])
 def test_unported_options_raise(dataset, flag):

@@ -47,6 +47,8 @@ def test_import_and_cli_help_load_no_jax():
         "from strelka_tpu_torch.pipeline import germline_caller, gvcf\n"
         "from strelka_tpu_torch.pipeline import somatic_caller\n"
         "from strelka_tpu_torch.models import evs, somatic_indel\n"
+        "from strelka_tpu_torch.parallel import hardware, runner\n"
+        "from strelka_tpu_torch.io import cram\n"
         "for cmd in ('germline', 'somatic'):\n"
         "    try:\n"
         "        main([cmd, '--help'])\n"
@@ -60,6 +62,8 @@ def test_import_and_cli_help_load_no_jax():
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
     assert r.stdout.count("--device") >= 2
+    assert r.stdout.count("--jobs") >= 2
+    assert r.stdout.count("--cluster-submit") >= 2
     assert "--tumor-align-file" in r.stdout
 
 

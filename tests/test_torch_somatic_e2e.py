@@ -180,11 +180,32 @@ def test_default_models_byte_identical_to_jax(dataset, evs_models,
         assert recs and all(";SomaticEVS=" in l for l in recs), name
 
 
-@pytest.mark.parametrize("flag", [["--jobs", "2"], ["--process-index", "0"],
-                                  ["--merge-only"],
-                                  ["--cluster-submit", "qsub"]])
-def test_unported_options_raise(dataset, flag):
+@pytest.mark.parametrize("flag, path", [
+    (["--jobs", "2"], "fanout"),
+    (["--process-index", "0", "--process-count", "2"], "device"),
+    (["--merge-only"], "no_device"),
+    (["--cluster-submit", "qsub"], "device")])
+def test_unported_options_raise(dataset, monkeypatch, flag, path):
+    """The fan-out options raise NotPortedError no more: each reaches its
+    path — the --jobs parent (run_local_jobs, before any device), a
+    worker or a plain run (inside the device), the merge (outside it)."""
+    from strelka_tpu_torch import device as devmod
+    from strelka_tpu_torch.parallel import runner as rn
+    from strelka_tpu_torch.workflow import somatic as tsom
+    seen = []
+    monkeypatch.setattr(rn, "run_local_jobs", lambda module, argv, jobs, *a,
+                        **k: seen.append(("fanout", module, jobs,
+                                          k["device"])) or 0)
+    monkeypatch.setattr(tsom, "_run_somatic", lambda args, argv: seen.append(
+        ("device" if devmod._CURRENT is not None else "no_device",)) or 0)
     d, fa, nbam, tbam, _ = dataset
-    with pytest.raises(NotPortedError):
-        torch_main(["somatic", *_args(fa, nbam, tbam, str(d / "np"), flag),
-                    "--device", "cpu"])
+    try:
+        rc = torch_main(["somatic", *_args(fa, nbam, tbam, str(d / "np"),
+                                           flag), "--device", "cpu"])
+    except NotPortedError as e:
+        pytest.fail(f"{flag}: {e}")
+    assert rc == 0
+    assert seen[0][0] == path and len(seen) == 1, seen
+    if path == "fanout":
+        assert seen[0][1:] == ("strelka_tpu_torch.workflow.somatic", "2",
+                               "cpu")
