@@ -7,28 +7,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build: the host library (make -C native) and every CUDA kernel of
    strelka_tpu_torch/csrc (one nvcc per source, started together);
-2. k1: the scoring kernel (tensor cores, csrc/score_best_offsets_tc.cu)
+2. k1: the scoring kernel (u8 tensor cores, csrc/score_best_offsets_tc.cu)
    against its plain torch version on the card, bit for bit, at the main
    path's shapes plus tie, ragged and code-4 cases, timed by CUDA events
-   beside the plain version and K1-s (the earlier SIMT kernel, held bit
-   for bit too), with each time's share of the bound;
-2b. k1h: the kernel's mode="highest" instantiation against its plain
-   version (one-hot f32 bmm), scores within 1e-4 and offsets equal
-   outside near-ties, at bench.py's shape and two main-path shapes,
-   timed; plus bench.py's unquantized deltas held to an f32 rounding
-   bound;
+   beside the plain version, K1-s (the earlier SIMT kernel, held bit for
+   bit too) and the library route, with each time's share of the bound;
+2b. k1h: mode="highest" on the bf16 tensor cores (K1-h,
+   csrc/score_highest_tc.cu) and K1-h-s (its SIMT before-number) against
+   their plain version (one-hot f32 bmm), scores within 1e-4 (with the
+   LUT's deltas, whose sums are exact in any order, max_abs_err 0
+   expected) and offsets equal outside near-ties, at bench.py's shape
+   and two main-path shapes plus ties, ties across N tiles, ragged and
+   code-4 cases, timed beside the plain version and the library route;
+   plus bench.py's unquantized deltas held per row to the f32 bound
+   2 (L+1) 2^-24 (sum|terms| + |lnmis|), which the tensor cores' worst
+   case (3L/4 truncations of a score, 1.5 L 2^-24 sum) fits;
 2c. kx: the K1-x variants' runner (python -m
    strelka_tpu_torch.ops.score_variants) on every variant name of the
    harness at its shapes, with the launch counters set to 0 just before
    and read just after (every variant equal to its body's function,
-   every K1-x kernel and K1 launched); its times are the kernels' times
-   at the harness's shape. Then each K1-x kernel of
-   ops/score_variants.KERNELS (KX-P in two instantiations, KX-K, KX-H,
-   KX-I, the four ablations KX-A, and K1-s) against its plain version
-   bit for bit at the harness's shape and the main path's, with tie,
-   ragged and code-4 cases; its plain version timed at both shapes, the
-   kernel and K1 at the main path's (K1-s, which no variant name runs,
-   at both);
+   every K1-x kernel and K1 launched, the SIMT before-numbers K1-s and
+   KX-P-s no time); its times are the kernels' times at the harness's
+   shape. Then each kernel of ops/score_variants.KERNELS (KX-P on K1's
+   u8 tensor-core pipeline in two instantiations and their SIMT
+   before-numbers, KX-K, KX-H, KX-I, the four ablations KX-A, and K1-s)
+   against its plain version bit for bit at the harness's shape and the
+   main path's, with tie, ragged and code-4 cases; its plain version and
+   library route timed at both shapes, the kernel and K1 at the main
+   path's (the before-numbers, which no variant name runs, at both);
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -72,6 +78,18 @@ The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Work files go to build/smoke/.
 
+A kernel's ms is CUDA events around calls from the host, which also
+hold the wrapper's host time wherever that is longer than the kernel;
+its device_ms is the replay of 20 calls captured in one CUDA graph
+(graph_ms), the kernel alone.
+
+library_ms is the yardstick of a kernel's function in PyTorch calls:
+one f32 torch.bmm of the one-hot or limb slabs (TF32 off, operands built
+before the timer), the elementwise combine and torch.max over offsets
+(library_route), checked against the plain version (library_equal). No
+path of the port calls it. The four ablations compute their Pallas
+bodies' functions, wrong by design: no library call computes them.
+
 --rehearse runs the same control flow on the CPU at a small size (the
 kernel checks then hold the plain version against itself) and prints
 no result line; it is for checking the script without a card.
@@ -82,16 +100,18 @@ import argparse
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s and
-# f32 operations/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 and bf16
+# tensor-core operations/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 K1H_ATOL = 1e-4   # tests/test_pallas_kernel.py:107-108
 
@@ -181,6 +201,40 @@ def time_ms(torch, cuda: bool, fn, iters: int, warm: int = 2) -> float:
     return s.elapsed_time(e) / iters
 
 
+def graph_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+    """Device ms a call of `fn`, with no host work between the calls:
+    `iters` calls captured in one CUDA graph, its replay timed by CUDA
+    events, the least of `reps` replays. time_ms's events around calls
+    from the host also hold the wrapper's host time wherever that is
+    longer than the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    best = float("inf")
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        torch.cuda.synchronize()
+        best = min(best, s.elapsed_time(e) / iters)
+    del g
+    return best
+
+
+def device_share(row) -> None:
+    """The row's bound over its device_ms (and prev_device_ms), where
+    those were measured."""
+    for key in ("device", "prev_device"):
+        if f"{key}_ms" in row:
+            row[f"{key}_bound_share"] = row["bound_ms"] / row[f"{key}_ms"]
+
+
 def bound_ms(nbytes, ops, ops_per_s) -> tuple[float, str]:
     """The larger of the bytes over HBM's rate and the operations over
     the engine's peak, and which of the two it is."""
@@ -201,10 +255,19 @@ def k1_bound_ms(B, R, L, W) -> tuple[float, str]:
     return bound_ms(k1_bytes(B, R, L, W), 2 * B * R * L * W, INT8_OPS_PER_S)
 
 
-def k1h_bound_ms(B, R, L, W) -> tuple[float, str]:
-    """K1-h's least time: K1's bytes against 2*B*R*L*W f32 operations at
-    the non-tensor FP32 peak."""
-    return bound_ms(k1_bytes(B, R, L, W), 2 * B * R * L * W, F32_OPS_PER_S)
+def k1h_bound_ms(B, R, L, W) -> tuple[float, str, str]:
+    """K1-h's least time: K1's bytes against the operations of the
+    fastest engine that computes the function at f32 accuracy, the bf16
+    tensor cores' three passes of the one-hot product (3 * 2*B*R*4L*W at
+    989 TFLOP/s) or the CUDA cores' 2*B*R*L*W f32 operations (67
+    TFLOP/s), whichever takes less. Returns (ms, "bytes" or
+    "operations", the engine that sets it)."""
+    engines = [(3 * 2 * B * R * 4 * L * W, BF16_OPS_PER_S,
+                "bf16 tensor cores"),
+               (2 * B * R * L * W, F32_OPS_PER_S, "f32 CUDA cores")]
+    ops, peak, engine = min(engines, key=lambda e: e[0] / e[1])
+    ms, by = bound_ms(k1_bytes(B, R, L, W), ops, peak)
+    return ms, by, engine if by == "operations" else "HBM"
 
 
 def kx_bound_ms(kind, B, R, L, W, H=1, G=1) -> tuple[float, str]:
@@ -234,6 +297,65 @@ def kx_bound_ms(kind, B, R, L, W, H=1, G=1) -> tuple[float, str]:
     if kind == "int8":
         ops = 16 * B * R * L * W
     return bound_ms(nbytes, ops, peak)
+
+
+# the library route of each kernel's function (library_route's kind);
+# the four ablations (noA, noW, nomax, nodot) compute their Pallas
+# bodies' functions, wrong by design, which no library call computes
+LIBRARY_KIND = {"packed": "k1", "packed_fold": "k1", "packed_simt": "k1",
+                "packed_fold_simt": "k1", "simt": "k1", "onesum": "onesum",
+                "hap": "hap", "int8": "int8"}
+NO_LIBRARY = "none: computes its Pallas body's function, wrong by design"
+
+
+def library_route(torch, kind, codes, delta, lnmis, win, H=1):
+    """The library yardstick of a kernel's function on its standard
+    operands: the operands built here, before any timer, and the call
+    to time, which returns (best, off): one f32 torch.bmm of the one-hot
+    or limb slabs (TF32 off), the elementwise combine and torch.max over
+    the offsets. kind: "k1" (K1's function, limb slabs stacked along M:
+    K1, K1-s, KX-P), "onesum" (one slab of limb_1*256 + limb_0: KX-K),
+    "int8" (K1's on limbs clamped to 127: KX-I), "hap" (K1's against H
+    windows in one bmm: KX-H) or "highest" (deltas times the one-hot:
+    K1-h). No path of the port calls these routes."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the library yardstick would not be f32")
+    B, R, L = codes.shape
+    W = win.shape[2] // H
+    c = codes.long()
+    oh_r = torch.stack([c == k for k in range(4)], dim=-1)     # [B,R,L,4]
+    oh_w = torch.stack([win.long() == k for k in range(4)], dim=2)
+    oh_w = oh_w.float().reshape(B, 4 * L, H * W)               # k = 4l + c
+    ls = lnmis[..., None]
+    if kind == "highest":
+        a = (oh_r.float() * delta[..., None]).reshape(B, R, 4 * L)
+
+        def call():
+            return torch.max(torch.bmm(a, oh_w) + ls, dim=-1)
+        return call
+    d = (delta * 2048.0).to(torch.int32)
+    limbs = ([d & 0xFFFF] if kind == "onesum"
+             else [(d >> 8) & 255, d & 255])
+    if kind == "int8":
+        limbs = [x.clamp(max=127) for x in limbs]
+    a = torch.cat([(oh_r * x[..., None]).reshape(B, R, 4 * L)
+                   for x in limbs], dim=1).float()             # [B,nR,4L]
+
+    def call():
+        p = torch.bmm(a, oh_w)
+        s = p[:, :R] * 256.0 + p[:, R:] if len(limbs) == 2 else p
+        s = s * (1.0 / 2048.0) + ls
+        return torch.max(s.view(B, R, H, W) if H > 1 else s, dim=-1)
+    return call
+
+
+def library_row(torch, call, want, timer) -> dict:
+    """library_ms of `call` by `timer`, and whether its (best, off)
+    equals `want` bit for bit (library_equal)."""
+    lb, lo = call()
+    equal = (torch.equal(lb.view(torch.int32), want[0].view(torch.int32))
+             and torch.equal(lo.int(), want[1].int()))
+    return {"library_ms": timer(call), "library_equal": equal}
 
 
 def k1_random(np, rng, B, R, L, W):
@@ -310,6 +432,14 @@ KX_TIMED_BY = {"packed": "fusedin", "packed_fold": "fusedlm",
                "nomax": "limb2-nomax", "nodot": "limb2-nodot"}
 
 
+# the redesigned K1-x kernels and their SIMT before-numbers, and the
+# kernel each before-number of ops/score_variants.KERNELS stands beside
+KX_BEFORE = {"packed": "packed_simt", "packed_fold": "packed_fold_simt"}
+BEFORE_NUMBER_OF = {"simt": "score_best_offsets",
+                    "packed_simt": "score_packed",
+                    "packed_fold_simt": "score_packed_fold"}
+
+
 def kx_zero(sv):
     for k in sv.KERNELS.values():
         setattr(sv, k.counter, 0)
@@ -323,19 +453,22 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     """The variants runner, this slice's path, on every variant name,
     with every counter set to 0 just before and read just after. Fails
     unless every variant equals its body's function and, on the card,
-    every K1-x kernel and K1 launched. Returns (counters, {name: row})."""
+    every K1-x kernel and K1 launched, and the SIMT before-numbers
+    (K1-s, KX-P-s) no time. Returns (counters, {name: row})."""
     names = [*sv.K1_VARIANTS, "limb2r@8", "fused", "fusedwhole", "fusedin",
              "fusedlm", "limb2k", "hap2", "int8", "limb2-noA", "limb2-noW",
              "limb2-nomax", "limb2-nodot"]
     kx_zero(sv)
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
+    sk.LAUNCHES_HIGHEST_SIMT = 0
     try:
         rows = sv.run(names, dev.type, B, R)
     finally:
         got = kx_read(sv)
         got["k1"] = sk.LAUNCHES
         got["k1h"] = sk.LAUNCHES_HIGHEST
+        got["k1h_simt"] = sk.LAUNCHES_HIGHEST_SIMT
     bad = [r["name"] for r in rows if not r["body_exact"]]
     if bad:
         fail(f"the variants runner: {bad} differ from their body's function")
@@ -343,6 +476,11 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     idle = [c for c, n in got.items() if c in runs and n == 0]
     if cuda and idle:
         fail(f"the variants runner launched {idle} no time")
+    before = [sv.KERNELS[k].counter for k in sv.KERNELS
+              if k not in KX_TIMED_BY]
+    ran = [c for c in before if got[c]]
+    if ran:
+        fail(f"the variants runner launched the before-numbers {ran}")
     log("kx runner launches: " + json.dumps(got))
     return got, {r["name"]: r for r in rows}
 
@@ -355,7 +493,9 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
     (ties, ragged, code 4). At the first shape, the harness's, the
     kernel's and K1's times are the runner's (`runner` rows); at the
     others both are timed here, K1 at the same shape (hap: one launch a
-    window). The plain version is timed at each shape. Returns {kind:
+    window). The plain version and the library route of the function
+    (LIBRARY_KIND) are timed at each shape; KX-P's rows get the SIMT
+    before-number's time at the same shape as prev_ms. Returns {kind:
     rows}."""
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
@@ -414,13 +554,28 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
                     row["k1_ms"] = ms(k1)
                     if i == 0:
                         row["timed_by"] = "phase_kx"
+                if cuda:
+                    row["device_ms"] = graph_ms(torch, lambda: k.call(*args))
                 row["plain_ms"] = ms(lambda: k.plain(*args), 5, 1)
+                if kind in LIBRARY_KIND:
+                    row.update(library_row(torch, library_route(
+                        torch, LIBRARY_KIND[kind], *t, H if hap else 1),
+                        want, ms))
+                else:
+                    row["library_ms"] = None
                 row["bound_ms"], row["bound_by"] = kx_bound_ms(
                     kind, B, R, L, W, H if hap else 1, G)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                device_share(row)
             rows.append(row)
             log(f"kx {k.label}: " + json.dumps(row))
             del t, args, got, want
         out[kind] = rows
+    for kind, prev in KX_BEFORE.items():
+        for row, before in zip(out[kind], out[prev]):
+            for key in ("ms", "device_ms"):
+                if key in row:
+                    row[f"prev_{key}"] = before[key]
     return out
 
 
@@ -453,8 +608,9 @@ def phase_k1(np, torch, dev, cuda: bool, shapes, iters: int,
     under non-zero deltas), plus exact ties across N tiles and offset
     chunks, a ragged shape and code 4 against window code 4; K1-s held
     to the same plain version. At each random shape the kernel, K1-s
-    (prev_ms) and the plain version are timed, and the kernel's time
-    set against the bound (bound_share). Returns per-case rows."""
+    (prev_ms), the plain version and the library route (library_route
+    "k1") are timed, and the kernel's time set against the bound
+    (bound_share). Returns per-case rows."""
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
     rng = np.random.default_rng(2024)
@@ -491,6 +647,11 @@ def phase_k1(np, torch, dev, cuda: bool, shapes, iters: int,
                                 lambda: sk.score_best_offsets(*t), iters)
             row["prev_ms"] = time_ms(torch, cuda,
                                      lambda: sv.score_simt(*t), iters)
+            if cuda:
+                row["device_ms"] = graph_ms(
+                    torch, lambda: sk.score_best_offsets(*t))
+                row["prev_device_ms"] = graph_ms(
+                    torch, lambda: sv.score_simt(*t))
             # the wrapper's host time a call (checks, outputs, launch),
             # which the phase 4 and 6 stream spans also hold
             t0 = time.perf_counter()
@@ -502,8 +663,12 @@ def phase_k1(np, torch, dev, cuda: bool, shapes, iters: int,
             row["plain_ms"] = time_ms(torch, cuda,
                                       lambda: sk.exact_best_offsets(*t),
                                       max(1, iters // 5), warm=1)
+            row.update(library_row(
+                torch, library_route(torch, "k1", *t), (pb, po),
+                lambda f: time_ms(torch, cuda, f, iters)))
             row["bound_ms"], row["bound_by"] = k1_bound_ms(B, R, L, W)
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            device_share(row)
             row["prev_bound_share"] = row["bound_ms"] / row["prev_ms"]
         rows.append(row)
         log("k1: " + json.dumps(row))
@@ -521,55 +686,87 @@ def bench_inputs(np, rng, B, R, L, W):
 
 
 def phase_k1h(np, torch, dev, cuda: bool, shapes, iters: int):
-    """mode="highest" kernel vs its plain version: scores within
-    K1H_ATOL with the quantized LUT's deltas (whose f32 sums are exact),
-    offsets equal except where the plain version's top two scores lie
-    within K1H_ATOL (counted); bench.py's unquantized deltas at the first
-    shape, held per row to the f32 bound 2 (L+1) 2^-24 sum|terms| of two
-    summation orders. Returns (rows, max_abs_err)."""
+    """K1-h, mode="highest" on the bf16 tensor cores, and K1-h-s, its
+    SIMT before-number, each against the plain version (one-hot f32
+    bmm): scores within K1H_ATOL with the quantized LUT's deltas (whose
+    f32 sums are exact in any order: max_abs_err 0 expected), offsets
+    equal except where the plain version's top two scores lie within
+    K1H_ATOL (counted), at bench.py's shape and two main-path shapes
+    plus exact ties, ties across K1-h's N tiles, a ragged shape and code
+    4; bench.py's unquantized deltas at the first shape held per row to
+    the f32 bound 2 (L+1) 2^-24 (sum|terms| + |lnmis|) of two summation
+    orders, whose worst case for the tensor cores (3L/4 truncations of
+    one score, 1.5 L 2^-24 sum) fits inside it with the bmm's own
+    rounding. At each LUT shape the kernel, K1-h-s (prev_ms), the plain
+    version and the library route (library_route "highest") are timed.
+    Returns (rows, max_abs_err of the LUT cases)."""
     from strelka_tpu_torch.ops import score_kernel as sk
     rng = np.random.default_rng(2025)
     rows = []
     max_err = 0.0
     cases = [("lut", s, k1_random) for s in shapes]
-    cases.append(("bench_unquantized", shapes[0], bench_inputs))
+    cases += [("bench_unquantized", shapes[0], bench_inputs),
+              ("ties", (64, 32, 128, 320), k1_ties),
+              ("tile_ties", (64, 40, 160, 320), k1_tile_ties),
+              ("ragged", (3, 40, 100, 70), k1_random),
+              ("code4", (4, 32, 160, 192), k1_code4)]
+    kernels = (("k1h", lambda *a: sk.score_best_offsets(*a, mode="highest")),
+               ("k1h-s", sk.score_highest_simt))
     for kind, (B, R, L, W), make in cases:
         arrs = make(np, rng, B, R, L, W)
         t = [torch.from_numpy(a).to(dev) for a in arrs]
-        kb, ko = sk.score_best_offsets(*t, mode="highest")
         s = sk.highest_scores(*t)
         top2 = torch.topk(s, 2, dim=-1).values
         del s
         pb, po = sk.reference_best_offsets(*t)
-        if cuda:
-            torch.cuda.synchronize()
-        err = (kb - pb).abs()
-        if kind == "lut":
-            bad = int((err > K1H_ATOL).sum())
-        else:
-            c, d, m, _w = t
-            terms = torch.where((c >= 0) & (c < 4), d.abs(), 0.0).sum(-1)
-            bound = 2 * (L + 1) * 2.0 ** -24 * (terms + m.abs())
-            bad = int((err > bound).sum())
         near = (top2[..., 0] - top2[..., 1]) <= K1H_ATOL
-        differ = ko != po
-        n_off_bad = int((differ & ~near).sum())
-        if bad or n_off_bad:
-            fail(f"k1h {kind} {[B, R, L, W]}: {bad} scores outside the "
-                 f"tolerance (max err {float(err.max())}), {n_off_bad} "
-                 f"offsets differ outside near-ties")
         row = {"case": kind, "shape": [B, R, L, W],
-               "max_abs_err": float(err.max()),
-               "near_ties": int(near.sum()),
-               "near_tie_offsets_differ": int((differ & near).sum())}
-        max_err = max(max_err, row["max_abs_err"])
+               "near_ties": int(near.sum())}
+        for name, fn in kernels:
+            kb, ko = fn(*t)
+            if cuda:
+                torch.cuda.synchronize()
+            err = (kb - pb).abs()
+            if kind == "bench_unquantized":
+                c, d, m, _w = t
+                terms = torch.where((c >= 0) & (c < 4), d.abs(), 0.0).sum(-1)
+                bound = 2 * (L + 1) * 2.0 ** -24 * (terms + m.abs())
+                bad = int((err > bound).sum())
+                row[f"{name}_err_over_bound"] = float((err / bound).max())
+            else:
+                bad = int((err > K1H_ATOL).sum())
+            differ = ko != po
+            n_off_bad = int((differ & ~near).sum())
+            if bad or n_off_bad:
+                fail(f"{name} {kind} {[B, R, L, W]}: {bad} scores outside "
+                     f"the tolerance (max err {float(err.max())}), "
+                     f"{n_off_bad} offsets differ outside near-ties")
+            prefix = "" if name == "k1h" else "prev_"
+            row[f"{prefix}max_abs_err"] = float(err.max())
+            row[f"{prefix}near_tie_offsets_differ"] = int((differ & near).sum())
+        if kind != "bench_unquantized":
+            max_err = max(max_err, row["max_abs_err"])
         if kind == "lut":
             row["ms"] = time_ms(torch, cuda, lambda: sk.score_best_offsets(
                 *t, mode="highest"), iters)
+            row["prev_ms"] = time_ms(
+                torch, cuda, lambda: sk.score_highest_simt(*t), iters)
+            if cuda:
+                row["device_ms"] = graph_ms(torch, lambda: sk.score_best_offsets(
+                    *t, mode="highest"))
+                row["prev_device_ms"] = graph_ms(
+                    torch, lambda: sk.score_highest_simt(*t))
             row["plain_ms"] = time_ms(
                 torch, cuda, lambda: sk.reference_best_offsets(*t),
                 max(1, iters // 5), warm=1)
-            row["bound_ms"], row["bound_by"] = k1h_bound_ms(B, R, L, W)
+            row.update(library_row(
+                torch, library_route(torch, "highest", *t), (pb, po),
+                lambda f: time_ms(torch, cuda, f, iters)))
+            (row["bound_ms"], row["bound_by"],
+             row["bound_engine"]) = k1h_bound_ms(B, R, L, W)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["prev_bound_share"] = row["bound_ms"] / row["prev_ms"]
+            device_share(row)
         rows.append(row)
         log("k1h: " + json.dumps(row))
         del t
@@ -772,7 +969,6 @@ def make_tn_dataset(np, workdir: str, mb: float):
 def run_somatic_cli(fa, nbam, tbam, out, device):
     from strelka_tpu_torch.__main__ import main
     if os.path.exists(out):
-        import shutil
         shutil.rmtree(out)
     t0 = time.perf_counter()
     rc = main(["somatic", "--reference", fa, "--normal-align-file", nbam,
@@ -872,7 +1068,6 @@ def compare_somatic_runs(a_dir, b_dir):
 def run_cli(fa, bam, out, device, extra=()):
     from strelka_tpu_torch.__main__ import main
     if os.path.exists(out):
-        import shutil
         shutil.rmtree(out)
     t0 = time.perf_counter()
     rc = main(["germline", "--reference", fa, "--align-file", bam,
@@ -974,9 +1169,9 @@ def keyed(counts):
 
 def launches_during(fn):
     """fn() with every launch counter set to 0 just before and read just
-    after: (fn's result, the wall s, {"k1", "k1h", "kx", "score", "snv",
-    "somatic"} in the layout of the workers' STRELKA_TPU_LAUNCH_STATS
-    dumps)."""
+    after: (fn's result, the wall s, {"k1", "k1h", "k1h_simt", "kx",
+    "score", "snv", "somatic"} in the layout of the workers'
+    STRELKA_TPU_LAUNCH_STATS dumps)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
@@ -984,6 +1179,7 @@ def launches_during(fn):
     from strelka_tpu_torch.pipeline import realign_batch as rb
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
+    sk.LAUNCHES_HIGHEST_SIMT = 0
     kx_zero(sv)
     sd.LAUNCH_STATS.clear()
     ss.LAUNCH_STATS.clear()
@@ -994,7 +1190,7 @@ def launches_during(fn):
     finally:
         wall = time.perf_counter() - t0
         counts = {"k1": sk.LAUNCHES, "k1h": sk.LAUNCHES_HIGHEST,
-                  "kx": kx_read(sv), "score": keyed(rb.LAUNCH_STATS),
+                  "k1h_simt": sk.LAUNCHES_HIGHEST_SIMT, "kx": kx_read(sv), "score": keyed(rb.LAUNCH_STATS),
                   "snv": keyed(sd.LAUNCH_STATS),
                   "somatic": keyed(ss.LAUNCH_STATS)}
         rb.LAUNCH_STATS = None
@@ -1007,11 +1203,11 @@ def tile_count(counts, group, kind, device):
 
 
 def check_path_launches(label, counts, cuda, k1_expected=True):
-    """Fails where the path launched a K1-x kernel or K1-h, or, on the
-    card, K1 no time (where its input has reads to score)."""
-    if any(counts["kx"].values()) or counts["k1h"]:
+    """Fails where the path launched a K1-x kernel, K1-h or K1-h-s, or,
+    on the card, K1 no time (where its input has reads to score)."""
+    if any(counts["kx"].values()) or counts["k1h"] or counts["k1h_simt"]:
         fail(f"{label} launched K1-x or K1-h: {counts['kx']}, "
-             f"k1h {counts['k1h']}")
+             f"k1h {counts['k1h']}, k1h_simt {counts['k1h_simt']}")
     if cuda and k1_expected and counts["k1"] == 0:
         fail(f"{label} launched the k1 kernel no time")
 
@@ -1048,7 +1244,6 @@ def fanout_parent(args, stats_dir, timeout=900):
     that a timeout ends them all) and STRELKA_TPU_LAUNCH_STATS=stats_dir
     (every process dumps its launch counts at exit). Fails unless the
     parent exits 0 with CUDA uninitialized. Returns (wall s, stderr)."""
-    import shutil
     import signal
     if os.path.exists(stats_dir):
         shutil.rmtree(stats_dir)
@@ -1084,14 +1279,14 @@ def fanout_parent(args, stats_dir, timeout=900):
 
 def read_launch_dumps(stats_dir) -> dict:
     """The sum of every process's launch dump, and how many there are."""
-    tot = {"processes": 0, "k1": 0, "k1h": 0, "kx": {}, "score": {},
-           "snv": {}, "somatic": {}}
+    tot = {"processes": 0, "k1": 0, "k1h": 0, "k1h_simt": 0, "kx": {},
+           "score": {}, "snv": {}, "somatic": {}}
     for name in sorted(os.listdir(stats_dir)):
         with open(os.path.join(stats_dir, name)) as f:
             d = json.load(f)
         tot["processes"] += 1
-        tot["k1"] += d["k1"]
-        tot["k1h"] += d["k1h"]
+        for k in ("k1", "k1h", "k1h_simt"):
+            tot[k] += d[k]
         for group in ("kx", "score", "snv", "somatic"):
             for k, v in d[group].items():
                 tot[group][k] = tot[group].get(k, 0) + v
@@ -1446,7 +1641,10 @@ def main(argv=None) -> int:
     log("== phase 3b: somatic SNV model vs the CPU path")
     phase_somatic_snv(np, torch, dev, 2000 if rehearse else 200_000)
 
+    # a fresh work directory: a --jobs run would resume from the
+    # taskstates of an earlier smoke's outputs
     workdir = os.path.join(HERE, "build", "smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
     log(f"== phase 4: germline --device {dev.type} end to end")
     fa, bam, n_reads = make_dataset(np, workdir, mb)
     out_dev = os.path.join(workdir, f"out_{dev.type}")
@@ -1512,50 +1710,77 @@ def main(argv=None) -> int:
 
     top = k1_rows[-1]
     k1h = k1h_rows[0]   # bench.py's shape
+
+    def launches(key):
+        """(launches on every path and in the runner, by path)."""
+        by = {**{p: c[key] for p, c in paths.items()},
+              "variants_runner": kx_runner[key]}
+        return sum(by.values()), by
+
     kernels = [{
         "name": "score_best_offsets",
         "route": "cuda",
         "source": "strelka_tpu_torch/csrc/score_best_offsets_tc.cu",
         "replaces": sv.K1_TPU,
-        "launches": kx_runner["k1"] + sum(c["k1"] for c in paths.values()),
-        "launches_by_path": {**{p: c["k1"] for p, c in paths.items()},
-                             "variants_runner": kx_runner["k1"]},
+        "launches": launches("k1")[0],
+        "launches_by_path": launches("k1")[1],
         "launches_by_shape": {p: c["score"] for p, c in paths.items()},
         "max_abs_err": k1_err,
         "tolerance": "bit for bit",
         "shape": top["shape"],
         "ms": top["ms"],
+        "device_ms": top.get("device_ms"),
         "prev_ms": top["prev_ms"],
+        "prev_device_ms": top.get("prev_device_ms"),
         "plain_ms": top["plain_ms"],
+        "library_ms": top["library_ms"],
+        "library_equal": top["library_equal"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "bound_share": top["bound_share"],
-        "library_ms": None,
-    }, {
-        "name": "score_best_offsets_highest",
-        "route": "cuda",
-        "source": "strelka_tpu_torch/csrc/score_best_offsets.cu",
-        "replaces": "strelka_tpu/ops/pallas_readlik.py:170",
-        # counted on every CLI path like K1; no CLI path runs
-        # mode="highest", so phase 2b alone is expected to launch it
-        "launches": kx_runner["k1h"] + sum(c["k1h"] for c in paths.values()),
-        "launches_by_path": {**{p: c["k1h"] for p, c in paths.items()},
-                             "variants_runner": kx_runner["k1h"]},
-        "max_abs_err": k1h_err,
-        "tolerance": f"atol {K1H_ATOL} (quantized deltas); f32 rounding "
-                     f"bound (unquantized)",
-        "shape": k1h["shape"],
-        "ms": k1h["ms"],
-        "plain_ms": k1h["plain_ms"],
-        "bound_ms": k1h["bound_ms"],
-        "bound_by": k1h["bound_by"],
-        "library_ms": None,
+        "device_bound_share": top.get("device_bound_share"),
     }]
+    # K1-h, then K1-h-s (its before-number); no CLI path runs
+    # mode="highest", so phase 2b alone is expected to launch them
+    for key, name, source, prefix in (
+            ("k1h", "score_best_offsets_highest",
+             "strelka_tpu_torch/csrc/score_highest_tc.cu", ""),
+            ("k1h_simt", "score_best_offsets_highest_simt",
+             "strelka_tpu_torch/csrc/score_best_offsets.cu", "prev_")):
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "strelka_tpu/ops/pallas_readlik.py:170",
+            "launches": launches(key)[0],
+            "launches_by_path": launches(key)[1],
+            "max_abs_err": max(r[f"{prefix}max_abs_err"] for r in k1h_rows
+                               if r["case"] != "bench_unquantized"),
+            "tolerance": f"atol {K1H_ATOL} (quantized deltas); f32 rounding "
+                         f"bound (unquantized)",
+            "shape": k1h["shape"],
+            "ms": k1h[f"{prefix}ms"],
+            "device_ms": k1h.get(f"{prefix}device_ms"),
+            "plain_ms": k1h["plain_ms"],
+            "library_ms": k1h["library_ms"],
+            "library_equal": k1h["library_equal"],
+            "bound_ms": k1h["bound_ms"],
+            "bound_by": k1h["bound_by"],
+            "bound_engine": k1h["bound_engine"],
+            "bound_share": k1h["bound_ms"] / k1h[f"{prefix}ms"],
+            "device_bound_share": k1h.get(f"{prefix}device_bound_share"),
+        }
+        if key == "k1h":
+            row["prev_ms"] = k1h["prev_ms"]
+            row["prev_device_ms"] = k1h.get("prev_device_ms")
+        else:
+            row["before_number_of"] = "score_best_offsets_highest"
+        kernels.append(row)
     for kind, k in sv.KERNELS.items():
         rows = kx_rows[kind]
         top = rows[0]   # the harness's shape
         c = k.counter
-        kernels.append({
+        row = {
             "name": k.label,
             "route": "cuda",
             "source": k.source,
@@ -1570,14 +1795,25 @@ def main(argv=None) -> int:
             "shape": top["shape"] + ([sv.HAP_WINDOWS] if kind == "hap"
                                      else []),
             "ms": top["ms"],
+            "device_ms": top.get("device_ms"),
             "plain_ms": top["plain_ms"],
             "k1_ms": top["k1_ms"],
+            "library_ms": top["library_ms"],
             "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"],
-            # no PyTorch call computes max and first argmax over the
-            # product (torch._int_mm gives only KX-I's product)
-            "library_ms": None,
-        })
+            "bound_share": top["bound_share"],
+            "device_bound_share": top.get("device_bound_share"),
+        }
+        if kind in LIBRARY_KIND:
+            row["library_equal"] = top["library_equal"]
+        else:
+            row["library"] = NO_LIBRARY
+        if kind in KX_BEFORE:
+            row["prev_ms"] = top["prev_ms"]
+            row["prev_device_ms"] = top.get("prev_device_ms")
+        if kind in BEFORE_NUMBER_OF:
+            row["before_number_of"] = BEFORE_NUMBER_OF[kind]
+        kernels.append(row)
     if rehearse:
         log(json.dumps({"kernels": kernels}))
         log("rehearsal done (CPU): no result line")

@@ -7,8 +7,9 @@ with ctypes (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer. ``build_all`` starts one
-nvcc per source at once and waits for all of them. Nothing here runs
+A library is rebuilt when its source, or a header of csrc/ (``*.cuh``,
+which the sources share), is newer. ``build_all`` starts one nvcc per
+source at once and waits for all of them. Nothing here runs
 when a module is imported: a kernel is built at its first launch.
 """
 from __future__ import annotations
@@ -59,9 +60,10 @@ def lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     out = lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
+    inputs = [os.path.join(CSRC, f"{name}.cu"),
+              *glob.glob(os.path.join(CSRC, "*.cuh"))]
     return (not os.path.exists(out)
-            or os.path.getmtime(out) < os.path.getmtime(src))
+            or os.path.getmtime(out) < max(map(os.path.getmtime, inputs)))
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str]:

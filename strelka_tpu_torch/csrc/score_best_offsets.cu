@@ -28,10 +28,13 @@
 // in registers across chunks, so nothing crosses blocks. The compare-adds
 // run on the CUDA cores, well above the byte bound.
 //
-// The same kernel, instantiated with kHighest, replaces the TPU kernel's
-// mode="highest" path (pallas_readlik.py:170-177, an f32 HIGHEST matmul of
-// one-hot deltas): s[w] = sum_l delta[r,l] * [codes[r,l] == win[l,w]] +
-// lnmis[r] with unquantized f32 deltas. Each lane keeps four f32 sums and
+// The same kernel, instantiated with kHighest, is K1-h-s: the SIMT port of
+// the TPU kernel's mode="highest" path (pallas_readlik.py:170-177, an f32
+// HIGHEST matmul of one-hot deltas), s[w] = sum_l delta[r,l] *
+// [codes[r,l] == win[l,w]] + lnmis[r] with unquantized f32 deltas. The
+// bf16 tensor-core kernel (score_highest_tc.cu) replaced it on every path;
+// it stays as that kernel's before-number
+// (ops/score_kernel.KERNEL_FUNCTIONS["highest_simt"]). Each lane keeps four f32 sums and
 // adds every matching delta in ascending l with __fadd_rn, so the order is
 // fixed and nvcc cannot contract it; the result is an f32 sum in another
 // order than the reference's matmul, equal to it within rounding, not bit

@@ -12,6 +12,17 @@
 // the reference: RN(RN(f32(S_1) * 256) + f32(S_0)) equals RN(S_1*256 + S_0)
 // for every sum below 2^31, since f32(S_1) * 256 is exact.
 //
+// The same kernel, instantiated on packed operands, is KX-P: it replaces
+// the K1-x harness's packed bodies benchmarks/exp_exact_kernel.py
+// _kernel_fused :418 / build_fused.kern :451 (pallas_call :489) and
+// build_packedin.kern :579 (pallas_call :625): K1's function from one int32
+// per base, p = (d_int << 3) | code (code p & 7, where 4..7 match nothing;
+// d_int p >> 3), with lnmis f32 [B,R] (kPacked) or as raw f32 bits in
+// ceil(R/L) extra rows of the packed operand, read r at row R + r/L, column
+// r % L (kPackedFold); out f32 [B,R,2] = (best, the bits of the offset).
+// Only the reads' expansion into A words, lnmis and the output store differ
+// (template parameters); K1's instantiation is the code it was.
+//
 // As a product: S_j = A_j . Bw over a contraction axis k = 4l + c of 4L
 // bytes, with A_j[r, 4l+c] = limb_j(d_int[r,l]) * [code[r,l] == c] (u8,
 // 0..255) and Bw[4l+c, w] = [win[l,w] == c] (u8). A read code >= 4 is a zero
@@ -20,7 +31,7 @@
 // Bound on the H100: bytes. It moves B*(5*R*L + L*W + 12*R) bytes, ~11 us at
 // the main path's 256,128,160,256 at 3.35 TB/s, against 2*B*R*L*W = 2.7 G
 // compare-adds (the one-hot product does 16*B*R*L*W = 21.5 G u8 operations,
-// ~11 us at 1,979 TOP/s).
+// ~11 us at 1,979 TOP/s). KX-P moves 4 bytes a base instead of 5.
 //
 // Design:
 // - wgmma.mma_async m64n64k32 .s32.u8.u8, both operands K-major in shared
@@ -36,69 +47,22 @@
 // - The CTA's reads are turned into A words once: for the whole read length
 //   when they fit in shared memory (the main path's L), else one chunk per
 //   step (long reads; nothing in shared memory grows with L then).
-// - The window comes in by 16-byte cp.async (plain loads where rows are not
-//   16-byte aligned) into a ring of 3 raw stages, each completed on an
-//   mbarrier, two steps ahead. Each step's raw window is expanded into the
-//   K-major one-hot Bw tile of a 3-slot ring while the tensor cores run the
-//   step before it. One __syncthreads a step guards the slots.
+// - The window comes in by 16-byte cp.async into a ring of 3 raw stages,
+//   each completed on an mbarrier, two steps ahead (tc_pipeline.cuh). Each
+//   step's raw window is expanded into the K-major one-hot Bw tile of a
+//   3-slot ring while the tensor cores run the step before it. One
+//   __syncthreads a step guards the slots.
 // - First max: strict > over a thread's ascending offsets across N tiles,
 //   then better() over the 4 lanes that share a read.
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstdint>
+#include "tc_pipeline.cuh"
 
 namespace {
 
-constexpr int kWgThreads = 128;
 constexpr int kReadsPerWg = 32;                 // m64 = 32 reads x 2 limbs
 constexpr int kMaxWg = 4;
-constexpr int kNTile = 64;                      // offsets per N tile
-constexpr int kChunkBases = 32;                 // bases per K chunk
 constexpr int kChunkK = 4 * kChunkBases;        // 128 bytes of K
 constexpr int kSteps = kChunkK / 32;            // k32 steps per chunk
-constexpr int kStages = 3;
-constexpr int kCore = 128;                      // 8 rows x 16 bytes
 constexpr int kOpBytes = 64 * kChunkK;          // a 64-row operand chunk
-constexpr int kRawBytes = kChunkBases * kNTile; // a raw window chunk
-constexpr int kBarBytes = 128;
-constexpr int kSmemLimit = 232448;
-constexpr int kMaxLen = 1816;   // the range of the kernel it replaced
-constexpr float kQuantInv = 1.0f / 2048.0f;
-
-struct Args {
-    const int8_t* codes;    // [B,R,L]
-    const float* delta;     // [B,R,L]
-    const float* lnmis;     // [B,R]
-    const int8_t* win;      // [B,L,W]
-    float* best;            // [B,R]
-    int32_t* off;           // [B,R]
-    int R, L, W;
-    int Lp;                 // L rounded up to kChunkBases
-    int nK, nT;             // K chunks, N tiles
-    int resident;           // A words of the whole read length stay
-    int win_vec;            // window rows 16-byte aligned
-    int read_vec;           // reads 4 bases a load
-};
-
-// (s, w) beats (bs, bw): larger score, or the same score at a lower offset
-__device__ __forceinline__ bool better(float s, int w, float bs, int bw) {
-    return s > bs || (s == bs && w < bw);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma matrix descriptor, no swizzle: LBO = stride between the core
-// matrices adjacent in K, SBO = stride between 8-row groups, in bytes
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-    return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) |
-           ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-           ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
-}
 
 // d (+)= A (64x32 u8, K-major) * B (32x64 u8, K-major), s32
 __device__ __forceinline__ void wgmma_u8(int (&d)[32], uint64_t da,
@@ -125,74 +89,24 @@ __device__ __forceinline__ void fence_acc(int (&d)[32]) {
     for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                     smem_u32(bar)),
-                 "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                     smem_u32(bar))
-                 : "memory");
-}
-
-// arrives on `bar` once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                     "r"(smem_u32(bar))
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    asm volatile(
-        "{\n.reg .pred done;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-        "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
-}
-
 // A words of one base: (limb_1, limb_0) << 8c for a code c in 0..3, else 0
-__device__ __forceinline__ void a_words(int c, float d, unsigned& w1,
-                                        unsigned& w0) {
-    const int di = (int)__fmul_rn(d, 2048.0f);
+__device__ __forceinline__ void a_words_int(int c, int di, unsigned& w1,
+                                            unsigned& w0) {
     const bool ok = (unsigned)c < 4u;
     const unsigned sh = 8u * ((unsigned)c & 3u);
     w1 = ok ? ((unsigned)(di >> 8) & 255u) << sh : 0u;
     w0 = ok ? ((unsigned)di & 255u) << sh : 0u;
 }
 
+__device__ __forceinline__ void a_words(int c, float d, unsigned& w1,
+                                        unsigned& w0) {
+    a_words_int(c, (int)__fmul_rn(d, 2048.0f), w1, w0);
+}
+
 // A words of base quads q0 .. q0+nq-1 of the CTA's reads into `dst`: the 8
 // row groups of warpgroup q's A at dst + (8q + group) * sbo, group 2i (limb
 // 1) and 2i+1 (limb 0) for its reads 8i..8i+7, quad q0+kq at kq * kCore.
+template <int kSrc>
 __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
                          int q0, int nq, unsigned char* dst, uint32_t sbo) {
     const int items = n_reads * nq;
@@ -205,29 +119,47 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
         const int l = 4 * (q0 + kq);
         uint4 v1 = make_uint4(0u, 0u, 0u, 0u), v0 = v1;
         if (r < a.R && l < a.L) {
-            const size_t o = ((size_t)b * a.R + r) * a.L + l;
-            int c[4];
-            float d[4];
-            if (a.read_vec) {   // L % 4 == 0: the quad lies inside the read
-                const unsigned cw =
-                    *reinterpret_cast<const unsigned*>(a.codes + o);
-                const float4 dv = *reinterpret_cast<const float4*>(a.delta + o);
+            if constexpr (kSrc == kStandard) {
+                const size_t o = ((size_t)b * a.R + r) * a.L + l;
+                int c[4];
+                float d[4];
+                if (a.read_vec) {   // L % 4 == 0: the quad lies inside the read
+                    const unsigned cw =
+                        *reinterpret_cast<const unsigned*>(a.codes + o);
+                    const float4 dv =
+                        *reinterpret_cast<const float4*>(a.delta + o);
 #pragma unroll
-                for (int k = 0; k < 4; ++k)
-                    c[k] = (int)(int8_t)(cw >> (8 * k));
-                d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
-            } else {
+                    for (int k = 0; k < 4; ++k)
+                        c[k] = (int)(int8_t)(cw >> (8 * k));
+                    d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
+                } else {
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const bool in = l + k < a.L;
-                    c[k] = in ? (int)a.codes[o + k] : 4;
-                    d[k] = in ? a.delta[o + k] : 0.0f;
+                    for (int k = 0; k < 4; ++k) {
+                        const bool in = l + k < a.L;
+                        c[k] = in ? (int)a.codes[o + k] : 4;
+                        d[k] = in ? a.delta[o + k] : 0.0f;
+                    }
                 }
+                a_words(c[0], d[0], v1.x, v0.x);
+                a_words(c[1], d[1], v1.y, v0.y);
+                a_words(c[2], d[2], v1.z, v0.z);
+                a_words(c[3], d[3], v1.w, v0.w);
+            } else {   // packed: code p & 7, d_int p >> 3
+                const size_t o = ((size_t)b * a.Rp + r) * a.L + l;
+                int p[4];
+                if (a.read_vec) {
+                    const int4 pv = *reinterpret_cast<const int4*>(a.packed + o);
+                    p[0] = pv.x; p[1] = pv.y; p[2] = pv.z; p[3] = pv.w;
+                } else {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k)
+                        p[k] = l + k < a.L ? a.packed[o + k] : 4;
+                }
+                a_words_int(p[0] & 7, p[0] >> 3, v1.x, v0.x);
+                a_words_int(p[1] & 7, p[1] >> 3, v1.y, v0.y);
+                a_words_int(p[2] & 7, p[2] >> 3, v1.z, v0.z);
+                a_words_int(p[3] & 7, p[3] >> 3, v1.w, v0.w);
             }
-            a_words(c[0], d[0], v1.x, v0.x);
-            a_words(c[1], d[1], v1.y, v0.y);
-            a_words(c[2], d[2], v1.z, v0.z);
-            a_words(c[3], d[3], v1.w, v0.w);
         }
         unsigned char* p = dst + (size_t)(2 * ig) * sbo + kq * kCore + 16 * i8;
         *reinterpret_cast<uint4*>(p) = v1;
@@ -235,33 +167,15 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
     }
 }
 
-// the raw window of step `it` (bases l0.., offsets w0..) into `raw`
-// ([kChunkBases][kNTile] bytes); every thread arrives on `bar` once
-__device__ void stage_window(const Args& a, int b, int it,
-                             unsigned char* raw, uint64_t* bar) {
-    const int nt = it / a.nK;
-    const int l0 = (it - nt * a.nK) * kChunkBases;
-    const int w0 = nt * kNTile;
-    const int8_t* wb = a.win + (size_t)b * a.L * a.W;
-    if (a.win_vec) {   // W % 16 == 0: a 16-byte piece is all in or all out
-        for (int v = threadIdx.x; v < kChunkBases * (kNTile / 16);
-             v += blockDim.x) {
-            const int l = v / (kNTile / 16);
-            const int col = 16 * (v % (kNTile / 16));
-            if (l0 + l < a.L && w0 + col < a.W)
-                cp_async16(raw + l * kNTile + col,
-                           wb + (size_t)(l0 + l) * a.W + w0 + col);
-        }
-        cp_async_arrive(bar);
-    } else {
-        for (int e = threadIdx.x; e < kRawBytes; e += blockDim.x) {
-            const int l = e / kNTile;
-            const int col = e - l * kNTile;
-            if (l0 + l < a.L && w0 + col < a.W)
-                raw[e] = (unsigned char)wb[(size_t)(l0 + l) * a.W + w0 + col];
-        }
-        mbar_arrive(bar);
-    }
+// lnmis of read r (r < R): the [B,R] operand, or the folded row's bits
+template <int kSrc>
+__device__ __forceinline__ float read_lnmis(const Args& a, int b,
+                                            long long r) {
+    if constexpr (kSrc == kPackedFold)
+        return __int_as_float(
+            a.packed[((size_t)b * a.Rp + a.R + r / a.L) * a.L + r % a.L]);
+    else
+        return a.lnmis[(size_t)b * a.R + r];
 }
 
 // step `it`'s K-major one-hot Bw tile [64 offsets][128 bytes of K] from its
@@ -289,6 +203,7 @@ __device__ void expand_w(const Args& a, int it, const unsigned char* raw,
     }
 }
 
+template <int kSrc, bool kPairOut>
 __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     score_best_offsets_tc_kernel(const Args a) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -308,15 +223,11 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     const uint32_t sbo_a = a.resident ? 32u * a.Lp : 8u * kChunkK;
     const size_t a_slot = (size_t)n_wg * kOpBytes;
 
-    if (tid == 0) {
-        for (int s = 0; s < kStages; ++s) mbar_init(&full[s], blockDim.x);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
+    init_ring(full);
     for (int s = 0; s < 2 && s < total; ++s)
         stage_window(a, b, s, raw + s * kRawBytes, &full[s]);
-    expand_a(a, b, r0, n_reads, 0, a.resident ? a.Lp / 4 : kChunkBases / 4,
-             as, sbo_a);
+    expand_a<kSrc>(a, b, r0, n_reads, 0,
+                   a.resident ? a.Lp / 4 : kChunkBases / 4, as, sbo_a);
     mbar_wait(&full[0], 0);
     expand_w(a, 0, raw, bw);
     fence_proxy_async();
@@ -326,7 +237,7 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     const int g = lane >> 2;
     const int t4 = lane & 3;
     const long long r = r0 + wg * kReadsPerWg + ((tid >> 5) & 3) * 8 + g;
-    const float ls = r < a.R ? a.lnmis[(size_t)b * a.R + r] : 0.0f;
+    const float ls = r < a.R ? read_lnmis<kSrc>(a, b, r) : 0.0f;
     float run_s = -INFINITY;
     int run_w = INT_MAX;
     int acc[32];
@@ -360,8 +271,8 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
             const int s1 = (it + 1) % kStages;
             if (!a.resident) {
                 const int k1 = (it + 1) % a.nK;
-                expand_a(a, b, r0, n_reads, k1 * (kChunkBases / 4),
-                         kChunkBases / 4, as + s1 * a_slot, sbo_a);
+                expand_a<kSrc>(a, b, r0, n_reads, k1 * (kChunkBases / 4),
+                               kChunkBases / 4, as + s1 * a_slot, sbo_a);
             }
             mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
             expand_w(a, it + 1, raw + s1 * kRawBytes, bw + s1 * kOpBytes);
@@ -402,16 +313,56 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
         }
     }
     if (t4 == 0 && r < a.R) {
-        a.best[(size_t)b * a.R + r] = run_s;
-        a.off[(size_t)b * a.R + r] = run_w;
+        const size_t o = (size_t)b * a.R + r;
+        if constexpr (kPairOut) {
+            a.out[2 * o] = run_s;
+            a.out[2 * o + 1] = __int_as_float(run_w);
+        } else {
+            a.best[o] = run_s;
+            a.off[o] = run_w;
+        }
     }
+}
+
+// Launches the instantiation on `a` (operand pointers, R, Rp, L, W set)
+// for B pairs; returns cudaGetLastError().
+template <int kSrc, bool kPairOut>
+int launch(Args a, long long B, void* stream) {
+    plan_steps(a);
+    const long long want = (a.R + kReadsPerWg - 1) / kReadsPerWg;
+    const int n_wg = (int)(want < kMaxWg ? want : kMaxWg);
+    const size_t fixed = kBarBytes + (size_t)kStages * (kOpBytes + kRawBytes);
+    const size_t resident = fixed + (size_t)n_wg * 64 * 4 * a.Lp;
+    a.resident = resident <= (size_t)kSmemLimit;
+    const size_t smem =
+        a.resident ? resident : fixed + (size_t)kStages * n_wg * kOpBytes;
+    if constexpr (kSrc == kStandard)
+        a.read_vec = a.L % 4 == 0 && (uintptr_t)a.codes % 4 == 0 &&
+                     (uintptr_t)a.delta % 16 == 0;
+    else
+        a.read_vec = a.L % 4 == 0 && (uintptr_t)a.packed % 16 == 0;
+    auto kernel = score_best_offsets_tc_kernel<kSrc, kPairOut>;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const long long per_cta = (long long)n_wg * kReadsPerWg;
+    const dim3 grid((unsigned)((a.R + per_cta - 1) / per_cta), (unsigned)B);
+    kernel<<<grid, n_wg * kWgThreads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+bool in_range(long long B, long long R, long long L, long long W) {
+    return B >= 1 && R >= 1 && L >= 1 && W >= 1 && B <= 65535 &&
+           R <= INT_MAX && L <= kMaxLen && W <= INT_MAX;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest read length the launch takes.
+// Largest read length the launches take.
 int score_best_offsets_tc_max_len() { return kMaxLen; }
 
 // codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R] f32, win [B,L,W] int8,
@@ -422,9 +373,7 @@ int score_best_offsets_tc_launch(const void* codes, const void* delta,
                                  long long B, long long R, long long L,
                                  long long W, void* best, void* off,
                                  void* stream) {
-    if (B < 1 || R < 1 || L < 1 || W < 1 || B > 65535 || R > INT_MAX ||
-        L > kMaxLen || W > INT_MAX)
-        return (int)cudaErrorInvalidValue;
+    if (!in_range(B, R, L, W)) return (int)cudaErrorInvalidValue;
     Args a = {};
     a.codes = (const int8_t*)codes;
     a.delta = (const float*)delta;
@@ -432,33 +381,34 @@ int score_best_offsets_tc_launch(const void* codes, const void* delta,
     a.win = (const int8_t*)win;
     a.best = (float*)best;
     a.off = (int32_t*)off;
-    a.R = (int)R;
+    a.R = a.Rp = (int)R;
     a.L = (int)L;
     a.W = (int)W;
-    a.Lp = (int)((L + kChunkBases - 1) / kChunkBases * kChunkBases);
-    a.nK = a.Lp / kChunkBases;
-    a.nT = (int)((W + kNTile - 1) / kNTile);
-    const long long want = (R + kReadsPerWg - 1) / kReadsPerWg;
-    const int n_wg = (int)(want < kMaxWg ? want : kMaxWg);
-    const size_t fixed = kBarBytes + (size_t)kStages * (kOpBytes + kRawBytes);
-    const size_t resident = fixed + (size_t)n_wg * 64 * 4 * a.Lp;
-    a.resident = resident <= (size_t)kSmemLimit;
-    const size_t smem =
-        a.resident ? resident : fixed + (size_t)kStages * n_wg * kOpBytes;
-    a.win_vec = W % 16 == 0 && (uintptr_t)win % 16 == 0;
-    a.read_vec = L % 4 == 0 && (uintptr_t)codes % 4 == 0 &&
-                 (uintptr_t)delta % 16 == 0;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            score_best_offsets_tc_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const long long per_cta = (long long)n_wg * kReadsPerWg;
-    const dim3 grid((unsigned)((R + per_cta - 1) / per_cta), (unsigned)B);
-    score_best_offsets_tc_kernel<<<grid, n_wg * kWgThreads, smem,
-                                   (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<kStandard, false>(a, B, stream);
+}
+
+// KX-P: packed [B,Rp,L] int32, lnmis [B,R] f32 or NULL (then folded: Rp =
+// R + ceil(R/L)), win [B,L,W] int8; out [B,R,2] f32. All contiguous on the
+// device. Launches on `stream`, returns cudaGetLastError().
+int score_packed_tc_launch(const void* packed, const void* lnmis,
+                           const void* win, long long B, long long R,
+                           long long Rp, long long L, long long W, void* out,
+                           void* stream) {
+    const bool fold = lnmis == nullptr;
+    if (!in_range(B, R, L, W) || Rp != (fold ? R + (R + L - 1) / L : R) ||
+        Rp > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    Args a = {};
+    a.packed = (const int32_t*)packed;
+    a.lnmis = (const float*)lnmis;
+    a.win = (const int8_t*)win;
+    a.out = (float*)out;
+    a.R = (int)R;
+    a.Rp = (int)Rp;
+    a.L = (int)L;
+    a.W = (int)W;
+    return fold ? launch<kPackedFold, true>(a, B, stream)
+                : launch<kPacked, true>(a, B, stream);
 }
 
 }  // extern "C"

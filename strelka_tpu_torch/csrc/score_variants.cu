@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernels of the JAX package's A/B harness
 // benchmarks/exp_exact_kernel.py that compute a function or take operands
-// that K1 (csrc/score_best_offsets.cu) does not:
+// that K1 (csrc/score_best_offsets_tc.cu) does not. The two packed kernels
+// are KX-P's SIMT design, which K1's tensor-core pipeline replaced on every
+// path (score_best_offsets_tc.cu, score_packed_tc_launch); they stay as its
+// before-numbers (ops/score_variants.KERNELS["packed_simt"],
+// ["packed_fold_simt"]).
 //
 //   score_packed_kernel<false>  build_fused.kern :451 / _kernel_fused :418,
 //                               build_packedin.kern :579 (pallas_call :489,

@@ -29,10 +29,16 @@ the plain version only for tensors on the CPU.
 mode="highest" is the TPU kernel's other path (K1-h): the same max and
 first argmax of sum_l delta[r,l] * [codes[r,l] == win_t[l,w]] + lnmis
 in f32 with unquantized deltas. Its plain version is
-reference_best_offsets (a one-hot f32 bmm), and its CUDA kernel
-(csrc/score_best_offsets.cu) adds the deltas in ascending l; an f32
-sum is not exact, so the two agree within rounding (the tests hold
-scores to atol 1e-4). No pipeline path uses this mode.
+reference_best_offsets (a one-hot f32 bmm). Its CUDA kernel
+(csrc/score_highest_tc.cu) runs the one-hot product on the bf16 tensor
+cores: each delta split exactly into three bf16 pieces, three wgmma
+passes into one f32 accumulator, so with the quantized LUT's deltas it
+equals the plain version bit for bit, and with unquantized deltas the
+two round in different orders (the tests hold scores to atol 1e-4 and
+to an f32 rounding bound). Its earlier SIMT kernel
+(csrc/score_best_offsets.cu, K1-h-s, ascending-l f32 adds on the CUDA
+cores) is kept as its before-number: ``score_highest_simt``, on no
+path. No pipeline path uses this mode.
 """
 from __future__ import annotations
 
@@ -43,19 +49,24 @@ import torch
 from .readlik import LIMBS, QUANT_INV, QUANT_SCALE
 from .readlik import N_BASE_CODES as N_BASE
 
-# launches of the CUDA kernel (plain-version calls do not count):
-# mode="exact" in LAUNCHES, mode="highest" in LAUNCHES_HIGHEST
+# launches of the CUDA kernels (plain-version calls do not count):
+# mode="exact" in LAUNCHES, mode="highest" in LAUNCHES_HIGHEST, K1-h-s
+# (score_highest_simt) in LAUNCHES_HIGHEST_SIMT
 LAUNCHES = 0
 LAUNCHES_HIGHEST = 0
+LAUNCHES_HIGHEST_SIMT = 0
 MODES = ("exact", "highest")
-TC_N_TILE = 64      # offsets per N tile of csrc/score_best_offsets_tc.cu
+TC_N_TILE = 64      # offsets per N tile of the tensor-core kernels
 # kernel -> (csrc/<library>.cu, its launch function, its max_len function);
 # "simt" is K1-s, launched by ops/score_variants.score_simt
 KERNEL_FUNCTIONS = {
     "exact": ("score_best_offsets_tc", "score_best_offsets_tc_launch",
               "score_best_offsets_tc_max_len"),
-    "highest": ("score_best_offsets", "score_best_offsets_highest_launch",
-                "score_best_offsets_max_len"),
+    "highest": ("score_highest_tc", "score_highest_tc_launch",
+                "score_highest_tc_max_len"),
+    "highest_simt": ("score_best_offsets",
+                     "score_best_offsets_highest_launch",
+                     "score_best_offsets_max_len"),
     "simt": ("score_best_offsets", "score_best_offsets_launch",
              "score_best_offsets_max_len"),
 }
@@ -197,4 +208,16 @@ def score_best_offsets(codes, delta, lnmis, win_t, mode="exact"):
         LAUNCHES += 1
     else:
         LAUNCHES_HIGHEST += 1
+    return out
+
+
+def score_highest_simt(codes, delta, lnmis, win_t):
+    """K1-h-s: mode="highest"'s (best, off) [B,R] from its earlier SIMT
+    kernel, the before-number of the tensor-core one; on no path. Shapes,
+    dtypes and range as score_best_offsets."""
+    global LAUNCHES_HIGHEST_SIMT
+    if codes.device.type == "cpu":
+        return reference_best_offsets(codes, delta, lnmis, win_t)
+    out = launch("highest_simt", codes, delta, lnmis, win_t)
+    LAUNCHES_HIGHEST_SIMT += 1
     return out

@@ -56,8 +56,9 @@ VARIANTS = {
                         "        if (false)\n            stage_window"),
                        ("            mbar_wait(&full[s1], ((it + 1) / kStages)"
                         " & 1);\n", "")]),
-    "noa": (False, [("    expand_a(a, b, r0, n_reads, 0, a.resident ? a.Lp / 4"
-                     " : kChunkBases / 4,\n             as, sbo_a);\n", "")]),
+    "noa": (False, [("    expand_a<kSrc>(a, b, r0, n_reads, 0,\n"
+                     "                   a.resident ? a.Lp / 4 : kChunkBases"
+                     " / 4, as, sbo_a);\n", "")]),
 }
 SHAPES = [(256, r, 160, w) for r in (32, 128, 512) for w in (256, 320)] + [
     (256, 128, 128, 192), (128, 32, 128, 192), (512, 128, 128, 128),
@@ -90,7 +91,8 @@ def build(names) -> dict:
         lib = os.path.join(OUT, f"lib{name}.so")
         verbose = ["-Xptxas", "-v"] if name == "k1" else []
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *verbose, "-o", lib, src],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *verbose,
+             "-I", _build.CSRC, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     fns = {}
     vp, ll = ctypes.c_void_p, ctypes.c_longlong

@@ -14,7 +14,12 @@ function and operands, kept as the before-number of the tensor-core K1.
 - KX-P ``score_packed`` (``fused``, ``fusedwhole``, ``fusedin``,
   ``fusedlm``): K1 on one int32 per base, ``(d_int << 3) | code``,
   optionally with the lnmis bits folded in as ceil(R/L) extra rows;
-  out f32 [B,R,2] = (best, the bits of the int32 offset).
+  out f32 [B,R,2] = (best, the bits of the int32 offset). Its kernel is
+  K1's own, instantiated on the packed operand
+  (csrc/score_best_offsets_tc.cu, u8 tensor cores); its earlier SIMT
+  kernels (csrc/score_variants.cu) are kept as its before-numbers,
+  ``score_packed_simt`` (``KERNELS["packed_simt"]`` and
+  ``["packed_fold_simt"]``), on no path.
 - KX-K ``score_onesum`` (``limb2k``): K1 with one int32 sum of
   ``hi*256 + lo`` per offset, for L <= 256, where f32(S) is exact and
   the result equals K1's bits.
@@ -67,8 +72,10 @@ from . import score_kernel
 from .score_kernel import exact_best_offsets, score_best_offsets
 
 # launches of each CUDA kernel (plain-version calls do not count)
-LAUNCHES_PACKED = 0     # KX-P, score_packed_kernel<false>
-LAUNCHES_PACKED_FOLD = 0    # KX-P, score_packed_kernel<true> (lnmis folded)
+LAUNCHES_PACKED = 0     # KX-P, score_best_offsets_tc_kernel<kPacked, true>
+LAUNCHES_PACKED_FOLD = 0    # KX-P, <kPackedFold, true> (lnmis folded)
+LAUNCHES_PACKED_SIMT = 0    # KX-P-s, score_packed_kernel<false>
+LAUNCHES_PACKED_FOLD_SIMT = 0   # KX-P-s, score_packed_kernel<true>
 LAUNCHES_ONESUM = 0     # KX-K
 LAUNCHES_HAP = 0        # KX-H
 LAUNCHES_INT8 = 0       # KX-I
@@ -79,6 +86,7 @@ LAUNCHES_NODOT = 0      # KX-A, score_ablation_kernel<kNoDot>
 LAUNCHES_SIMT = 0       # K1-s, score_best_offsets_kernel<false>
 
 SOURCE = "strelka_tpu_torch/csrc/score_variants.cu"
+TC_SOURCE = "strelka_tpu_torch/csrc/score_best_offsets_tc.cu"
 HARNESS = "benchmarks/exp_exact_kernel.py"
 ONESUM_MAX_LEN = 256    # S = S1*256 + S0 < 2^24 (exp_exact_kernel.py:243-247)
 DEFAULT_G = 4           # the harness's tiles per grid step (:782)
@@ -261,6 +269,21 @@ def _hap_width(win_t, n_haps) -> int:
 
 # --- wrappers ---------------------------------------------------------------
 
+def _tc_lib():
+    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's launch
+    bound."""
+    from .. import _build
+    lib = _build.load(score_kernel.KERNEL_FUNCTIONS["exact"][0])
+    if not getattr(lib, "_packed_bound", False):
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.score_packed_tc_launch.argtypes = [vp, vp, vp] + [ll] * 5 + [
+            vp, vp]
+        lib.score_packed_tc_launch.restype = ctypes.c_int
+        lib.score_best_offsets_tc_max_len.restype = ctypes.c_int
+        lib._packed_bound = True
+    return lib
+
+
 def _lib():
     from .. import _build
     lib = _build.load("score_variants")
@@ -329,41 +352,66 @@ def _best_off(shape, dev):
             torch.empty(shape, dtype=torch.int32, device=dev))
 
 
-def score_packed(packed, lnmis, win_t, n_reads=None):
-    """KX-P: best and first-max offset per (pair, read) from the packed
-    operand int32 [B,R,L] (``pack_operands``) and lnmis f32 [B,R], or,
-    with lnmis None, from int32 [B, R + ceil(R/L), L] with lnmis folded
-    in (`n_reads` = R). Returns f32 [B,R,2] (best, offset bits);
-    ``unpack_best_offsets`` splits it."""
-    global LAUNCHES_PACKED, LAUNCHES_PACKED_FOLD
+def _launch_packed(fn_name, fn, max_len, packed, lnmis, win_t, n_reads):
+    """Check KX-P's operands on the card and launch `fn` (a launch with
+    score_packed_tc_launch's arguments) on them; returns out [B,R,2]."""
     dev = packed.device
-    if dev.type == "cpu":
-        return packed_best_offsets(packed, lnmis, win_t, n_reads)
     R = packed_reads(packed, lnmis, n_reads)
     B, Rp, L = packed.shape
     ops = [("packed", packed, torch.int32), ("win_t", win_t, torch.int8)]
     if lnmis is not None:
         ops.append(("lnmis", lnmis, torch.float32))
         if lnmis.shape != (B, R):
-            raise ValueError("score_packed: lnmis shape does not match")
-    _check("score_packed", dev, ops)
+            raise ValueError(f"{fn_name}: lnmis shape does not match")
+    _check(fn_name, dev, ops)
     if win_t.dim() != 3 or win_t.shape[:2] != (B, L):
-        raise ValueError(f"score_packed: win_t shape {tuple(win_t.shape)} "
+        raise ValueError(f"{fn_name}: win_t shape {tuple(win_t.shape)} "
                          f"does not match packed {tuple(packed.shape)}")
     W = win_t.shape[2]
-    lib = _lib()
-    if L > lib.score_variants_max_len() or B > _MAX_B or min(
-            B, R, L, W) < 1:
-        raise ValueError(f"score_packed: shape B={B} R={R} L={L} W={W} "
-                         f"outside the kernel's range")
+    if L > max_len or B > _MAX_B or min(B, R, L, W) < 1:
+        raise ValueError(f"{fn_name}: shape B={B} R={R} L={L} W={W} "
+                         f"outside the kernel's range (L <= {max_len})")
     out = torch.empty((B, R, 2), dtype=torch.float32, device=dev)
-    _raise_on("score_packed", lib.score_packed_launch(
+    _raise_on(fn_name, fn(
         packed.data_ptr(), None if lnmis is None else lnmis.data_ptr(),
         win_t.data_ptr(), B, R, Rp, L, W, out.data_ptr(), _stream(dev)))
+    return out
+
+
+def score_packed(packed, lnmis, win_t, n_reads=None):
+    """KX-P: best and first-max offset per (pair, read) from the packed
+    operand int32 [B,R,L] (``pack_operands``) and lnmis f32 [B,R], or,
+    with lnmis None, from int32 [B, R + ceil(R/L), L] with lnmis folded
+    in (`n_reads` = R), on K1's u8 tensor-core pipeline. Returns f32
+    [B,R,2] (best, offset bits); ``unpack_best_offsets`` splits it."""
+    global LAUNCHES_PACKED, LAUNCHES_PACKED_FOLD
+    if packed.device.type == "cpu":
+        return packed_best_offsets(packed, lnmis, win_t, n_reads)
+    lib = _tc_lib()
+    out = _launch_packed("score_packed", lib.score_packed_tc_launch,
+                         lib.score_best_offsets_tc_max_len(), packed, lnmis,
+                         win_t, n_reads)
     if lnmis is None:
         LAUNCHES_PACKED_FOLD += 1
     else:
         LAUNCHES_PACKED += 1
+    return out
+
+
+def score_packed_simt(packed, lnmis, win_t, n_reads=None):
+    """KX-P-s: score_packed's function from its earlier SIMT kernels,
+    the before-numbers of the tensor-core one; on no path."""
+    global LAUNCHES_PACKED_SIMT, LAUNCHES_PACKED_FOLD_SIMT
+    if packed.device.type == "cpu":
+        return packed_best_offsets(packed, lnmis, win_t, n_reads)
+    lib = _lib()
+    out = _launch_packed("score_packed_simt", lib.score_packed_launch,
+                         lib.score_variants_max_len(), packed, lnmis, win_t,
+                         n_reads)
+    if lnmis is None:
+        LAUNCHES_PACKED_FOLD_SIMT += 1
+    else:
+        LAUNCHES_PACKED_SIMT += 1
     return out
 
 
@@ -526,6 +574,10 @@ def _packed_call(p, m, w, R):
     return unpack_best_offsets(score_packed(p, m, w, n_reads=R))
 
 
+def _packed_simt_call(p, m, w, R):
+    return unpack_best_offsets(score_packed_simt(p, m, w, n_reads=R))
+
+
 def _packed_plain(p, m, w, R):
     return unpack_best_offsets(packed_best_offsets(p, m, w, n_reads=R))
 
@@ -542,17 +594,30 @@ def _ablation(which, variant, line):
 
 
 K1_TPU = "strelka_tpu/ops/pallas_readlik.py:76"
-K1 = Kernel("score_best_offsets", "score_best_offsets_tc_kernel", "", K1_TPU,
-            _standard, score_best_offsets, exact_best_offsets)
+K1 = Kernel("score_best_offsets", "score_best_offsets_tc_kernel<kStandard, "
+            "false>", "", K1_TPU, _standard, score_best_offsets,
+            exact_best_offsets, TC_SOURCE)
 
 KERNELS = {
-    "packed": Kernel("score_packed", "score_packed_kernel<false>",
+    "packed": Kernel("score_packed",
+                     "score_best_offsets_tc_kernel<kPacked, true>",
                      "LAUNCHES_PACKED", f"{HARNESS}:418",
-                     _packed_prepare(False), _packed_call, _packed_plain),
-    "packed_fold": Kernel("score_packed_fold", "score_packed_kernel<true>",
+                     _packed_prepare(False), _packed_call, _packed_plain,
+                     TC_SOURCE),
+    "packed_fold": Kernel("score_packed_fold",
+                          "score_best_offsets_tc_kernel<kPackedFold, true>",
                           "LAUNCHES_PACKED_FOLD", f"{HARNESS}:579",
                           _packed_prepare(True), _packed_call,
+                          _packed_plain, TC_SOURCE),
+    "packed_simt": Kernel("score_packed_simt", "score_packed_kernel<false>",
+                          "LAUNCHES_PACKED_SIMT", f"{HARNESS}:418",
+                          _packed_prepare(False), _packed_simt_call,
                           _packed_plain),
+    "packed_fold_simt": Kernel("score_packed_fold_simt",
+                               "score_packed_kernel<true>",
+                               "LAUNCHES_PACKED_FOLD_SIMT", f"{HARNESS}:579",
+                               _packed_prepare(True), _packed_simt_call,
+                               _packed_plain),
     "onesum": Kernel("score_onesum", "score_onesum_kernel",
                      "LAUNCHES_ONESUM", f"{HARNESS}:241", _standard,
                      score_onesum, onesum_best_offsets),

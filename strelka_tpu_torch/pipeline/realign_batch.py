@@ -66,6 +66,7 @@ def _dump_launch_stats():
         return {",".join(map(str, k)): v for k, v in (d or {}).items()}
     payload = {"pid": os.getpid(), "k1": sk.LAUNCHES,
                "k1h": sk.LAUNCHES_HIGHEST,
+               "k1h_simt": sk.LAUNCHES_HIGHEST_SIMT,
                "kx": {k.counter: getattr(sv, k.counter)
                       for k in sv.KERNELS.values()},
                "score": keyed(LAUNCH_STATS),

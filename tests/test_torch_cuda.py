@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
-tensor-core kernel, and K1-h; the K1-x variants and K1-s) against their
-plain versions, the SNV tiles and the somatic SNV model on the card
+tensor-core kernel, and K1-h on the bf16 tensor cores with K1-h-s, its
+SIMT before-number; the K1-x variants, KX-P on K1's pipeline among them,
+and K1-s) against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, and a cold --jobs 2 germline run on the card
 against a single-process one.
@@ -275,6 +276,108 @@ def test_k1_highest_kernel_matches_plain(cuda, B, R, L, W):
     assert torch.equal(ko, po)
 
 
+K1H_SHAPES = [(512, 128, 128, 128), (256, 128, 160, 256), (256, 32, 160, 192)]
+
+
+def k1h_counts():
+    from strelka_tpu_torch.ops import score_kernel as sk
+    return sk.LAUNCHES, sk.LAUNCHES_HIGHEST, sk.LAUNCHES_HIGHEST_SIMT
+
+
+@pytest.mark.parametrize("B,R,L,W", K1H_SHAPES + [(2, 33, 99, 129),
+                                                  (1, 7, 1816, 70)])
+def test_k1h_tensor_cores_bit_identical_on_lut_deltas(cuda, B, R, L, W):
+    """K1-h on the bf16 tensor cores, at chip_smoke.py phase 2b's shapes
+    and ragged ones: with the LUT's deltas (multiples of 2^-11, partial
+    sums below 2^13) the three-piece product is exact in any order, so
+    scores and offsets equal the one-hot f32 bmm bit for bit."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    arrs = k1_inputs(np.random.default_rng(B * R + L + W), B, R, L, W)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = k1h_counts()
+    kb, ko = sk.score_best_offsets(*t, mode="highest")
+    assert k1h_counts() == (before[0], before[1] + 1, before[2])
+    pb, po = sk.reference_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+
+
+def test_k1h_unquantized_deltas_within_the_f32_bound(cuda):
+    """bench.py's deltas, uniform(2, 20): the tensor cores and the bmm
+    round in different orders; each score within 2 (L+1) 2^-24 (sum of
+    |matching deltas| + |lnmis|) of the bmm's, offsets equal outside
+    near-ties (top two within 1e-4)."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    B, R, L, W = K1H_SHAPES[0]
+    rng = np.random.default_rng(25)
+    arrs = (rng.integers(0, 5, (B, R, L)).astype(np.int8),
+            rng.uniform(2, 20, (B, R, L)).astype(np.float32),
+            rng.normal(-100, 10, (B, R)).astype(np.float32),
+            rng.integers(0, 5, (B, L, W)).astype(np.int8))
+    c, d, m, w = (torch.from_numpy(a).to(cuda) for a in arrs)
+    kb, ko = sk.score_best_offsets(c, d, m, w, mode="highest")
+    pb, po = sk.reference_best_offsets(c, d, m, w)
+    top2 = torch.topk(sk.highest_scores(c, d, m, w), 2, dim=-1).values
+    terms = torch.where((c >= 0) & (c < 4), d.abs(), 0.0).sum(-1)
+    bound = 2 * (L + 1) * 2.0 ** -24 * (terms + m.abs())
+    assert bool(((kb - pb).abs() <= bound).all())
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+    assert not bool(((ko != po) & ~near).any())
+
+
+@pytest.mark.parametrize("L,W", [(160, 320), (128, 192), (100, 200)])
+def test_k1h_ties_across_n_tile_boundaries_and_code4(cuda, L, W):
+    """Exact ties on both sides of every N-tile boundary resolve to the
+    first offset; reads all code 4 score exactly lnmis at offset 0."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    arrs, first = tile_tie_inputs(np.random.default_rng(L * W), L, W,
+                                  sk.TC_N_TILE)
+    arrs[0][0] = 4                      # pair 0: all code 4 under deltas
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    kb, ko = sk.score_best_offsets(*t, mode="highest")
+    pb, po = sk.reference_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+    assert ko[1:, 0].tolist() == first[1:]
+    assert torch.equal(kb[0], t[2][0]) and not bool(ko[0].any())
+
+
+@pytest.mark.parametrize("B,R,L,W", [(64, 128, 128, 128), (3, 40, 100, 70)])
+def test_k1h_simt_before_number_matches_plain(cuda, B, R, L, W):
+    """K1-h-s, the SIMT kernel kept as the before-number, still equals
+    the plain version (exact sums on the LUT's deltas) and counts its
+    own launches."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    arrs = k1_inputs(np.random.default_rng(B + L), B, R, L, W)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = k1h_counts()
+    kb, ko = sk.score_highest_simt(*t)
+    assert k1h_counts() == (before[0], before[1], before[2] + 1)
+    pb, po = sk.reference_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+
+
+def test_k1h_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from strelka_tpu_torch.ops import score_kernel as sk
+    c, d, m, w = (torch.from_numpy(a).to(cuda)
+                  for a in k1_inputs(np.random.default_rng(0), 2, 32, 64, 64))
+    before = k1h_counts()
+    for fn in (lambda *a: sk.score_best_offsets(*a, mode="highest"),
+               sk.score_highest_simt):
+        with pytest.raises(ValueError):
+            fn(c.to(torch.int32), d, m, w)
+        with pytest.raises(ValueError):
+            fn(c, d.double(), m, w)
+        with pytest.raises(ValueError):
+            fn(c, d, m.cpu(), w)
+        with pytest.raises(ValueError):  # window rows do not match L
+            fn(c, d, m, w[:, :32].contiguous())
+        with pytest.raises(ValueError):  # not contiguous
+            fn(c, d, m, w.transpose(1, 2))
+    assert k1h_counts() == before
+
+
 def somatic_tile(rng, L, D, alt_frac):
     ref = rng.integers(0, 5, L).astype(np.int32)
     base = rng.integers(-1, 4, (L, D)).astype(np.int8)
@@ -375,6 +478,42 @@ def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
         assert torch.equal(got[0][0].reshape(R, -1)[:, 0], t[2][0])
 
 
+def packed_counts():
+    return (sv.LAUNCHES_PACKED, sv.LAUNCHES_PACKED_FOLD,
+            sv.LAUNCHES_PACKED_SIMT, sv.LAUNCHES_PACKED_FOLD_SIMT)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("B,R,L,W", [(512, 128, 128, 128), (256, 128, 160, 256),
+                                     (3, 40, 100, 70), (2, 33, 99, 129),
+                                     (2, 7, 1816, 70)])
+def test_kxp_tensor_cores_bit_identical_to_plain(cuda, fold, B, R, L, W):
+    """KX-P on K1's u8 tensor-core pipeline, lnmis beside or folded into
+    ceil(R/L) extra rows, equals packed_best_offsets bit for bit, codes
+    5-7 in the low bits (they match nothing) and ragged L and W
+    included; it counts its own launches, the SIMT ones none."""
+    arrs = k1_inputs(np.random.default_rng(B + R + L + W + fold), B, R, L, W)
+    c, d, m, w = (torch.from_numpy(a).to(cuda) for a in arrs)
+    p = sv.pack_operands(c, d, m, fold_lnmis=fold)
+    p[:, :R] = torch.where(p[:, :R] & 7 == 4,
+                           p[:, :R] | (p[:, :R] >> 3) % 4 + 4, p[:, :R])
+    assert bool(((p[:, :R] & 7) > 4).any())
+    before = packed_counts()
+    got = sv.score_packed(p, None if fold else m, w, n_reads=R)
+    want = sv.packed_best_offsets(p, None if fold else m, w, n_reads=R)
+    assert packed_counts() == tuple(
+        n + (i == int(fold)) for i, n in enumerate(before))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sv.unpack_best_offsets(got)[0],
+                       sk_exact(c, d, m, w)[0])
+
+
+def sk_exact(*t):
+    from strelka_tpu_torch.ops import score_kernel as sk
+    return sk.exact_best_offsets(*t)
+
+
 def test_kx_wrappers_reject_what_the_kernels_do_not_take(cuda):
     c, d, m, w = (torch.from_numpy(a).to(cuda)
                   for a in k1_inputs(np.random.default_rng(1), 2, 32, 64, 64))
@@ -388,14 +527,19 @@ def test_kx_wrappers_reject_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError):
             fn(c, d.cpu(), m, w)
     p = sv.pack_operands(c, d, m)
-    with pytest.raises(ValueError):
-        sv.score_packed(p.to(torch.int64), m, w)
-    with pytest.raises(ValueError):
-        sv.score_packed(p[:, :, ::2], m, w[:, ::2])
-    with pytest.raises(ValueError):
-        sv.score_packed(p, m.cpu(), w)
-    with pytest.raises(ValueError):  # folded rows need the read count
-        sv.score_packed(sv.pack_operands(c, d, m, fold_lnmis=True), None, w)
+    before = packed_counts()
+    for fn in (sv.score_packed, sv.score_packed_simt):
+        with pytest.raises(ValueError):
+            fn(p.to(torch.int64), m, w)
+        with pytest.raises(ValueError):
+            fn(p[:, :, ::2], m, w[:, ::2])
+        with pytest.raises(ValueError):
+            fn(p, m.cpu(), w)
+        with pytest.raises(ValueError):  # window rows do not match L
+            fn(p, m, w[:, :32].contiguous())
+        with pytest.raises(ValueError):  # folded rows need the read count
+            fn(sv.pack_operands(c, d, m, fold_lnmis=True), None, w)
+    assert packed_counts() == before
     with pytest.raises(ValueError):
         sv.score_onesum(*(torch.zeros(s, dtype=dt, device=cuda) for s, dt in (
             ((1, 2, 257), torch.int8), ((1, 2, 257), torch.float32),
@@ -412,8 +556,14 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     own function."""
     names = ["base", "fused", "fusedin", "fusedlm", "limb2k", "hap2",
              "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
+    before = packed_counts()
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(names)
     assert all("body_exact=True" in l for l in lines)
     assert all(" exact=True" in l for l in lines[:6])
+    # fused and fusedin reach KX-P on the tensor cores, fusedlm its
+    # folded form; the SIMT kernels are on no path
+    after = packed_counts()
+    assert after[0] > before[0] and after[1] > before[1]
+    assert after[2:] == before[2:]
