@@ -26,15 +26,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    strelka_tpu_torch.ops.score_variants) on every variant name of the
    harness at its shapes, with the launch counters set to 0 just before
    and read just after (every variant equal to its body's function,
-   every K1-x kernel and K1 launched, the SIMT before-numbers K1-s and
-   KX-P-s no time); its times are the kernels' times at the harness's
-   shape. Then each kernel of ops/score_variants.KERNELS (KX-P on K1's
-   u8 tensor-core pipeline in two instantiations and their SIMT
-   before-numbers, KX-K, KX-H, KX-I, the four ablations KX-A, and K1-s)
-   against its plain version bit for bit at the harness's shape and the
-   main path's, with tie, ragged and code-4 cases; its plain version and
-   library route timed at both shapes, the kernel and K1 at the main
-   path's (the before-numbers, which no variant name runs, at both);
+   every K1-x kernel and K1 launched, the SIMT before-numbers K1-s,
+   KX-P-s, KX-K-s and KX-H-s no time); its times are the kernels' times
+   at the harness's shape. Then each kernel of ops/score_variants.KERNELS
+   (KX-P and KX-H on K1's u8 tensor-core pipeline, KX-K on K1-h's bf16
+   one, their SIMT before-numbers, KX-I, the four ablations KX-A, and
+   K1-s) against its plain version bit for bit at the harness's shape
+   and the main path's, with tie, ragged and code-4 cases (KX-H also
+   ties at its window boundaries and windows of 96 and 160 offsets;
+   KX-K also its largest sum, L = 256 with every v = 0xFFFF); its plain
+   version and library route timed at both shapes, the kernel and K1 at
+   the main path's (the before-numbers, which no variant name runs, at
+   both); KX-K's row also carries its design's own floor, two bf16
+   passes of the one-hot product;
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -299,12 +303,10 @@ def kx_bound_ms(kind, B, R, L, W, H=1, G=1) -> tuple[float, str]:
     return bound_ms(nbytes, ops, peak)
 
 
-# the library route of each kernel's function (library_route's kind);
-# the four ablations (noA, noW, nomax, nodot) compute their Pallas
-# bodies' functions, wrong by design, which no library call computes
-LIBRARY_KIND = {"packed": "k1", "packed_fold": "k1", "packed_simt": "k1",
-                "packed_fold_simt": "k1", "simt": "k1", "onesum": "onesum",
-                "hap": "hap", "int8": "int8"}
+# the library route of a kernel's function is library_route's kind
+# sv.KERNELS[...].function; the four ablations (noA, noW, nomax, nodot)
+# compute their Pallas bodies' functions, wrong by design, which no
+# library call computes
 NO_LIBRARY = "none: computes its Pallas body's function, wrong by design"
 
 
@@ -413,6 +415,48 @@ def k1_tile_ties(np, rng, B, R, L, W):
     return codes, dl[q], lnmis, win
 
 
+def onesum_max(np, rng, B, R, L, W):
+    """KX-K's largest sums: every read all code 0 with d_int & 0xFFFF =
+    0xFFFF (delta 65535 * 2^-11 in even pairs, -2^-11 in odd ones: a
+    negative d_int keeps its low 16 bits), the window all code 0 but at
+    odd offsets, so the even offsets sum S = 65535 * L (16,776,960 <
+    2^24 at L = 256) and tie, the first of them winning."""
+    codes = np.zeros((B, R, L), np.int8)
+    delta = np.where(np.arange(B)[:, None, None] % 2 == 0,
+                     np.float32(65535 / 2048), np.float32(-1 / 2048))
+    delta = np.broadcast_to(delta, (B, R, L)).astype(np.float32)
+    lnmis = rng.normal(-100, 10, (B, R)).astype(np.float32)
+    win = np.zeros((B, L, W), np.int8)
+    win[:, :, 1::2] = rng.integers(0, 5, (B, L, W // 2))
+    return codes, delta, lnmis, win
+
+
+def hap_window_ties(np, rng, B, R, L, W):
+    """KX-H's windows (W = H * Wh, H = HAP_WINDOWS): every read of a
+    pair carries one sequence, found exactly at the last offset of
+    window h and at the first of window h+1, and in odd pairs also at
+    both sides of window 0's first N-tile boundary (where Wh allows):
+    a window's best must not leak into the next."""
+    from strelka_tpu_torch.ops import readlik
+    from strelka_tpu_torch.ops import score_variants as sv
+    from strelka_tpu_torch.ops.score_kernel import TC_N_TILE as n_tile
+    dl, ll = readlik.quantized_qscore_luts()
+    wh = W // sv.HAP_WINDOWS
+    reads = rng.integers(0, 4, (B, L))
+    codes = np.repeat(reads[:, None], R, axis=1).astype(np.int8)
+    q = rng.integers(2, 42, (B, R, L))
+    win = rng.integers(0, 4, (B, L, W)).astype(np.int8)
+    for b in range(B):
+        cols = [c for h in range(1, sv.HAP_WINDOWS) for c in
+                (h * wh - 1, h * wh)]
+        if b % 2 and wh > n_tile:
+            cols += [n_tile - 1, n_tile]
+        for w in cols:
+            win[b, :, w] = reads[b]
+    lnmis = ll[q].sum(axis=2).astype(np.float32)
+    return codes, dl[q], lnmis, win
+
+
 def k1_code4(np, rng, B, R, L, W):
     """Random inputs with pair 0's reads all code 4 under non-zero
     deltas and its window code 4 at the first 7 offsets: pair 0 scores
@@ -432,12 +476,18 @@ KX_TIMED_BY = {"packed": "fusedin", "packed_fold": "fusedlm",
                "nomax": "limb2-nomax", "nodot": "limb2-nodot"}
 
 
-# the redesigned K1-x kernels and their SIMT before-numbers, and the
-# kernel each before-number of ops/score_variants.KERNELS stands beside
-KX_BEFORE = {"packed": "packed_simt", "packed_fold": "packed_fold_simt"}
-BEFORE_NUMBER_OF = {"simt": "score_best_offsets",
-                    "packed_simt": "score_packed",
-                    "packed_fold_simt": "score_packed_fold"}
+def kx_before(sv) -> dict[str, str]:
+    """{redesigned K1-x kind: its SIMT before-number's kind} in
+    sv.KERNELS (K1-s stands beside K1, which is not a K1-x kernel)."""
+    kind_of = {k.label: kind for kind, k in sv.KERNELS.items()}
+    return {kind_of[k.before_of]: kind for kind, k in sv.KERNELS.items()
+            if k.before_of in kind_of}
+
+
+def onesum_floor_ms(B, R, L, W) -> float:
+    """KX-K's design floor: its two bf16 passes of the one-hot product,
+    2 * 2*B*R*4L*W operations at the bf16 tensor-core peak."""
+    return 2 * 2 * B * R * 4 * L * W / BF16_OPS_PER_S * 1e3
 
 
 def kx_zero(sv):
@@ -454,7 +504,8 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     with every counter set to 0 just before and read just after. Fails
     unless every variant equals its body's function and, on the card,
     every K1-x kernel and K1 launched, and the SIMT before-numbers
-    (K1-s, KX-P-s) no time. Returns (counters, {name: row})."""
+    (K1-s, KX-P-s, KX-K-s, KX-H-s) no time. Returns (counters, {name:
+    row})."""
     names = [*sv.K1_VARIANTS, "limb2r@8", "fused", "fusedwhole", "fusedin",
              "fusedlm", "limb2k", "hap2", "int8", "limb2-noA", "limb2-noW",
              "limb2-nomax", "limb2-nodot"]
@@ -486,21 +537,25 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
 
 
 def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
-             runner):
+             kind_edge, runner):
     """Each K1-x kernel against its plain version, bit for bit, at
     `shapes` (hap: `hap_shapes`, B loci x sv.HAP_WINDOWS windows of W) on
     random inputs (code 4 under non-zero deltas), plus the `edge` cases
-    (ties, ragged, code 4). At the first shape, the harness's, the
-    kernel's and K1's times are the runner's (`runner` rows); at the
-    others both are timed here, K1 at the same shape (hap: one launch a
-    window). The plain version and the library route of the function
-    (LIBRARY_KIND) are timed at each shape; KX-P's rows get the SIMT
-    before-number's time at the same shape as prev_ms. Returns {kind:
-    rows}."""
+    (ties, ragged, code 4) and those of `kind_edge` (its kinds only). At
+    the first shape, the harness's, the kernel's and K1's times are the
+    runner's (`runner` rows); at the others both are timed here, K1 at
+    the same shape (hap: one launch a window). The plain version and the
+    library route of the function (Kernel.function) are timed at each
+    shape; the redesigned kernels' rows (kx_before) get their SIMT
+    before-number's time at the same shape as prev_ms, and KX-K's its
+    design floor. Returns {kind: rows}."""
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
     rng = np.random.default_rng(2026)
     H, G = sv.HAP_WINDOWS, sv.DEFAULT_G
+    before = kx_before(sv)
+    # the operands whose bound a before-number's row carries: its redesign's
+    bound_kind = {v: k for k, v in before.items()}
     cache = {}
 
     def inputs(make, B, R, L, W):
@@ -515,9 +570,11 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
 
     out = {}
     for kind, k in sv.KERNELS.items():
-        hap = kind == "hap"
+        hap = kind in sv.HAP_KINDS
         cases = [("random", s, k1_random)
-                 for s in (hap_shapes if hap else shapes)] + edge
+                 for s in (hap_shapes if hap else shapes)] + edge + [
+                     c for kinds, cs in kind_edge for c in cs
+                     if kind in kinds]
         rows = []
         for i, (case, (B, R, L, W), make) in enumerate(cases):
             t = inputs(make, B, R, L, H * W if hap else W)
@@ -557,21 +614,24 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
                 if cuda:
                     row["device_ms"] = graph_ms(torch, lambda: k.call(*args))
                 row["plain_ms"] = ms(lambda: k.plain(*args), 5, 1)
-                if kind in LIBRARY_KIND:
+                if k.function:
                     row.update(library_row(torch, library_route(
-                        torch, LIBRARY_KIND[kind], *t, H if hap else 1),
+                        torch, k.function, *t, H if hap else 1),
                         want, ms))
                 else:
                     row["library_ms"] = None
                 row["bound_ms"], row["bound_by"] = kx_bound_ms(
-                    kind, B, R, L, W, H if hap else 1, G)
+                    bound_kind.get(kind, kind), B, R, L, W, H if hap else 1,
+                    G)
+                if kind == "onesum":
+                    row["design_floor_ms"] = onesum_floor_ms(B, R, L, W)
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 device_share(row)
             rows.append(row)
             log(f"kx {k.label}: " + json.dumps(row))
             del t, args, got, want
         out[kind] = rows
-    for kind, prev in KX_BEFORE.items():
+    for kind, prev in before.items():
         for row, before in zip(out[kind], out[prev]):
             for key in ("ms", "device_ms"):
                 if key in row:
@@ -1631,8 +1691,16 @@ def main(argv=None) -> int:
                 k1_ties),
                ("ragged", (3, 40, 100, 70), k1_random),
                ("code4", (4, 32, 64, 64), k1_code4)]
+    # each (kinds, cases): KX-H's window boundaries and widths (W of one
+    # window), KX-K's largest sums
+    kx_kind_edge = [
+        (sv.HAP_KINDS, [("window_ties", (8, 40, 128, 96), hap_window_ties),
+                        ("window_ties", (8, 128, 160, 160), hap_window_ties),
+                        ("ragged", (4, 33, 99, 160), k1_random)]),
+        (("onesum", "onesum_simt"), [("max_sum", (4, 64, 256, 128),
+                                      onesum_max)])]
     kx_rows = phase_kx(np, torch, dev, cuda, kx_shapes, kx_hap, kx_edge,
-                       runner_rows)
+                       kx_kind_edge, runner_rows)
     log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
 
     log("== phase 3: snv tiles vs the CPU path")
@@ -1792,8 +1860,8 @@ def main(argv=None) -> int:
                                  "variants_runner": kx_runner[c]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": "bit for bit",
-            "shape": top["shape"] + ([sv.HAP_WINDOWS] if kind == "hap"
-                                     else []),
+            "shape": top["shape"] + ([sv.HAP_WINDOWS]
+                                     if kind in sv.HAP_KINDS else []),
             "ms": top["ms"],
             "device_ms": top.get("device_ms"),
             "plain_ms": top["plain_ms"],
@@ -1804,15 +1872,15 @@ def main(argv=None) -> int:
             "bound_share": top["bound_share"],
             "device_bound_share": top.get("device_bound_share"),
         }
-        if kind in LIBRARY_KIND:
+        if k.function:
             row["library_equal"] = top["library_equal"]
         else:
             row["library"] = NO_LIBRARY
-        if kind in KX_BEFORE:
+        if "prev_ms" in top:
             row["prev_ms"] = top["prev_ms"]
             row["prev_device_ms"] = top.get("prev_device_ms")
-        if kind in BEFORE_NUMBER_OF:
-            row["before_number_of"] = BEFORE_NUMBER_OF[kind]
+        if k.before_of:
+            row["before_number_of"] = k.before_of
         kernels.append(row)
     if rehearse:
         log(json.dumps({"kernels": kernels}))

@@ -20,8 +20,21 @@
 // d_int p >> 3), with lnmis f32 [B,R] (kPacked) or as raw f32 bits in
 // ceil(R/L) extra rows of the packed operand, read r at row R + r/L, column
 // r % L (kPackedFold); out f32 [B,R,2] = (best, the bits of the offset).
-// Only the reads' expansion into A words, lnmis and the output store differ
-// (template parameters); K1's instantiation is the code it was.
+//
+// With the hap output form it is KX-H: it replaces the harness's
+// build_hap2.kern :860 (pallas_call :889), whose idea is to build the A
+// operand once per locus, not once per haplotype. One locus's reads [B,R,L]
+// face H windows side by side, win [B,L,H*W]; best and off [B,R,H] hold K1's
+// result against each window, the offset within the window. The N tiles
+// walk window 0's ceil(W/64) tiles, then window 1's (tc_pipeline.cuh), so a
+// tile never straddles two windows, and the A words, resident for the whole
+// read length at the harness's and the main path's L, serve every window.
+// At a window's last tile the first max is merged over the 4 lanes of a
+// read, stored and reset.
+//
+// Only the reads' expansion into A words, lnmis, the window's columns and
+// the output store differ (template parameters); K1's instantiation is the
+// code it was.
 //
 // As a product: S_j = A_j . Bw over a contraction axis k = 4l + c of 4L
 // bytes, with A_j[r, 4l+c] = limb_j(d_int[r,l]) * [code[r,l] == c] (u8,
@@ -31,7 +44,8 @@
 // Bound on the H100: bytes. It moves B*(5*R*L + L*W + 12*R) bytes, ~11 us at
 // the main path's 256,128,160,256 at 3.35 TB/s, against 2*B*R*L*W = 2.7 G
 // compare-adds (the one-hot product does 16*B*R*L*W = 21.5 G u8 operations,
-// ~11 us at 1,979 TOP/s). KX-P moves 4 bytes a base instead of 5.
+// ~11 us at 1,979 TOP/s). KX-P moves 4 bytes a base instead of 5; KX-H
+// B*(5*R*L + 4*R + L*H*W + 8*R*H) for H times the compare-adds.
 //
 // Design:
 // - wgmma.mma_async m64n64k32 .s32.u8.u8, both operands K-major in shared
@@ -57,6 +71,10 @@
 #include "tc_pipeline.cuh"
 
 namespace {
+
+// Output forms: best [B,R] and off [B,R] apart (K1), interleaved [B,R,2]
+// (KX-P), best and off [B,R,H] against H windows (KX-H)
+enum Output { kBestOff, kPairOut, kHapOut };
 
 constexpr int kReadsPerWg = 32;                 // m64 = 32 reads x 2 limbs
 constexpr int kMaxWg = 4;
@@ -179,12 +197,13 @@ __device__ __forceinline__ float read_lnmis(const Args& a, int b,
 }
 
 // step `it`'s K-major one-hot Bw tile [64 offsets][128 bytes of K] from its
-// raw window; bases past L and offsets past W are zero rows
+// raw window; bases past L and offsets past W (of its window) are zero rows
+template <bool kHap = false>
 __device__ void expand_w(const Args& a, int it, const unsigned char* raw,
                          unsigned char* bw) {
     const int nt = it / a.nK;
     const int l0 = (it - nt * a.nK) * kChunkBases;
-    const int w0 = nt * kNTile;
+    const int w0 = tile_w0<kHap>(a, nt);
     for (int e = threadIdx.x; e < kNTile * (kChunkBases / 4);
          e += blockDim.x) {
         const int w = e % kNTile;   // 8 offsets fastest: 128 contiguous bytes
@@ -203,9 +222,23 @@ __device__ void expand_w(const Args& a, int it, const unsigned char* raw,
     }
 }
 
-template <int kSrc, bool kPairOut>
+// the first max over the 4 lanes that share a read
+__device__ __forceinline__ void merge_lanes(float& run_s, int& run_w) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+        const float os = __shfl_xor_sync(0xffffffffu, run_s, o);
+        const int ow = __shfl_xor_sync(0xffffffffu, run_w, o);
+        if (better(os, ow, run_s, run_w)) {
+            run_s = os;
+            run_w = ow;
+        }
+    }
+}
+
+template <int kSrc, int kOut>
 __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     score_best_offsets_tc_kernel(const Args a) {
+    constexpr bool kHap = kOut == kHapOut;
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [kStages]
     unsigned char* bw = smem + kBarBytes;                 // [kStages][kOpBytes]
@@ -225,11 +258,11 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
 
     init_ring(full);
     for (int s = 0; s < 2 && s < total; ++s)
-        stage_window(a, b, s, raw + s * kRawBytes, &full[s]);
+        stage_window<kHap>(a, b, s, raw + s * kRawBytes, &full[s]);
     expand_a<kSrc>(a, b, r0, n_reads, 0,
                    a.resident ? a.Lp / 4 : kChunkBases / 4, as, sbo_a);
     mbar_wait(&full[0], 0);
-    expand_w(a, 0, raw, bw);
+    expand_w<kHap>(a, 0, raw, bw);
     fence_proxy_async();
     __syncthreads();
 
@@ -264,8 +297,9 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
         wgmma_commit();
         // the window two steps ahead
         if (it + 2 < total)
-            stage_window(a, b, it + 2, raw + ((it + 2) % kStages) * kRawBytes,
-                         &full[(it + 2) % kStages]);
+            stage_window<kHap>(a, b, it + 2,
+                               raw + ((it + 2) % kStages) * kRawBytes,
+                               &full[(it + 2) % kStages]);
         // the operands of step it+1, into the slot step it-2 read
         if (it + 1 < total) {
             const int s1 = (it + 1) % kStages;
@@ -275,19 +309,21 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
                                kChunkBases / 4, as + s1 * a_slot, sbo_a);
             }
             mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
-            expand_w(a, it + 1, raw + s1 * kRawBytes, bw + s1 * kOpBytes);
+            expand_w<kHap>(a, it + 1, raw + s1 * kRawBytes,
+                           bw + s1 * kOpBytes);
             fence_proxy_async();
         }
         if (kc == a.nK - 1) {
             // the tile's sums: thread holds read r at offsets
             // 8j + 2*t4 + e, limb 1 in acc[4j+e], limb 0 in acc[4j+2+e]
+            const int w0 = tile_w0<kHap>(a, nt);
             wgmma_wait<0>();
             fence_acc(acc);
 #pragma unroll
             for (int j = 0; j < kNTile / 8; ++j) {
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const int w = nt * kNTile + 8 * j + 2 * t4 + e;   // ascending
+                    const int w = w0 + 8 * j + 2 * t4 + e;   // ascending
                     const int S = acc[4 * j + e] * 256 + acc[4 * j + 2 + e];
                     const float s = __fadd_rn(
                         __fmul_rn(__int2float_rn(S), kQuantInv), ls);
@@ -297,38 +333,44 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
                     }
                 }
             }
+            if (kHap && w0 + kNTile >= a.W) {   // its window's last tile
+                merge_lanes(run_s, run_w);
+                if (t4 == 0 && r < a.R) {
+                    const size_t o = ((size_t)b * a.R + r) * a.H +
+                                     tile_window<kHap>(a, nt);
+                    a.best[o] = run_s;
+                    a.off[o] = run_w;
+                }
+                run_s = -INFINITY;
+                run_w = INT_MAX;
+            }
         } else {
             wgmma_wait<1>();   // step it-1 done: its slots are free
         }
         __syncthreads();
     }
 
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {   // the 4 lanes of a read
-        const float os = __shfl_xor_sync(0xffffffffu, run_s, o);
-        const int ow = __shfl_xor_sync(0xffffffffu, run_w, o);
-        if (better(os, ow, run_s, run_w)) {
-            run_s = os;
-            run_w = ow;
-        }
-    }
-    if (t4 == 0 && r < a.R) {
-        const size_t o = (size_t)b * a.R + r;
-        if constexpr (kPairOut) {
-            a.out[2 * o] = run_s;
-            a.out[2 * o + 1] = __int_as_float(run_w);
-        } else {
-            a.best[o] = run_s;
-            a.off[o] = run_w;
+    if constexpr (!kHap) {
+        merge_lanes(run_s, run_w);
+        if (t4 == 0 && r < a.R) {
+            const size_t o = (size_t)b * a.R + r;
+            if constexpr (kOut == kPairOut) {
+                a.out[2 * o] = run_s;
+                a.out[2 * o + 1] = __int_as_float(run_w);
+            } else {
+                a.best[o] = run_s;
+                a.off[o] = run_w;
+            }
         }
     }
 }
 
 // Launches the instantiation on `a` (operand pointers, R, Rp, L, W set)
-// for B pairs; returns cudaGetLastError().
-template <int kSrc, bool kPairOut>
-int launch(Args a, long long B, void* stream) {
-    plan_steps(a);
+// for B pairs (KX-H: B loci against H windows each); returns
+// cudaGetLastError().
+template <int kSrc, int kOut>
+int launch(Args a, long long B, void* stream, int H = 1) {
+    plan_steps(a, H);
     const long long want = (a.R + kReadsPerWg - 1) / kReadsPerWg;
     const int n_wg = (int)(want < kMaxWg ? want : kMaxWg);
     const size_t fixed = kBarBytes + (size_t)kStages * (kOpBytes + kRawBytes);
@@ -341,7 +383,7 @@ int launch(Args a, long long B, void* stream) {
                      (uintptr_t)a.delta % 16 == 0;
     else
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.packed % 16 == 0;
-    auto kernel = score_best_offsets_tc_kernel<kSrc, kPairOut>;
+    auto kernel = score_best_offsets_tc_kernel<kSrc, kOut>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -384,7 +426,7 @@ int score_best_offsets_tc_launch(const void* codes, const void* delta,
     a.R = a.Rp = (int)R;
     a.L = (int)L;
     a.W = (int)W;
-    return launch<kStandard, false>(a, B, stream);
+    return launch<kStandard, kBestOff>(a, B, stream);
 }
 
 // KX-P: packed [B,Rp,L] int32, lnmis [B,R] f32 or NULL (then folded: Rp =
@@ -407,8 +449,31 @@ int score_packed_tc_launch(const void* packed, const void* lnmis,
     a.Rp = (int)Rp;
     a.L = (int)L;
     a.W = (int)W;
-    return fold ? launch<kPackedFold, true>(a, B, stream)
-                : launch<kPacked, true>(a, B, stream);
+    return fold ? launch<kPackedFold, kPairOut>(a, B, stream)
+                : launch<kPacked, kPairOut>(a, B, stream);
+}
+
+// KX-H: codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R] f32 of B loci
+// against H windows of W offsets, win [B,L,H*W] int8; best [B,R,H] f32 and
+// off [B,R,H] int32 out (the offset within each window). All contiguous on
+// the device. Launches on `stream`, returns cudaGetLastError().
+int score_hap_tc_launch(const void* codes, const void* delta,
+                        const void* lnmis, const void* win, long long B,
+                        long long R, long long L, long long W, long long H,
+                        void* best, void* off, void* stream) {
+    if (!in_range(B, R, L, W) || H < 1 || H * W > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    Args a = {};
+    a.codes = (const int8_t*)codes;
+    a.delta = (const float*)delta;
+    a.lnmis = (const float*)lnmis;
+    a.win = (const int8_t*)win;
+    a.best = (float*)best;
+    a.off = (int32_t*)off;
+    a.R = a.Rp = (int)R;
+    a.L = (int)L;
+    a.W = (int)W;
+    return launch<kStandard, kHapOut>(a, B, stream, (int)H);
 }
 
 }  // extern "C"

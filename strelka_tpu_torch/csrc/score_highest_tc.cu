@@ -1,5 +1,5 @@
-// Read x haplotype best-offset scoring in f32, mode="highest", on Hopper's
-// bf16 tensor cores (sm_90a): K1-h.
+// Read x haplotype best-offset scoring on Hopper's bf16 tensor cores
+// (sm_90a): K1-h (f32, mode="highest") and, on two pieces, KX-K (below).
 //
 // Replaces the TPU kernel strelka_tpu/ops/pallas_readlik.py:_score_kernel,
 // its mode="highest" branch (:170-177, pallas_call :240), whose oracle is
@@ -54,6 +54,26 @@
 //   back, so the tensor cores run one step while the next is built.
 // - First max: strict > over a thread's ascending offsets across N tiles,
 //   then better() over the 4 lanes that share a read.
+//
+// With KX-K's piece source the same kernel is KX-K: it replaces the K1-x
+// harness's _kernel_limb2k (benchmarks/exp_exact_kernel.py:241, pallas_call
+// :720), K1's function with both limbs in one accumulator, for L <= 256:
+//
+//   s[r,w] = f32(S) * 2^-11 + lnmis[r],  S = sum_l v[r,l] * match[r,l,w]
+//
+// with v = d_int & 0xFFFF = limb_1*256 + limb_0 (d_int = (int)(delta*2^11),
+// truncated as K1 takes it). The Pallas body stacks the limbs along K
+// against W = [256*onehot ; onehot]; the u8 tensor cores cannot hold the
+// weight 256 in B, but bf16 holds it in A: the pieces p1 = ((v >> 8) & 255)
+// * 2^-3 and p0 = (v & 255) * 2^-11 have at most 8 significant bits each
+// (exact in bf16) and p1 + p0 = v * 2^-11. Two passes into the one f32
+// accumulator against the same one-hot Bw; every partial sum is S' * 2^-11
+// for an integer S' < 2^24 (L <= 256), exact in any order and under the
+// tensor cores' truncating alignment, so acc + lnmis equals the plain
+// f32(S) * 2^-11 + lnmis bit for bit. Bound: K1's bytes (the u8 engine
+// computes this function); this design's own floor is its 2 * 2*B*R*4L*W
+// bf16 operations at 989 TFLOP/s. Everything else is K1-h's: K1-h's
+// instantiation is the code it was.
 #include <cuda_bf16.h>
 
 #include "tc_pipeline.cuh"
@@ -67,6 +87,15 @@ constexpr int kHRowBytes = 2 * 4 * kChunkBases; // one offset's chunk of K
 constexpr int kHSbo = 8 * kHRowBytes;           // 8-offset group stride
 constexpr int kHOpBytes = kNTile * kHRowBytes;  // a Bw slot
 constexpr unsigned kOne = 0x3F80u;              // bf16 1.0
+constexpr int kOneSumMaxLen = 256;              // S < 2^24
+
+// Piece sources of A: K1-h's three pieces of any f32 delta, or KX-K's two
+// pieces of d_int & 0xFFFF
+enum PieceSource { kSplit3, kOneSum };
+
+__host__ __device__ constexpr int n_pieces(int src) {
+    return src == kOneSum ? 2 : 3;
+}
 
 // d (+)= A (64x16 bf16, registers) * B (16x64 bf16, K-major), f32
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32],
@@ -96,9 +125,10 @@ __device__ __forceinline__ void fence_f32(float (&d)[32]) {
     for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void fence_frag(unsigned (&f)[3][4]) {
+template <int N>
+__device__ __forceinline__ void fence_frag(unsigned (&f)[N][4]) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < N; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[j][i])::"memory");
 }
@@ -113,6 +143,25 @@ __device__ __forceinline__ void split3(float d, unsigned (&p)[3]) {
         p[j] = __bfloat16_as_ushort(h);
         rest = __fsub_rn(rest, __bfloat162float(h));
     }
+}
+
+// bf16 bits of KX-K's pieces of v = d_int & 0xFFFF: ((v >> 8) & 255) *
+// 2^-3 and (v & 255) * 2^-11, each exact (at most 8 significant bits)
+__device__ __forceinline__ void onesum_pieces(float d, unsigned (&p)[2]) {
+    const unsigned v = (unsigned)(int)__fmul_rn(d, 2048.0f);
+    p[0] = __bfloat16_as_ushort(__float2bfloat16_rn(
+        __fmul_rn(__uint2float_rn((v >> 8) & 255u), 0.125f)));
+    p[1] = __bfloat16_as_ushort(__float2bfloat16_rn(
+        __fmul_rn(__uint2float_rn(v & 255u), kQuantInv)));
+}
+
+template <int kSrc>
+__device__ __forceinline__ void pieces(float d,
+                                       unsigned (&p)[n_pieces(kSrc)]) {
+    if constexpr (kSrc == kOneSum)
+        onesum_pieces(d, p);
+    else
+        split3(d, p);
 }
 
 // bf16 value v at code c's half of the register of codes 0,1 or 2,3 (any
@@ -197,8 +246,10 @@ __device__ void expand_wh(const Args& a, int it, const unsigned char* raw,
     }
 }
 
+template <int kSrc>
 __global__ void __launch_bounds__(kHMaxWg* kWgThreads)
     score_highest_tc_kernel(const Args a) {
+    constexpr int kN = n_pieces(kSrc);
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [kStages]
     unsigned char* bw = smem + kBarBytes;                 // [kStages][kHOpBytes]
@@ -237,7 +288,7 @@ __global__ void __launch_bounds__(kHMaxWg* kWgThreads)
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-    unsigned frag[2][3][4];   // two sets of (hi, mid, lo) x 4 registers
+    unsigned frag[2][kN][4];   // two sets of kN pieces x 4 registers
 
     for (int it = 0; it < steps; ++it) {
         const int nt = it / a.nK;
@@ -245,18 +296,18 @@ __global__ void __launch_bounds__(kHMaxWg* kWgThreads)
         const unsigned char* b_op = bw + (it % kStages) * kHOpBytes;
 #pragma unroll
         for (int q = 0; q < kK16; ++q) {
-            unsigned (&f)[3][4] = frag[q & 1];
+            unsigned (&f)[kN][4] = frag[q & 1];
             wgmma_wait<1>();   // the group two k16 steps back read f
             fence_frag(f);
             const int grp = q >> 2;
             const int sp = q & 3;
-            unsigned pa[3], pb[3];
-            split3(lane_of(dv[0][grp], sp), pa);
-            split3(lane_of(dv[1][grp], sp), pb);
+            unsigned pa[kN], pb[kN];
+            pieces<kSrc>(lane_of(dv[0][grp], sp), pa);
+            pieces<kSrc>(lane_of(dv[1][grp], sp), pb);
             const unsigned ca = (cv[0][grp] >> (8 * sp)) & 255u;
             const unsigned cb = (cv[1][grp] >> (8 * sp)) & 255u;
 #pragma unroll
-            for (int j = 0; j < 3; ++j) {
+            for (int j = 0; j < kN; ++j) {
                 f[j][0] = pick01(ca, pa[j]);
                 f[j][1] = pick01(cb, pb[j]);
                 f[j][2] = pick23(ca, pa[j]);
@@ -267,7 +318,7 @@ __global__ void __launch_bounds__(kHMaxWg* kWgThreads)
             wgmma_fence();
             const uint64_t db = desc(b_op + 2 * q * kCore, kCore, kHSbo);
 #pragma unroll
-            for (int j = 0; j < 3; ++j)
+            for (int j = 0; j < kN; ++j)
                 wgmma_bf16(acc, f[j], db, kc > 0 || q > 0 || j > 0);
             wgmma_commit();
         }
@@ -331,23 +382,15 @@ __global__ void __launch_bounds__(kHMaxWg* kWgThreads)
     }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Largest read length the launch takes (that of the SIMT kernel it
-// replaced; nothing in shared memory grows with L).
-int score_highest_tc_max_len() { return kMaxLen; }
-
-// codes [B,R,L] int8, delta [B,R,L] f32 (any values), lnmis [B,R] f32,
-// win [B,L,W] int8, all contiguous on the device; best [B,R] f32 and off
-// [B,R] int32 out. Launches on `stream` and returns cudaGetLastError().
-int score_highest_tc_launch(const void* codes, const void* delta,
-                            const void* lnmis, const void* win, long long B,
-                            long long R, long long L, long long W,
-                            void* best, void* off, void* stream) {
+// Launches the instantiation on contiguous device operands (codes [B,R,L]
+// int8, delta [B,R,L] f32, lnmis [B,R] f32, win [B,L,W] int8; best [B,R]
+// f32 and off [B,R] int32 out), L <= max_len; returns cudaGetLastError().
+template <int kSrc>
+int launch(const void* codes, const void* delta, const void* lnmis,
+           const void* win, long long B, long long R, long long L,
+           long long W, void* best, void* off, void* stream, int max_len) {
     if (B < 1 || R < 1 || L < 1 || W < 1 || B > 65535 || R > INT_MAX ||
-        L > kMaxLen || W > INT_MAX)
+        L > max_len || W > INT_MAX)
         return (int)cudaErrorInvalidValue;
     Args a = {};
     a.codes = (const int8_t*)codes;
@@ -365,15 +408,46 @@ int score_highest_tc_launch(const void* codes, const void* delta,
     const long long want = (R + kHReadsPerWg - 1) / kHReadsPerWg;
     const int n_wg = (int)(want < kHMaxWg ? want : kHMaxWg);
     const size_t smem = kBarBytes + (size_t)kStages * (kHOpBytes + kRawBytes);
+    auto kernel = score_highest_tc_kernel<kSrc>;
     const cudaError_t e = cudaFuncSetAttribute(
-        score_highest_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const long long per_cta = (long long)n_wg * kHReadsPerWg;
     const dim3 grid((unsigned)((R + per_cta - 1) / per_cta), (unsigned)B);
-    score_highest_tc_kernel<<<grid, n_wg * kWgThreads, smem,
-                              (cudaStream_t)stream>>>(a);
+    kernel<<<grid, n_wg * kWgThreads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest read length the launch takes (that of the SIMT kernel it
+// replaced; nothing in shared memory grows with L).
+int score_highest_tc_max_len() { return kMaxLen; }
+
+// K1-h: codes [B,R,L] int8, delta [B,R,L] f32 (any values), lnmis [B,R]
+// f32, win [B,L,W] int8, all contiguous on the device; best [B,R] f32 and
+// off [B,R] int32 out. Launches on `stream` and returns cudaGetLastError().
+int score_highest_tc_launch(const void* codes, const void* delta,
+                            const void* lnmis, const void* win, long long B,
+                            long long R, long long L, long long W,
+                            void* best, void* off, void* stream) {
+    return launch<kSplit3>(codes, delta, lnmis, win, B, R, L, W, best, off,
+                           stream, kMaxLen);
+}
+
+// Largest read length KX-K takes: S < 2^24 for L <= 256.
+int score_onesum_tc_max_len() { return kOneSumMaxLen; }
+
+// KX-K: operands and outputs as score_highest_tc_launch's, delta as K1
+// takes it (d_int = (int)(delta * 2^11)), L <= 256.
+int score_onesum_tc_launch(const void* codes, const void* delta,
+                           const void* lnmis, const void* win, long long B,
+                           long long R, long long L, long long W, void* best,
+                           void* off, void* stream) {
+    return launch<kOneSum>(codes, delta, lnmis, win, B, R, L, W, best, off,
+                           stream, kOneSumMaxLen);
 }
 
 }  // extern "C"

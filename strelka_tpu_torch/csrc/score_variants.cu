@@ -6,7 +6,11 @@
 // are KX-P's SIMT design, which K1's tensor-core pipeline replaced on every
 // path (score_best_offsets_tc.cu, score_packed_tc_launch); they stay as its
 // before-numbers (ops/score_variants.KERNELS["packed_simt"],
-// ["packed_fold_simt"]).
+// ["packed_fold_simt"]). So do score_onesum_kernel (KX-K-s) and
+// score_hap_kernel (KX-H-s), replaced on every path by K1-h's bf16 pipeline
+// on two pieces (score_highest_tc.cu, score_onesum_tc_launch) and by K1's
+// u8 pipeline walking H windows (score_best_offsets_tc.cu,
+// score_hap_tc_launch): KERNELS["onesum_simt"], ["hap_simt"].
 //
 //   score_packed_kernel<false>  build_fused.kern :451 / _kernel_fused :418,
 //                               build_packedin.kern :579 (pallas_call :489,
@@ -82,6 +86,7 @@ constexpr int kWChunk = 128;              // offsets per shared-memory chunk
 constexpr unsigned kNoRead = 0x100u;      // read code >= 4: equals no byte
 // shared memory: the reads' words, their lnmis, one window chunk
 constexpr int kMaxLen = (kSmemLimit - kReadsPerBlock * 4) / (kReadsPerBlock * 4 + kWChunk);
+constexpr int kOneSumMaxLen = 256;         // the one sum S < 2^24
 
 enum Variant { kPacked, kPackedFold, kOneSum, kHap, kNoA, kNoW, kNoMax, kNoDot };
 
@@ -566,6 +571,12 @@ int score_variants_max_len() {
     return kMaxLen < mma_max_len() ? kMaxLen : mma_max_len();
 }
 
+// Largest read length score_onesum_launch takes.
+int score_onesum_max_len() {
+    const int n = score_variants_max_len();
+    return kOneSumMaxLen < n ? kOneSumMaxLen : n;
+}
+
 // packed [B,Rp,L] int32, lnmis [B,R] f32 or NULL (then folded: Rp = R +
 // ceil(R/L)), win [B,L,W] int8; out [B,R,2] f32. All contiguous on the
 // device. Launches on `stream`, returns cudaGetLastError().
@@ -596,7 +607,8 @@ int score_onesum_launch(const void* codes, const void* delta,
                         const void* lnmis, const void* win, long long B,
                         long long R, long long L, long long W, void* best,
                         void* off, void* stream) {
-    if (!fits_int(R) || L > 256 || !fits_int(W) || !fits_int(L * W))
+    if (!fits_int(R) || L > kOneSumMaxLen || !fits_int(W) ||
+        !fits_int(L * W))
         return (int)cudaErrorInvalidValue;
     return launch(score_onesum_kernel,
                   standard_args(codes, delta, lnmis, win, R, L, W, best, off),

@@ -1,16 +1,19 @@
 // The tensor-core scorers' shared pipeline on Hopper (sm_90a): the
 // operands' descriptor, the wgmma fences, the mbarrier ring and the
-// window's staging by cp.async. Included by score_best_offsets_tc.cu (K1
-// and KX-P, u8 operands) and score_highest_tc.cu (K1-h, bf16 operands);
-// each source compiles into a library of its own, so everything here has
-// internal linkage.
+// window's staging by cp.async. Included by score_best_offsets_tc.cu (K1,
+// KX-P and KX-H, u8 operands) and score_highest_tc.cu (K1-h and KX-K, bf16
+// operands); each source compiles into a library of its own, so everything
+// here has internal linkage.
 //
 // A CTA scores the reads of one locus-haplotype pair b against its window
 // win [L,W] in steps: N tiles of kNTile offsets, each over the read length
 // in chunks of kChunkBases bases, K fastest. Step it's raw window (bases
 // l0.., offsets w0..; kChunkBases x kNTile bytes) comes in by 16-byte
 // cp.async (plain loads where rows are not 16-byte aligned) into a ring of
-// kStages raw slots, each completed on an mbarrier.
+// kStages raw slots, each completed on an mbarrier. KX-H's reads of one
+// locus face H windows side by side in rows of H*W bytes (win [L,H*W]): its
+// N tiles walk window 0's ceil(W/kNTile) tiles, then window 1's, and so on
+// (tile_window<true>); a tile never holds offsets of two windows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,7 +50,8 @@ struct Args {
     float* out;             // [B,R,2]      (interleaved: best, offset bits)
     int R, Rp, L, W;
     int Lp;                 // L rounded up to kChunkBases
-    int nK, nT;             // K chunks, N tiles
+    int nK, nT;             // K chunks, N tiles (H * nTw)
+    int H, nTw;             // windows (KX-H; else 1), N tiles a window
     int resident;           // A words of the whole read length stay
     int win_vec;            // window rows 16-byte aligned
     int read_vec;           // reads 4 bases a load
@@ -126,14 +130,31 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                  : "memory");
 }
 
-// the raw window of step `it` (bases l0.., offsets w0..) into `raw`
-// ([kChunkBases][kNTile] bytes); every thread arrives on `bar` once
+// N tile nt's window: one of KX-H's H windows of nTw tiles each (kHap),
+// else the one window 0
+template <bool kHap>
+__device__ __forceinline__ int tile_window(const Args& a, int nt) {
+    return kHap ? nt / a.nTw : 0;
+}
+
+// N tile nt's first offset within its window
+template <bool kHap>
+__device__ __forceinline__ int tile_w0(const Args& a, int nt) {
+    return (nt - tile_window<kHap>(a, nt) * a.nTw) * kNTile;
+}
+
+// the raw window of step `it` (bases l0.., offsets w0.. of window h) into
+// `raw` ([kChunkBases][kNTile] bytes); every thread arrives on `bar` once.
+// A window row is H*W bytes apart (kHap), window h starts at column h*W.
+template <bool kHap = false>
 __device__ void stage_window(const Args& a, int b, int it,
                              unsigned char* raw, uint64_t* bar) {
     const int nt = it / a.nK;
     const int l0 = (it - nt * a.nK) * kChunkBases;
-    const int w0 = nt * kNTile;
-    const int8_t* wb = a.win + (size_t)b * a.L * a.W;
+    const int w0 = tile_w0<kHap>(a, nt);
+    const int ldw = kHap ? a.H * a.W : a.W;   // row stride
+    const int8_t* wb = a.win + (size_t)b * a.L * ldw +
+                       (size_t)tile_window<kHap>(a, nt) * a.W;
     if (a.win_vec) {   // W % 16 == 0: a 16-byte piece is all in or all out
         for (int v = threadIdx.x; v < kChunkBases * (kNTile / 16);
              v += blockDim.x) {
@@ -141,7 +162,7 @@ __device__ void stage_window(const Args& a, int b, int it,
             const int col = 16 * (v % (kNTile / 16));
             if (l0 + l < a.L && w0 + col < a.W)
                 cp_async16(raw + l * kNTile + col,
-                           wb + (size_t)(l0 + l) * a.W + w0 + col);
+                           wb + (size_t)(l0 + l) * ldw + w0 + col);
         }
         cp_async_arrive(bar);
     } else {
@@ -149,7 +170,7 @@ __device__ void stage_window(const Args& a, int b, int it,
             const int l = e / kNTile;
             const int col = e - l * kNTile;
             if (l0 + l < a.L && w0 + col < a.W)
-                raw[e] = (unsigned char)wb[(size_t)(l0 + l) * a.W + w0 + col];
+                raw[e] = (unsigned char)wb[(size_t)(l0 + l) * ldw + w0 + col];
         }
         mbar_arrive(bar);
     }
@@ -164,12 +185,15 @@ __device__ __forceinline__ void init_ring(uint64_t* full) {
     __syncthreads();
 }
 
-// window steps and N tiles of a launch; `a` holds R, L, W (and the
-// operand pointers) on entry
-__host__ inline void plan_steps(Args& a) {
+// window steps and N tiles of a launch against H windows of W offsets
+// each; `a` holds R, L, W (and the operand pointers) on entry. With W % 16
+// == 0 every window row and window start is 16-byte aligned too.
+__host__ inline void plan_steps(Args& a, int H = 1) {
     a.Lp = (a.L + kChunkBases - 1) / kChunkBases * kChunkBases;
     a.nK = a.Lp / kChunkBases;
-    a.nT = (a.W + kNTile - 1) / kNTile;
+    a.H = H;
+    a.nTw = (a.W + kNTile - 1) / kNTile;
+    a.nT = H * a.nTw;
     a.win_vec = a.W % 16 == 0 && (uintptr_t)a.win % 16 == 0;
 }
 

@@ -19,6 +19,11 @@ least of each kernel's two times). Variants:
 
 Prints what ptxas reports for the source (registers, spills, injected
 waits), then one JSON line per shape: each kernel's ms, and K1-s's.
+
+    python -m strelka_tpu_torch.ops.score_tc_probe --hap [variant ...]
+
+times KX-H instead (the same source's hap output form, held to its plain
+version) at the variants runner's hap shapes, without K1-s's column.
 """
 from __future__ import annotations
 
@@ -50,8 +55,9 @@ VARIANTS = {
                         "        wgmma_fence();")]),
     "nomma": (False, [(_MMA, "            acc[s] += (int)(size_t)a_op + "
                              "(int)(size_t)b_op;")]),
-    "nobw": (False, [("            expand_w(a, it + 1, raw + s1 * kRawBytes, "
-                      "bw + s1 * kOpBytes);\n", "")]),
+    "nobw": (False, [("            expand_w<kHap>(a, it + 1, raw + s1 * "
+                      "kRawBytes,\n                           bw + s1 * "
+                      "kOpBytes);\n", "")]),
     "nocopy": (False, [("        if (it + 2 < total)\n            stage_window",
                         "        if (false)\n            stage_window"),
                        ("            mbar_wait(&full[s1], ((it + 1) / kStages)"
@@ -63,6 +69,8 @@ VARIANTS = {
 SHAPES = [(256, r, 160, w) for r in (32, 128, 512) for w in (256, 320)] + [
     (256, 128, 128, 192), (128, 32, 128, 192), (512, 128, 128, 128),
     (256, 32, 160, 192)]
+# KX-H's loci, reads, read length and window width (x HAP_WINDOWS)
+HAP_SHAPES = [(256, 128, 128, 128), (128, 128, 160, 256)]
 
 
 def variant_source(name: str) -> str:
@@ -77,9 +85,25 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build(names) -> dict:
-    """{name: the launch function} of the source ("k1") and each
-    variant, built together."""
+def bind_k1(lib):
+    fn = lib.score_best_offsets_tc_launch
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
+    return fn
+
+
+def bind_hap(lib):
+    fn = lib.score_hap_tc_launch
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, ll, vp, vp, vp]
+    return fn
+
+
+def build(names, bind=bind_k1) -> dict:
+    """{name: bind(its library)} of the source ("k1") and each variant,
+    built together."""
     os.makedirs(OUT, exist_ok=True)
     with open(SOURCE) as f:
         source = f.read()
@@ -95,7 +119,6 @@ def build(names) -> dict:
              "-I", _build.CSRC, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     fns = {}
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
     for name, (proc, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -103,10 +126,7 @@ def build(names) -> dict:
         for line in out.splitlines():
             if any(k in line for k in ("registers", "spill", "C75")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-        fn = ctypes.CDLL(lib).score_best_offsets_tc_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp]
-        fns[name] = fn
+        fns[name] = bind(ctypes.CDLL(lib))
     return fns
 
 
@@ -141,27 +161,46 @@ def main(argv=None) -> int:
         description="Time variants of the tensor-core K1 beside it.")
     ap.add_argument("variants", nargs="*",
                     help=f"of {' '.join(VARIANTS)} (default: all)")
-    names = ap.parse_args(argv).variants or list(VARIANTS)
+    ap.add_argument("--hap", action="store_true",
+                    help="time KX-H (H windows) instead of K1")
+    args = ap.parse_args(argv)
+    names = args.variants or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         ap.error(f"unknown variants {unknown}")
     dev = devmod.resolve("cuda")
-    fns = build(names)
+    H = sv.HAP_WINDOWS if args.hap else 1
+    fns = build(names, bind_hap if args.hap else bind_k1)
+    if args.hap:
+        max_len = sv._tc_lib().score_best_offsets_tc_max_len()
+
+        def call(fn, *t):
+            return sv._launch_hap("probe", fn, max_len, *t, H)
+
+        def plain(*t):
+            return sv.hap_best_offsets(*t, H)
+    else:
+        call, plain = launch, exact_best_offsets
     order = ["k1", *names, *names[::-1], "k1"]
-    for shape in SHAPES:
-        t = [torch.from_numpy(a).to(dev) for a in sv.harness_inputs(*shape)]
-        want = exact_best_offsets(*t)
+    for B, R, L, W in HAP_SHAPES if args.hap else SHAPES:
+        shape = [B, R, L, W]
+        t = [torch.from_numpy(a).to(dev)
+             for a in sv.harness_inputs(B, R, L, H * W)]
+        want = plain(*t)
         times = {n: [] for n in fns}
         for name in order:
-            got = launch(fns[name], *t)
+            got = call(fns[name], *t)
             torch.cuda.synchronize(dev)
             if (name == "k1" or VARIANTS[name][0]) and not all(
                     torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"{name} at {shape} differs from the "
                                      f"plain version")
-            times[name].append(loop_ms(lambda: launch(fns[name], *t), dev))
-        row = {"shape": list(shape), **{n: min(v) for n, v in times.items()}}
-        row["k1_s"] = loop_ms(lambda: sv.score_simt(*t), dev)
+            times[name].append(loop_ms(lambda: call(fns[name], *t), dev))
+        row = {"shape": shape, **{n: min(v) for n, v in times.items()}}
+        if args.hap:
+            row["windows"] = H
+        else:
+            row["k1_s"] = loop_ms(lambda: sv.score_simt(*t), dev)
         print(json.dumps(row), flush=True)
     return 0
 

@@ -5,11 +5,13 @@ benchmarks/exp_exact_kernel.py, whose Pallas bodies are variants of the
 exact read x haplotype scorer K1 (ops/score_kernel.py). Most of them
 differ from K1 only in how the TPU schedules the same function, and
 their counterpart here is K1's kernel. The others compute a function or
-take an operand contract that K1 does not, and each is a kernel of
-csrc/score_variants.cu (``KERNELS`` maps each to its wrapper and plain
-version). ``KERNELS`` also holds K1-s ``score_simt``, K1's earlier SIMT
-kernel (csrc/score_best_offsets.cu, compare-adds on the CUDA cores): K1's
-function and operands, kept as the before-number of the tensor-core K1.
+take an operand contract that K1 does not, and each has a CUDA kernel
+(``KERNELS`` maps each to its wrapper, plain version and source): on
+K1's or K1-h's tensor-core pipeline where it was redesigned for Hopper,
+else in csrc/score_variants.cu. ``KERNELS`` also holds K1-s
+``score_simt``, K1's earlier SIMT kernel (csrc/score_best_offsets.cu,
+compare-adds on the CUDA cores): K1's function and operands, kept as
+the before-number of the tensor-core K1.
 
 - KX-P ``score_packed`` (``fused``, ``fusedwhole``, ``fusedin``,
   ``fusedlm``): K1 on one int32 per base, ``(d_int << 3) | code``,
@@ -20,11 +22,20 @@ function and operands, kept as the before-number of the tensor-core K1.
   kernels (csrc/score_variants.cu) are kept as its before-numbers,
   ``score_packed_simt`` (``KERNELS["packed_simt"]`` and
   ``["packed_fold_simt"]``), on no path.
-- KX-K ``score_onesum`` (``limb2k``): K1 with one int32 sum of
-  ``hi*256 + lo`` per offset, for L <= 256, where f32(S) is exact and
-  the result equals K1's bits.
+- KX-K ``score_onesum`` (``limb2k``): K1 with one sum of ``hi*256 +
+  lo`` per offset, for L <= 256, where f32(S) is exact and the result
+  equals K1's bits. Its kernel is K1-h's bf16 tensor-core pipeline on
+  two exact pieces of ``d_int & 0xFFFF`` (csrc/score_highest_tc.cu,
+  ``score_highest_tc_kernel<kOneSum>``).
 - KX-H ``score_hap`` (``hap2``): reads [B,R,L] against H windows
-  [B,L,H*W]; best and off [B,R,H], the offset within each window.
+  [B,L,H*W]; best and off [B,R,H], the offset within each window. Its
+  kernel is K1's u8 pipeline with its N tiles walking the H windows and
+  the A words built once for all of them
+  (``score_best_offsets_tc_kernel<kStandard, kHapOut>``).
+- KX-K's and KX-H's earlier SIMT kernels (csrc/score_variants.cu) are
+  kept as their before-numbers, ``score_onesum_simt`` and
+  ``score_hap_simt`` (``KERNELS["onesum_simt"]``, ``["hap_simt"]``),
+  on no path.
 - KX-I ``score_int8`` (``int8``): K1 with each limb clamped to
   ``min(limb, 127)`` (the Pallas body's clamp, exp_exact_kernel.py:122),
   on the int8 tensor cores (mma.sync m16n8k32 s8, s32 accumulators).
@@ -76,8 +87,11 @@ LAUNCHES_PACKED = 0     # KX-P, score_best_offsets_tc_kernel<kPacked, true>
 LAUNCHES_PACKED_FOLD = 0    # KX-P, <kPackedFold, true> (lnmis folded)
 LAUNCHES_PACKED_SIMT = 0    # KX-P-s, score_packed_kernel<false>
 LAUNCHES_PACKED_FOLD_SIMT = 0   # KX-P-s, score_packed_kernel<true>
-LAUNCHES_ONESUM = 0     # KX-K
-LAUNCHES_HAP = 0        # KX-H
+LAUNCHES_ONESUM = 0     # KX-K, score_highest_tc_kernel<kOneSum>
+LAUNCHES_HAP = 0        # KX-H, score_best_offsets_tc_kernel<kStandard,
+                        # kHapOut>
+LAUNCHES_ONESUM_SIMT = 0    # KX-K-s, score_onesum_kernel
+LAUNCHES_HAP_SIMT = 0   # KX-H-s, score_hap_kernel
 LAUNCHES_INT8 = 0       # KX-I
 LAUNCHES_NOA = 0        # KX-A, score_ablation_kernel<kNoA>
 LAUNCHES_NOW = 0        # KX-A, score_ablation_kernel<kNoW>
@@ -87,8 +101,12 @@ LAUNCHES_SIMT = 0       # K1-s, score_best_offsets_kernel<false>
 
 SOURCE = "strelka_tpu_torch/csrc/score_variants.cu"
 TC_SOURCE = "strelka_tpu_torch/csrc/score_best_offsets_tc.cu"
+HIGHEST_SOURCE = "strelka_tpu_torch/csrc/score_highest_tc.cu"
 HARNESS = "benchmarks/exp_exact_kernel.py"
-ONESUM_MAX_LEN = 256    # S = S1*256 + S0 < 2^24 (exp_exact_kernel.py:243-247)
+# S = S1*256 + S0 < 2^24 (exp_exact_kernel.py:243-247): the plain
+# version's limit, the kernels' own (score_onesum_tc_max_len,
+# score_onesum_max_len) on the card
+ONESUM_MAX_LEN = 256
 DEFAULT_G = 4           # the harness's tiles per grid step (:782)
 HAP_WINDOWS = 2         # H of hap2 (:920)
 _MAX_B = 65535          # the kernels' grid y dimension
@@ -270,17 +288,33 @@ def _hap_width(win_t, n_haps) -> int:
 # --- wrappers ---------------------------------------------------------------
 
 def _tc_lib():
-    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's launch
-    bound."""
+    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's and
+    KX-H's launches bound."""
     from .. import _build
     lib = _build.load(score_kernel.KERNEL_FUNCTIONS["exact"][0])
     if not getattr(lib, "_packed_bound", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.score_packed_tc_launch.argtypes = [vp, vp, vp] + [ll] * 5 + [
             vp, vp]
-        lib.score_packed_tc_launch.restype = ctypes.c_int
-        lib.score_best_offsets_tc_max_len.restype = ctypes.c_int
+        lib.score_hap_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [vp] * 3
+        for fn in (lib.score_packed_tc_launch, lib.score_hap_tc_launch,
+                   lib.score_best_offsets_tc_max_len):
+            fn.restype = ctypes.c_int
         lib._packed_bound = True
+    return lib
+
+
+def _highest_lib():
+    """K1-h's library (csrc/score_highest_tc.cu) with KX-K's launch
+    bound."""
+    from .. import _build
+    lib = _build.load(score_kernel.KERNEL_FUNCTIONS["highest"][0])
+    if not getattr(lib, "_onesum_bound", False):
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.score_onesum_tc_launch.argtypes = [vp] * 4 + [ll] * 4 + [vp] * 3
+        for fn in (lib.score_onesum_tc_launch, lib.score_onesum_tc_max_len):
+            fn.restype = ctypes.c_int
+        lib._onesum_bound = True
     return lib
 
 
@@ -297,7 +331,8 @@ def _lib():
         lib.score_int8_mma_launch.argtypes = [vp] * 4 + [ll] * 4 + [vp] * 3
         for fn in (lib.score_packed_launch, lib.score_onesum_launch,
                    lib.score_hap_launch, lib.score_ablation_launch,
-                   lib.score_int8_mma_launch, lib.score_variants_max_len):
+                   lib.score_int8_mma_launch, lib.score_variants_max_len,
+                   lib.score_onesum_max_len):
             fn.restype = ctypes.c_int
         lib._bound = True
     return lib
@@ -415,42 +450,91 @@ def score_packed_simt(packed, lnmis, win_t, n_reads=None):
     return out
 
 
+def _launch_standard(fn_name, fn, max_len, codes, delta, lnmis, win_t):
+    """Check the standard operands on the card and launch `fn` (codes,
+    delta, lnmis, win, B, R, L, W, best, off, stream) on them; returns
+    (best, off) [B,R]."""
+    B, R, L, W = _check_standard(fn_name, codes, delta, lnmis, win_t,
+                                 max_len)
+    best, off = _best_off((B, R), codes.device)
+    _raise_on(fn_name, fn(
+        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+        win_t.data_ptr(), B, R, L, W, best.data_ptr(),
+        off.data_ptr(), _stream(codes.device)))
+    return best, off
+
+
 def score_onesum(codes, delta, lnmis, win_t):
-    """KX-K: K1's (best, off) [B,R] with one int32 accumulator per
-    offset; L <= 256. Shapes and dtypes as score_best_offsets."""
+    """KX-K: K1's (best, off) [B,R] with one accumulator per offset, on
+    K1-h's bf16 tensor-core pipeline; L <= 256. Shapes and dtypes as
+    score_best_offsets."""
     global LAUNCHES_ONESUM
     if codes.device.type == "cpu":
         return onesum_best_offsets(codes, delta, lnmis, win_t)
-    lib = _lib()
-    B, R, L, W = _check_standard(
-        "score_onesum", codes, delta, lnmis, win_t,
-        min(ONESUM_MAX_LEN, lib.score_variants_max_len()))
-    best, off = _best_off((B, R), codes.device)
-    _raise_on("score_onesum", lib.score_onesum_launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
-        _stream(codes.device)))
+    lib = _highest_lib()
+    out = _launch_standard("score_onesum", lib.score_onesum_tc_launch,
+                           lib.score_onesum_tc_max_len(), codes, delta,
+                           lnmis, win_t)
     LAUNCHES_ONESUM += 1
+    return out
+
+
+def score_onesum_simt(codes, delta, lnmis, win_t):
+    """KX-K-s: score_onesum's function from its earlier SIMT kernel, the
+    before-number of the tensor-core one; on no path."""
+    global LAUNCHES_ONESUM_SIMT
+    if codes.device.type == "cpu":
+        return onesum_best_offsets(codes, delta, lnmis, win_t)
+    lib = _lib()
+    out = _launch_standard("score_onesum_simt", lib.score_onesum_launch,
+                           lib.score_onesum_max_len(), codes, delta, lnmis,
+                           win_t)
+    LAUNCHES_ONESUM_SIMT += 1
+    return out
+
+
+def _launch_hap(fn_name, fn, max_len, codes, delta, lnmis, win_t, n_haps):
+    """Check KX-H's operands on the card and launch `fn` (codes, delta,
+    lnmis, win, B, R, L, W, H, best, off, stream) on them; returns
+    (best, off) [B,R,H]."""
+    B, R, L, _ = _check_standard(fn_name, codes, delta, lnmis, win_t,
+                                 max_len)
+    W = _hap_width(win_t, n_haps)
+    best, off = _best_off((B, R, n_haps), codes.device)
+    _raise_on(fn_name, fn(
+        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+        win_t.data_ptr(), B, R, L, W, n_haps, best.data_ptr(),
+        off.data_ptr(), _stream(codes.device)))
     return best, off
 
 
 def score_hap(codes, delta, lnmis, win_t, n_haps):
     """KX-H: reads codes/delta [B,R,L], lnmis [B,R] against `n_haps`
-    windows win_t [B, L, n_haps*W]; best f32 and off int32 [B,R,H]."""
+    windows win_t [B, L, n_haps*W], on K1's u8 tensor-core pipeline;
+    best f32 and off int32 [B,R,H], the offset within each window."""
     global LAUNCHES_HAP
     if codes.device.type == "cpu":
         return hap_best_offsets(codes, delta, lnmis, win_t, n_haps)
-    lib = _lib()
-    B, R, L, _ = _check_standard("score_hap", codes, delta, lnmis, win_t,
-                                 lib.score_variants_max_len())
-    W = _hap_width(win_t, n_haps)
-    best, off = _best_off((B, R, n_haps), codes.device)
-    _raise_on("score_hap", lib.score_hap_launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, n_haps, best.data_ptr(),
-        off.data_ptr(), _stream(codes.device)))
+    lib = _tc_lib()
+    out = _launch_hap("score_hap", lib.score_hap_tc_launch,
+                      lib.score_best_offsets_tc_max_len(), codes, delta,
+                      lnmis, win_t, n_haps)
     LAUNCHES_HAP += 1
-    return best, off
+    return out
+
+
+def score_hap_simt(codes, delta, lnmis, win_t, n_haps):
+    """KX-H-s: score_hap's function from its earlier SIMT kernel, the
+    before-number of the tensor-core one; on no path."""
+    global LAUNCHES_HAP_SIMT
+    if codes.device.type == "cpu":
+        return hap_best_offsets(codes, delta, lnmis, win_t, n_haps)
+    lib = _lib()
+    out = _launch_hap("score_hap_simt", lib.score_hap_launch,
+                      lib.score_variants_max_len(), codes, delta, lnmis,
+                      win_t, n_haps)
+    LAUNCHES_HAP_SIMT += 1
+    return out
 
 
 def score_int8(codes, delta, lnmis, win_t):
@@ -460,15 +544,11 @@ def score_int8(codes, delta, lnmis, win_t):
     if codes.device.type == "cpu":
         return int8_best_offsets(codes, delta, lnmis, win_t)
     lib = _lib()
-    B, R, L, W = _check_standard("score_int8", codes, delta, lnmis, win_t,
-                                 lib.score_variants_max_len())
-    best, off = _best_off((B, R), codes.device)
-    _raise_on("score_int8", lib.score_int8_mma_launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
-        _stream(codes.device)))
+    out = _launch_standard("score_int8", lib.score_int8_mma_launch,
+                           lib.score_variants_max_len(), codes, delta,
+                           lnmis, win_t)
     LAUNCHES_INT8 += 1
-    return best, off
+    return out
 
 
 def score_simt(codes, delta, lnmis, win_t):
@@ -548,6 +628,11 @@ class Kernel(NamedTuple):
     call: Callable
     plain: Callable
     source: str = SOURCE    # the CUDA source, path in the repository
+    # the function it computes, as the smoke's library route names it
+    # ("k1", "onesum", "hap": K1's against HAP_WINDOWS windows, "int8");
+    # None: its Pallas body's, wrong by design
+    function: str | None = None
+    before_of: str = ""     # the label of its redesign, if a before-number
 
 
 def _standard(t, G):
@@ -595,37 +680,52 @@ def _ablation(which, variant, line):
 
 K1_TPU = "strelka_tpu/ops/pallas_readlik.py:76"
 K1 = Kernel("score_best_offsets", "score_best_offsets_tc_kernel<kStandard, "
-            "false>", "", K1_TPU, _standard, score_best_offsets,
-            exact_best_offsets, TC_SOURCE)
+            "kBestOff>", "", K1_TPU, _standard, score_best_offsets,
+            exact_best_offsets, TC_SOURCE, "k1")
 
 KERNELS = {
     "packed": Kernel("score_packed",
-                     "score_best_offsets_tc_kernel<kPacked, true>",
+                     "score_best_offsets_tc_kernel<kPacked, kPairOut>",
                      "LAUNCHES_PACKED", f"{HARNESS}:418",
                      _packed_prepare(False), _packed_call, _packed_plain,
-                     TC_SOURCE),
+                     TC_SOURCE, "k1"),
     "packed_fold": Kernel("score_packed_fold",
-                          "score_best_offsets_tc_kernel<kPackedFold, true>",
+                          "score_best_offsets_tc_kernel<kPackedFold, "
+                          "kPairOut>",
                           "LAUNCHES_PACKED_FOLD", f"{HARNESS}:579",
                           _packed_prepare(True), _packed_call,
-                          _packed_plain, TC_SOURCE),
+                          _packed_plain, TC_SOURCE, "k1"),
     "packed_simt": Kernel("score_packed_simt", "score_packed_kernel<false>",
                           "LAUNCHES_PACKED_SIMT", f"{HARNESS}:418",
                           _packed_prepare(False), _packed_simt_call,
-                          _packed_plain),
+                          _packed_plain, function="k1",
+                          before_of="score_packed"),
     "packed_fold_simt": Kernel("score_packed_fold_simt",
                                "score_packed_kernel<true>",
                                "LAUNCHES_PACKED_FOLD_SIMT", f"{HARNESS}:579",
                                _packed_prepare(True), _packed_simt_call,
-                               _packed_plain),
-    "onesum": Kernel("score_onesum", "score_onesum_kernel",
+                               _packed_plain, function="k1",
+                               before_of="score_packed_fold"),
+    "onesum": Kernel("score_onesum", "score_highest_tc_kernel<kOneSum>",
                      "LAUNCHES_ONESUM", f"{HARNESS}:241", _standard,
-                     score_onesum, onesum_best_offsets),
-    "hap": Kernel("score_hap", "score_hap_kernel", "LAUNCHES_HAP",
-                  f"{HARNESS}:860", _with_haps, score_hap, hap_best_offsets),
+                     score_onesum, onesum_best_offsets, HIGHEST_SOURCE,
+                     "onesum"),
+    "hap": Kernel("score_hap",
+                  "score_best_offsets_tc_kernel<kStandard, kHapOut>",
+                  "LAUNCHES_HAP", f"{HARNESS}:860", _with_haps, score_hap,
+                  hap_best_offsets, TC_SOURCE, "hap"),
+    "onesum_simt": Kernel("score_onesum_simt", "score_onesum_kernel",
+                          "LAUNCHES_ONESUM_SIMT", f"{HARNESS}:241",
+                          _standard, score_onesum_simt,
+                          onesum_best_offsets, function="onesum",
+                          before_of="score_onesum"),
+    "hap_simt": Kernel("score_hap_simt", "score_hap_kernel",
+                       "LAUNCHES_HAP_SIMT", f"{HARNESS}:860", _with_haps,
+                       score_hap_simt, hap_best_offsets, function="hap",
+                       before_of="score_hap"),
     "int8": Kernel("score_int8_mma", "score_int8_mma_kernel",
                    "LAUNCHES_INT8", f"{HARNESS}:109", _standard, score_int8,
-                   int8_best_offsets),
+                   int8_best_offsets, function="int8"),
     "noA": _ablation("noA", "kNoA", 310),
     "noW": _ablation("noW", "kNoW", 333),
     "nomax": _ablation("nomax", "kNoMax", 360),
@@ -633,8 +733,11 @@ KERNELS = {
     "simt": Kernel("score_best_offsets_simt",
                    "score_best_offsets_kernel<false>", "LAUNCHES_SIMT",
                    K1_TPU, _standard, score_simt, exact_best_offsets,
-                   "strelka_tpu_torch/csrc/score_best_offsets.cu"),
+                   "strelka_tpu_torch/csrc/score_best_offsets.cu", "k1",
+                   "score_best_offsets"),
 }
+# the KERNELS entries that take HAP_WINDOWS windows
+HAP_KINDS = tuple(k for k, v in KERNELS.items() if v.function == "hap")
 
 
 # --- the A/B runner (exp_exact_kernel.py main :745-847, main_hap2 :917-967)

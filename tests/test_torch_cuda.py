@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
 tensor-core kernel, and K1-h on the bf16 tensor cores with K1-h-s, its
-SIMT before-number; the K1-x variants, KX-P on K1's pipeline among them,
-and K1-s) against their plain versions, the SNV tiles and the somatic SNV model on the card
+SIMT before-number; the K1-x variants, KX-P and KX-H on K1's pipeline
+and KX-K on K1-h's among them, their SIMT before-numbers, and K1-s)
+against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, and a cold --jobs 2 germline run on the card
 against a single-process one.
@@ -452,7 +453,7 @@ def test_somatic_cli_cuda_matches_cpu(cuda, tmp_path):
 
 # --- the K1-x kernels (ops/score_variants.py) -------------------------------
 
-KX_KINDS = tuple(sv.KERNELS)   # the nine K1-x kernels and K1-s
+KX_KINDS = tuple(sv.KERNELS)   # the K1-x kernels, their SIMT ones, K1-s
 
 
 @pytest.mark.parametrize("kind", KX_KINDS)
@@ -462,7 +463,7 @@ def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
     version bit for bit, with pair 0's reads all code 4 under non-zero
     deltas (K1's functions then score exactly lnmis there)."""
     k = sv.KERNELS[kind]
-    Wt = 2 * W if kind == "hap" else W
+    Wt = 2 * W if kind in sv.HAP_KINDS else W
     arrs = k1_inputs(np.random.default_rng(B + R + L + W), B, R, L, Wt)
     arrs[0][0] = 4                      # pair 0: all code 4 under deltas
     t = [torch.from_numpy(a).to(cuda) for a in arrs]
@@ -507,6 +508,145 @@ def test_kxp_tensor_cores_bit_identical_to_plain(cuda, fold, B, R, L, W):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(sv.unpack_best_offsets(got)[0],
                        sk_exact(c, d, m, w)[0])
+
+
+def onesum_counts():
+    return sv.LAUNCHES_ONESUM, sv.LAUNCHES_ONESUM_SIMT
+
+
+def hap_counts():
+    return sv.LAUNCHES_HAP, sv.LAUNCHES_HAP_SIMT
+
+
+@pytest.mark.parametrize("B,R,L,W", [(512, 128, 128, 128), (256, 128, 160, 256),
+                                     (3, 40, 100, 70), (2, 33, 99, 129),
+                                     (2, 7, 256, 70), (4, 64, 32, 64)])
+def test_kxk_tensor_cores_bit_identical_to_plain(cuda, B, R, L, W):
+    """KX-K on K1-h's bf16 pipeline equals onesum_best_offsets and K1's
+    function bit for bit, negative and unquantized deltas and code 4
+    under non-zero deltas included; it counts its own launches, the
+    SIMT one none."""
+    rng = np.random.default_rng(B + R + L + W)
+    arrs = k1_inputs(rng, B, R, L, W)
+    arrs[1][0] = -arrs[1][0]                        # negative deltas
+    arrs[1][-1] = rng.uniform(-20, 20, arrs[1][-1].shape)   # unquantized
+    c, d, m, w = t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = onesum_counts()
+    got = sv.score_onesum(*t)
+    assert onesum_counts() == (before[0] + 1, before[1])
+    want = sv.onesum_best_offsets(*t)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(got, sk_exact(*t)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_kxk_largest_sum_at_L256(cuda):
+    """L = 256 with every base of every read matching at the even
+    offsets and v = d_int & 0xFFFF = 0xFFFF (delta 65535 * 2^-11, and
+    -2^-11 in odd pairs): S = 16,776,960 < 2^24 through the tensor
+    cores' f32 accumulation, exactly."""
+    B, R, L, W = 4, 64, 256, 128
+    rng = np.random.default_rng(256)
+    codes = np.zeros((B, R, L), np.int8)
+    delta = np.where(np.arange(B)[:, None, None] % 2 == 0,
+                     np.float32(65535 / 2048), np.float32(-1 / 2048))
+    delta = np.broadcast_to(delta, (B, R, L)).astype(np.float32)
+    lnmis = rng.normal(-100, 10, (B, R)).astype(np.float32)
+    win = np.zeros((B, L, W), np.int8)
+    win[:, :, 1::2] = rng.integers(1, 5, (B, L, W // 2))
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    best, off = sv.score_onesum(*t)
+    want = sv.onesum_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(best.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(off, want[1])
+    assert bool((off == 0).all())
+    S = torch.tensor(65535 * L * 2.0 ** -11, dtype=torch.float32)
+    assert torch.equal(best.cpu(), S + t[2].cpu())
+
+
+@pytest.mark.parametrize("H,B,R,L,W", [
+    (2, 256, 128, 128, 128), (2, 128, 128, 160, 256),   # the harness's
+    (1, 64, 128, 160, 256), (3, 3, 40, 100, 70), (2, 4, 33, 99, 96),
+    (3, 4, 64, 160, 160), (1, 2, 7, 1816, 64), (2, 2, 200, 1000, 96)])
+def test_kxh_tensor_cores_bit_identical_to_plain(cuda, H, B, R, L, W):
+    """KX-H on K1's u8 pipeline, B loci against H windows of W, equals
+    hap_best_offsets (K1's function on each window's slice) bit for bit,
+    ragged L and W, windows that are not 16-byte aligned and reads too
+    long for A to stay resident included; it counts its own launches,
+    the SIMT one none."""
+    arrs = k1_inputs(np.random.default_rng(B + R + L + W + H), B, R, L, H * W)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = hap_counts()
+    got = sv.score_hap(*t, H)
+    assert hap_counts() == (before[0] + 1, before[1])
+    want = sv.hap_best_offsets(*t, H)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, R, H) and got[1].dtype == torch.int32
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("H", [2, 3])
+@pytest.mark.parametrize("W", [96, 128, 160])
+def test_kxh_ties_at_window_boundaries(cuda, H, W):
+    """Every read of a pair carries one sequence, found exactly at the
+    last offset of window h and the first of window h+1 (and at window
+    0's first N-tile boundary in odd pairs): each window keeps its own
+    first max."""
+    rng = np.random.default_rng(W + H)
+    B, R, L = 4, 40, 128
+    codes, delta, lnmis, win = k1_inputs(rng, B, R, L, H * W)
+    win[win == 4] = 0
+    for b in range(B):
+        read = rng.integers(0, 4, L)
+        codes[b] = read
+        cols = [c for h in range(1, H) for c in (h * W - 1, h * W)]
+        if b % 2 and W > 64:
+            cols += [63, 64]
+        for w in cols:
+            win[b, :, w] = read
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    best, off = sv.score_hap(*t, H)
+    want = sv.hap_best_offsets(*t, H)
+    torch.cuda.synchronize()
+    assert torch.equal(best.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(off, want[1])
+    first = torch.tensor([63 if b % 2 and W > 64 else W - 1
+                          for b in range(B)], device=cuda, dtype=torch.int32)
+    assert torch.equal(off[..., 0], first[:, None].expand(B, R))
+    assert bool((off[..., 1:] == 0).all())
+
+
+def test_kxk_kxh_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    c, d, m, w = (torch.from_numpy(a).to(cuda)
+                  for a in k1_inputs(np.random.default_rng(2), 2, 32, 64, 128))
+    assert (sv._highest_lib().score_onesum_tc_max_len()
+            == sv._lib().score_onesum_max_len() == sv.ONESUM_MAX_LEN)
+    before = onesum_counts() + hap_counts()
+    long = [torch.zeros(s, dtype=dt, device=cuda) for s, dt in (
+        ((1, 2, 257), torch.int8), ((1, 2, 257), torch.float32),
+        ((1, 2), torch.float32), ((1, 257, 8), torch.int8))]
+    for fn in (sv.score_onesum, sv.score_onesum_simt):
+        with pytest.raises(ValueError, match="L <= 256"):
+            fn(*long)
+    for fn in (sv.score_hap, sv.score_hap_simt):
+        with pytest.raises(ValueError, match="multiple of n_haps"):
+            fn(c, d, m, w[..., :127].contiguous(), 2)
+        with pytest.raises(ValueError, match="multiple of n_haps"):
+            fn(c, d, m, w, 0)
+    for fn in (sv.score_onesum, lambda *a: sv.score_hap(*a, 2)):
+        with pytest.raises(ValueError):
+            fn(c, d.double(), m, w)
+        with pytest.raises(ValueError):
+            fn(c.to(torch.int32), d, m, w)
+        with pytest.raises(ValueError):  # not contiguous
+            fn(c, d, m, w.transpose(1, 2).contiguous().transpose(1, 2))
+        with pytest.raises(ValueError):  # not contiguous
+            fn(c[:, :, ::2], d[:, :, ::2], m, w[:, ::2])
+    assert onesum_counts() + hap_counts() == before
 
 
 def sk_exact(*t):
@@ -557,6 +697,7 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     names = ["base", "fused", "fusedin", "fusedlm", "limb2k", "hap2",
              "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
     before = packed_counts()
+    before_kh = onesum_counts() + hap_counts()
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(names)
@@ -567,3 +708,10 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     after = packed_counts()
     assert after[0] > before[0] and after[1] > before[1]
     assert after[2:] == before[2:]
+    # limb2k reaches KX-K on K1-h's pipeline and hap2 KX-H on K1's
+    after_kh = onesum_counts() + hap_counts()
+    assert after_kh[0] > before_kh[0] and after_kh[2] > before_kh[2]
+    assert (after_kh[1], after_kh[3]) == (before_kh[1], before_kh[3])
+    assert "kernel=score_highest_tc_kernel<kOneSum>" in lines[4]
+    assert ("kernel=score_best_offsets_tc_kernel<kStandard, kHapOut>"
+            in lines[5])

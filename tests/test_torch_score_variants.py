@@ -306,7 +306,7 @@ def test_wrappers_on_cpu_launch_nothing():
     and counts no launch."""
     inp = t(*harness_inputs(np.random.default_rng(6), 32, W=2 * W))
     counters = [k.counter for k in sv.KERNELS.values()]
-    assert len(set(counters)) == len(sv.KERNELS) == 12
+    assert len(set(counters)) == len(sv.KERNELS) == 14
     before = [getattr(sv, c) for c in counters] + [sk.LAUNCHES]
     for k in sv.KERNELS.values():
         best, off = k.call(*k.prepare(inp, G))
@@ -327,7 +327,10 @@ def test_runner_on_cpu(capsys):
     assert all("body_exact=True" in l for l in lines)
     assert all(" exact=True" in l for l in lines[:3])
     assert all(" exact=False" in l for l in lines[3:])
-    assert "kernel=score_best_offsets_tc_kernel<kPackedFold, true>" in lines[0]
+    assert ("kernel=score_best_offsets_tc_kernel<kPackedFold, kPairOut>"
+            in lines[0])
+    assert "kernel=score_highest_tc_kernel<kOneSum>" in lines[1]
+    assert "kernel=score_best_offsets_tc_kernel<kStandard, kHapOut>" in lines[2]
     assert "kernel=score_ablation_kernel<kNoW>" in lines[4]
 
 
