@@ -27,18 +27,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    harness at its shapes, with the launch counters set to 0 just before
    and read just after (every variant equal to its body's function,
    every K1-x kernel and K1 launched, the SIMT before-numbers K1-s,
-   KX-P-s, KX-K-s and KX-H-s no time); its times are the kernels' times
-   at the harness's shape. Then each kernel of ops/score_variants.KERNELS
-   (KX-P and KX-H on K1's u8 tensor-core pipeline, KX-K on K1-h's bf16
-   one, their SIMT before-numbers, KX-I, the four ablations KX-A, and
-   K1-s) against its plain version bit for bit at the harness's shape
-   and the main path's, with tie, ragged and code-4 cases (KX-H also
-   ties at its window boundaries and windows of 96 and 160 offsets;
-   KX-K also its largest sum, L = 256 with every v = 0xFFFF); its plain
-   version and library route timed at both shapes, the kernel and K1 at
-   the main path's (the before-numbers, which no variant name runs, at
-   both); KX-K's row also carries its design's own floor, two bf16
-   passes of the one-hot product;
+   KX-P-s, KX-K-s, KX-H-s and the noA and nodot KX-A-s no time); its
+   times are the kernels' times at the harness's shape. Then each
+   kernel of ops/score_variants.KERNELS (KX-P, KX-H and the ablations
+   noA and nodot on K1's u8 tensor-core pipeline, KX-K on K1-h's bf16
+   one, their SIMT before-numbers, KX-I, the ablations noW and nomax,
+   and K1-s) against its plain version bit for bit at the harness's
+   shape and the main path's, with tie, ragged and code-4 cases (KX-H
+   also ties at its window boundaries and windows of 96 and 160
+   offsets; KX-K also its largest sum, L = 256 with every v = 0xFFFF;
+   noA and nodot also L = 224, where K1's pipeline keeps A in its ring,
+   nodot at R = 4L and W = 4L and ties across N tiles, noA at L =
+   1000); its plain version and library route timed at both shapes,
+   the kernel and K1 at the main path's (the before-numbers, which no
+   variant name runs, at both); KX-K's row also carries its design's
+   own floor, two bf16 passes of the one-hot product;
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -90,9 +93,9 @@ its device_ms is the replay of 20 calls captured in one CUDA graph
 library_ms is the yardstick of a kernel's function in PyTorch calls:
 one f32 torch.bmm of the one-hot or limb slabs (TF32 off, operands built
 before the timer), the elementwise combine and torch.max over offsets
-(library_route), checked against the plain version (library_equal). No
-path of the port calls it. The four ablations compute their Pallas
-bodies' functions, wrong by design: no library call computes them.
+(library_route; nodot, which has no product, adds its two slab slices),
+checked against the plain version bit for bit (library_equal). No path
+of the port calls it.
 
 --rehearse runs the same control flow on the CPU at a small size (the
 kernel checks then hold the plain version against itself) and prints
@@ -303,50 +306,89 @@ def kx_bound_ms(kind, B, R, L, W, H=1, G=1) -> tuple[float, str]:
     return bound_ms(nbytes, ops, peak)
 
 
-# the library route of a kernel's function is library_route's kind
-# sv.KERNELS[...].function; the four ablations (noA, noW, nomax, nodot)
-# compute their Pallas bodies' functions, wrong by design, which no
-# library call computes
-NO_LIBRARY = "none: computes its Pallas body's function, wrong by design"
-
-
-def library_route(torch, kind, codes, delta, lnmis, win, H=1):
+def library_route(torch, kind, codes, delta, lnmis, win, H=1, G=1):
     """The library yardstick of a kernel's function on its standard
     operands: the operands built here, before any timer, and the call
     to time, which returns (best, off): one f32 torch.bmm of the one-hot
     or limb slabs (TF32 off), the elementwise combine and torch.max over
-    the offsets. kind: "k1" (K1's function, limb slabs stacked along M:
-    K1, K1-s, KX-P), "onesum" (one slab of limb_1*256 + limb_0: KX-K),
-    "int8" (K1's on limbs clamped to 127: KX-I), "hap" (K1's against H
-    windows in one bmm: KX-H) or "highest" (deltas times the one-hot:
-    K1-h). No path of the port calls these routes."""
+    the offsets. kind (sv.KERNELS[...].function): "k1" (K1's function,
+    limb slabs stacked along M: K1, K1-s, KX-P), "onesum" (one slab of
+    limb_1*256 + limb_0: KX-K), "int8" (K1's on limbs clamped to 127:
+    KX-I), "hap" (K1's against H windows in one bmm: KX-H), "highest"
+    (deltas times the one-hot: K1-h), or an ablation of KX-A: "noA"
+    (the limbs [B,2R,L] against the window's [0 <= win < 4], a product
+    over L), "noW" (K1's limb slabs of a group of G pairs stacked along
+    M against the one-hot of the group's first window; where G does not
+    divide B, K1's route on the gathered windows), "nomax" (K1's route
+    with torch.amax, offsets 0) or "nodot" (no product: the slab slices
+    A[:, :R, :W] and Wo[:, :R, :W] added). No path of the port calls
+    these routes."""
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on: the library yardstick would not be f32")
     B, R, L = codes.shape
     W = win.shape[2] // H
+    ls = lnmis[..., None]
+    d = (delta * 2048.0).to(torch.int32)
+
+    def combine(p):   # limb sums [B,2R,W'] -> s [B,R,W']
+        return (p[:, :R] * 256.0 + p[:, R:]) * (1.0 / 2048.0) + ls
+    if kind == "noA":
+        a = torch.cat([(d >> 8) & 255, d & 255], dim=1).float()  # [B,2R,L]
+        valid = ((win >= 0) & (win < 4)).float()                 # [B,L,W]
+
+        def call():
+            return torch.max(combine(torch.bmm(a, valid)), dim=-1)
+        return call
     c = codes.long()
+    if kind == "nodot":
+        hi = (d >> 8) & 255
+        a = torch.cat([torch.where(c == k, hi, 0) for k in range(4)],
+                      dim=2)[:, :, :W].float().contiguous()      # [B,R,W]
+        wo = torch.cat([win.long() == k for k in range(4)],
+                       dim=1)[:, :R].float().contiguous()        # [B,R,W]
+
+        def call():
+            return torch.max((a + wo) * (1.0 / 2048.0) + ls, dim=-1)
+        return call
     oh_r = torch.stack([c == k for k in range(4)], dim=-1)     # [B,R,L,4]
     oh_w = torch.stack([win.long() == k for k in range(4)], dim=2)
     oh_w = oh_w.float().reshape(B, 4 * L, H * W)               # k = 4l + c
-    ls = lnmis[..., None]
     if kind == "highest":
         a = (oh_r.float() * delta[..., None]).reshape(B, R, 4 * L)
 
         def call():
             return torch.max(torch.bmm(a, oh_w) + ls, dim=-1)
         return call
-    d = (delta * 2048.0).to(torch.int32)
     limbs = ([d & 0xFFFF] if kind == "onesum"
              else [(d >> 8) & 255, d & 255])
     if kind == "int8":
         limbs = [x.clamp(max=127) for x in limbs]
     a = torch.cat([(oh_r * x[..., None]).reshape(B, R, 4 * L)
                    for x in limbs], dim=1).float()             # [B,nR,4L]
+    if kind == "onesum":
+        def call():
+            return torch.max(torch.bmm(a, oh_w) * (1.0 / 2048.0) + ls,
+                             dim=-1)
+        return call
+    if kind == "noW" and B % G == 0:
+        ag = a.reshape(B // G, G * 2 * R, 4 * L)
+        firsts = oh_w[::G].contiguous()                        # [B/G,4L,W]
+
+        def call():
+            p = torch.bmm(ag, firsts).view(B, 2 * R, W)
+            return torch.max(combine(p), dim=-1)
+        return call
+    if kind == "noW":
+        oh_w = oh_w[torch.arange(B, device=codes.device) // G * G]
+    if kind == "nomax":
+        zeros = torch.zeros((B, R), dtype=torch.int64, device=codes.device)
+
+        def call():
+            return torch.amax(combine(torch.bmm(a, oh_w)), dim=-1), zeros
+        return call
 
     def call():
-        p = torch.bmm(a, oh_w)
-        s = p[:, :R] * 256.0 + p[:, R:] if len(limbs) == 2 else p
-        s = s * (1.0 / 2048.0) + ls
+        s = combine(torch.bmm(a, oh_w))
         return torch.max(s.view(B, R, H, W) if H > 1 else s, dim=-1)
     return call
 
@@ -457,6 +499,28 @@ def hap_window_ties(np, rng, B, R, L, W):
     return codes, dl[q], lnmis, win
 
 
+def nodot_tile_ties(np, rng, B, R, L, W):
+    """nodot's ties across N tiles: deltas below 2^-3 (limb 1 = 0, so
+    its A slab is 0) and windows of codes 1..4 but for code 0 at two
+    offsets of window row r, for each read r, so that read r's row of
+    the Wo slab (code r div L = 0) is 1 there alone: on both sides of,
+    left of, right of and a tile across a boundary of K1's N tiles, the
+    reads taking the placements in turn. The first of the two wins.
+    Needs R <= L and W > 64."""
+    from strelka_tpu_torch.ops.score_kernel import TC_N_TILE as n_tile
+    cols = [(t + a, t + b) for t in range(n_tile, W, n_tile)
+            for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, n_tile))
+            if t + b < W]
+    codes = rng.integers(0, 5, (B, R, L)).astype(np.int8)
+    delta = (rng.integers(0, 256, (B, R, L)) / 2048).astype(np.float32)
+    lnmis = rng.normal(-100, 10, (B, R)).astype(np.float32)
+    win = rng.integers(1, 5, (B, L, W)).astype(np.int8)
+    for r in range(R):
+        for w in cols[r % len(cols)]:
+            win[:, r, w] = 0
+    return codes, delta, lnmis, win
+
+
 def k1_code4(np, rng, B, R, L, W):
     """Random inputs with pair 0's reads all code 4 under non-zero
     deltas and its window code 4 at the first 7 offsets: pair 0 scores
@@ -504,8 +568,8 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     with every counter set to 0 just before and read just after. Fails
     unless every variant equals its body's function and, on the card,
     every K1-x kernel and K1 launched, and the SIMT before-numbers
-    (K1-s, KX-P-s, KX-K-s, KX-H-s) no time. Returns (counters, {name:
-    row})."""
+    (K1-s, KX-P-s, KX-K-s, KX-H-s, noA's and nodot's KX-A-s) no time.
+    Returns (counters, {name: row})."""
     names = [*sv.K1_VARIANTS, "limb2r@8", "fused", "fusedwhole", "fusedin",
              "fusedlm", "limb2k", "hap2", "int8", "limb2-noA", "limb2-noW",
              "limb2-nomax", "limb2-nodot"]
@@ -614,12 +678,8 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
                 if cuda:
                     row["device_ms"] = graph_ms(torch, lambda: k.call(*args))
                 row["plain_ms"] = ms(lambda: k.plain(*args), 5, 1)
-                if k.function:
-                    row.update(library_row(torch, library_route(
-                        torch, k.function, *t, H if hap else 1),
-                        want, ms))
-                else:
-                    row["library_ms"] = None
+                row.update(library_row(torch, library_route(
+                    torch, k.function, *t, H if hap else 1, G), want, ms))
                 row["bound_ms"], row["bound_by"] = kx_bound_ms(
                     bound_kind.get(kind, kind), B, R, L, W, H if hap else 1,
                     G)
@@ -1692,13 +1752,22 @@ def main(argv=None) -> int:
                ("ragged", (3, 40, 100, 70), k1_random),
                ("code4", (4, 32, 64, 64), k1_code4)]
     # each (kinds, cases): KX-H's window boundaries and widths (W of one
-    # window), KX-K's largest sums
+    # window), KX-K's largest sums; noA and nodot at L = 224 (A in K1's
+    # ring at R = 128), nodot's whole slabs (R = W = 4L) and ties across
+    # N tiles, noA beyond the SIMT kernel's L
     kx_kind_edge = [
         (sv.HAP_KINDS, [("window_ties", (8, 40, 128, 96), hap_window_ties),
                         ("window_ties", (8, 128, 160, 160), hap_window_ties),
                         ("ragged", (4, 33, 99, 160), k1_random)]),
         (("onesum", "onesum_simt"), [("max_sum", (4, 64, 256, 128),
-                                      onesum_max)])]
+                                      onesum_max)]),
+        (("noA", "noA_simt", "nodot", "nodot_simt"),
+         [("ring", (8, 128, 224, 256), k1_random)]),
+        (("nodot", "nodot_simt"),
+         [("whole_slabs", (4, 128, 32, 128), k1_random),
+          ("whole_slabs", (2, 256, 64, 256), k1_random),
+          ("tile_ties", (4, 128, 128, 192), nodot_tile_ties)]),
+        (("noA",), [("long", (2, 64, 1000, 128), k1_random)])]
     kx_rows = phase_kx(np, torch, dev, cuda, kx_shapes, kx_hap, kx_edge,
                        kx_kind_edge, runner_rows)
     log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
@@ -1872,10 +1941,7 @@ def main(argv=None) -> int:
             "bound_share": top["bound_share"],
             "device_bound_share": top.get("device_bound_share"),
         }
-        if k.function:
-            row["library_equal"] = top["library_equal"]
-        else:
-            row["library"] = NO_LIBRARY
+        row["library_equal"] = top["library_equal"]
         if "prev_ms" in top:
             row["prev_ms"] = top["prev_ms"]
             row["prev_device_ms"] = top.get("prev_device_ms")

@@ -32,9 +32,26 @@
 // At a window's last tile the first max is merged over the 4 lanes of a
 // read, stored and reset.
 //
-// Only the reads' expansion into A words, lnmis, the window's columns and
-// the output store differ (template parameters); K1's instantiation is the
-// code it was.
+// Two timing ablations of the K1-x harness run on it too (KX-A), each
+// computing its Pallas body's result and timed beside K1:
+// - noA (source kUnmasked) replaces _kernel_limb2_noA :310: the limbs count
+//   against every window code 0..3 whatever the read's code, S_j[w] =
+//   sum_l limb_j * [win[l,w] in 0..3]. Its A words hold the limb in all
+//   four code bytes (limb * 0x01010101) and read no codes; since sum_c
+//   limb * [win == c] = limb * [win < 4], the u8 product is that sum,
+//   exactly. K1 minus the code load and the mask: its time beside K1's is
+//   what masking costs.
+// - nodot (product kSlabSlice) replaces _kernel_limb2_nodot :386, "full
+//   slab build, dot replaced by a slab row-slice": s[r,w] = (A[r,w] +
+//   Wo[r,w]) * 2^-11 + lnmis[r] for R, W <= 4L, with A[r, c*L + l] the
+//   limb-1 slab (limb_1 where code[r,l] == c) and Wo[c*L + l, w] =
+//   [win[l,w] == c]. The whole slab build stays (A words, the window ring,
+//   each step's Bw); the wgmma is replaced by reads of the slabs it built
+//   (slab_slice): K1's pipeline without the tensor cores.
+//
+// Only the reads' expansion into A words, lnmis, the window's columns, the
+// product and the output store differ (template parameters); K1's
+// instantiation is the code it was.
 //
 // As a product: S_j = A_j . Bw over a contraction axis k = 4l + c of 4L
 // bytes, with A_j[r, 4l+c] = limb_j(d_int[r,l]) * [code[r,l] == c] (u8,
@@ -45,7 +62,11 @@
 // the main path's 256,128,160,256 at 3.35 TB/s, against 2*B*R*L*W = 2.7 G
 // compare-adds (the one-hot product does 16*B*R*L*W = 21.5 G u8 operations,
 // ~11 us at 1,979 TOP/s). KX-P moves 4 bytes a base instead of 5; KX-H
-// B*(5*R*L + 4*R + L*H*W + 8*R*H) for H times the compare-adds.
+// B*(5*R*L + 4*R + L*H*W + 8*R*H) for H times the compare-adds; noA 4
+// bytes a base (no codes). nodot's function needs only the bases and
+// window rows its slices touch, B*(5*R*min(L,W) + min(R,L)*W + 12*R)
+// bytes, and 2 f32 operations a score; its time is that of the slab build
+// it keeps, as the ablation asks.
 //
 // Design:
 // - wgmma.mma_async m64n64k32 .s32.u8.u8, both operands K-major in shared
@@ -75,6 +96,10 @@ namespace {
 // Output forms: best [B,R] and off [B,R] apart (K1), interleaved [B,R,2]
 // (KX-P), best and off [B,R,H] against H windows (KX-H)
 enum Output { kBestOff, kPairOut, kHapOut };
+
+// What a step does with its operands: the u8 wgmma (K1), or nodot's reads
+// of the slabs' terms (slab_slice)
+enum Product { kProduct, kSlabSlice };
 
 constexpr int kReadsPerWg = 32;                 // m64 = 32 reads x 2 limbs
 constexpr int kMaxWg = 4;
@@ -121,6 +146,15 @@ __device__ __forceinline__ void a_words(int c, float d, unsigned& w1,
     a_words_int(c, (int)__fmul_rn(d, 2048.0f), w1, w0);
 }
 
+// noA's A words of one base: its limbs in all four code bytes, whatever
+// the read's code
+__device__ __forceinline__ void a_words_unmasked(float d, unsigned& w1,
+                                                 unsigned& w0) {
+    const int di = (int)__fmul_rn(d, 2048.0f);
+    w1 = ((unsigned)(di >> 8) & 255u) * 0x01010101u;
+    w0 = ((unsigned)di & 255u) * 0x01010101u;
+}
+
 // A words of base quads q0 .. q0+nq-1 of the CTA's reads into `dst`: the 8
 // row groups of warpgroup q's A at dst + (8q + group) * sbo, group 2i (limb
 // 1) and 2i+1 (limb 0) for its reads 8i..8i+7, quad q0+kq at kq * kCore.
@@ -162,6 +196,22 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
                 a_words(c[1], d[1], v1.y, v0.y);
                 a_words(c[2], d[2], v1.z, v0.z);
                 a_words(c[3], d[3], v1.w, v0.w);
+            } else if constexpr (kSrc == kUnmasked) {   // no codes read
+                const size_t o = ((size_t)b * a.R + r) * a.L + l;
+                float d[4];
+                if (a.read_vec) {
+                    const float4 dv =
+                        *reinterpret_cast<const float4*>(a.delta + o);
+                    d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
+                } else {   // bases past L: limbs 0, zero words
+#pragma unroll
+                    for (int k = 0; k < 4; ++k)
+                        d[k] = l + k < a.L ? a.delta[o + k] : 0.0f;
+                }
+                a_words_unmasked(d[0], v1.x, v0.x);
+                a_words_unmasked(d[1], v1.y, v0.y);
+                a_words_unmasked(d[2], v1.z, v0.z);
+                a_words_unmasked(d[3], v1.w, v0.w);
             } else {   // packed: code p & 7, d_int p >> 3
                 const size_t o = ((size_t)b * a.Rp + r) * a.L + l;
                 int p[4];
@@ -222,6 +272,66 @@ __device__ void expand_w(const Args& a, int it, const unsigned char* raw,
     }
 }
 
+// nodot's keys of N tile nt, made at its first step: the thread holds
+// read r at the offsets w = w0 + 8j + 2*t4 + e of the tile (K1's
+// accumulator layout); the 16-bit key of offset w places the term A[r,w]
+// = A[r, c*L + l] (l = w mod L, c = w div L: byte c of read r's limb-1 A
+// word at base l) as (the K chunk of base l << 10) | (its byte in that
+// chunk's A row, K-major, k = 4l + c), kNoKey past W. key[j] holds e = 0
+// in its low half, e = 1 in its high half (8 registers, not 16).
+constexpr int kNoKey = 0xFFFF;   // chunk 63: L <= kMaxLen has 57 chunks
+
+__device__ __forceinline__ void slab_keys(const Args& a, int w0, int t4,
+                                          unsigned (&key)[8]) {
+#pragma unroll
+    for (int j = 0; j < kNTile / 8; ++j) {
+        key[j] = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int w = w0 + 8 * j + 2 * t4 + e;
+            const int c = (w >= a.L) + (w >= 2 * a.L) + (w >= 3 * a.L);
+            const int l = w - c * a.L;   // W <= 4L: c in 0..3
+            const int byte = ((l % kChunkBases) >> 2) * kCore +
+                             4 * (l & 3) + c;   // < 1024
+            const unsigned k =
+                w < a.W ? (unsigned)((l / kChunkBases) << 10 | byte) : kNoKey;
+            key[j] |= k << (16 * e);
+        }
+    }
+}
+
+// nodot's step (nt, kc) in the wgmma's place: the thread adds each term
+// of s[r,w] = A[r,w] + Wo[r,w] whose base lies in chunk kc. A[r,w] is a
+// byte of `a_rows` (read r's row of chunk kc's A words) where the key of w
+// names chunk kc; Wo[c*L + l, w] (l = r mod L = rl, c = r div L = rc) is
+// the byte at k = 4l + c of offset w in the step's Bw tile where base l
+// lies in chunk kc. A base lies in one chunk, so each term is added once
+// over the tile's steps, from the resident A or the ring alike. The sum
+// (<= 256) goes to the weight-1 accumulators acc[4j+2+e]; the limb-1 ones
+// acc[4j+e] stay 0, so K1's epilogue is the function's.
+__device__ __forceinline__ void slab_slice(int kc, const unsigned (&key)[8],
+                                           const unsigned char* a_rows,
+                                           const unsigned char* b_op,
+                                           bool r_in, int rl, int rc, int t4,
+                                           int (&acc)[32]) {
+    const int lr = rl - kc * kChunkBases;   // read r's base in the chunk
+    const bool r_here = r_in && (unsigned)lr < (unsigned)kChunkBases;
+    // offset 2*t4 + e of 8-offset group j at j*8*kCore + 16*(2*t4 + e);
+    // past W the Bw bytes are 0
+    const unsigned char* wo = b_op + (lr >> 2) * kCore + 4 * (lr & 3) + rc +
+                              32 * t4;
+#pragma unroll
+    for (int j = 0; j < kNTile / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const unsigned k = (key[j] >> (16 * e)) & 0xFFFFu;
+            int add = (int)(k >> 10) == kc ? a_rows[k & 1023u] : 0;
+            if (r_here) add += wo[j * (8 * kCore) + 16 * e];
+            acc[4 * j + 2 + e] = (kc == 0 ? 0 : acc[4 * j + 2 + e]) + add;
+        }
+    }
+}
+
 // the first max over the 4 lanes that share a read
 __device__ __forceinline__ void merge_lanes(float& run_s, int& run_w) {
 #pragma unroll
@@ -235,7 +345,7 @@ __device__ __forceinline__ void merge_lanes(float& run_s, int& run_w) {
     }
 }
 
-template <int kSrc, int kOut>
+template <int kSrc, int kOut, int kProd = kProduct>
 __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     score_best_offsets_tc_kernel(const Args a) {
     constexpr bool kHap = kOut == kHapOut;
@@ -269,32 +379,43 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     const int lane = tid & 31;
     const int g = lane >> 2;
     const int t4 = lane & 3;
-    const long long r = r0 + wg * kReadsPerWg + ((tid >> 5) & 3) * 8 + g;
+    const int q = (tid >> 5) & 3;   // the warp in its warpgroup
+    const long long r = r0 + wg * kReadsPerWg + q * 8 + g;
     const float ls = r < a.R ? read_lnmis<kSrc>(a, b, r) : 0.0f;
+    // nodot: read r's row of the Wo slab, r = rc*L + rl (r < R <= 4L)
+    const int rc = (r >= a.L) + (r >= 2 * a.L) + (r >= 3 * a.L);
+    const int rl = (int)(r - (long long)rc * a.L);
     float run_s = -INFINITY;
     int run_w = INT_MAX;
     int acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0;
+    unsigned key[8];   // nodot's keys of the tile (slab_keys)
 
     for (int it = 0; it < total; ++it) {
         const int nt = it / a.nK;
         const int kc = it - nt * a.nK;
         const int slot = it % kStages;
-        // the tensor cores on step it (asynchronous)
         const unsigned char* a_op =
             (a.resident ? as + (size_t)kc * (kChunkK / 16) * kCore
                         : as + slot * a_slot) +
             (size_t)wg * 8 * sbo_a;
         const unsigned char* b_op = bw + slot * kOpBytes;
-        fence_acc(acc);
-        wgmma_fence();
+        if constexpr (kProd == kProduct) {
+            // the tensor cores on step it (asynchronous)
+            fence_acc(acc);
+            wgmma_fence();
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s)
-            wgmma_u8(acc, desc(a_op + 2 * s * kCore, kCore, sbo_a),
-                     desc(b_op + 2 * s * kCore, kCore, 8 * kChunkK),
-                     kc > 0 || s > 0);
-        wgmma_commit();
+            for (int s = 0; s < kSteps; ++s)
+                wgmma_u8(acc, desc(a_op + 2 * s * kCore, kCore, sbo_a),
+                         desc(b_op + 2 * s * kCore, kCore, 8 * kChunkK),
+                         kc > 0 || s > 0);
+            wgmma_commit();
+        } else {   // nodot: the slabs' terms of step it, read by the threads
+            if (kc == 0) slab_keys(a, tile_w0<kHap>(a, nt), t4, key);
+            slab_slice(kc, key, a_op + (size_t)2 * q * sbo_a + 16 * g, b_op,
+                       r < a.R, rl, rc, t4, acc);
+        }
         // the window two steps ahead
         if (it + 2 < total)
             stage_window<kHap>(a, b, it + 2,
@@ -317,8 +438,10 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
             // the tile's sums: thread holds read r at offsets
             // 8j + 2*t4 + e, limb 1 in acc[4j+e], limb 0 in acc[4j+2+e]
             const int w0 = tile_w0<kHap>(a, nt);
-            wgmma_wait<0>();
-            fence_acc(acc);
+            if constexpr (kProd == kProduct) {
+                wgmma_wait<0>();
+                fence_acc(acc);
+            }
 #pragma unroll
             for (int j = 0; j < kNTile / 8; ++j) {
 #pragma unroll
@@ -344,7 +467,7 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
                 run_s = -INFINITY;
                 run_w = INT_MAX;
             }
-        } else {
+        } else if constexpr (kProd == kProduct) {
             wgmma_wait<1>();   // step it-1 done: its slots are free
         }
         __syncthreads();
@@ -368,7 +491,7 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
 // Launches the instantiation on `a` (operand pointers, R, Rp, L, W set)
 // for B pairs (KX-H: B loci against H windows each); returns
 // cudaGetLastError().
-template <int kSrc, int kOut>
+template <int kSrc, int kOut, int kProd = kProduct>
 int launch(Args a, long long B, void* stream, int H = 1) {
     plan_steps(a, H);
     const long long want = (a.R + kReadsPerWg - 1) / kReadsPerWg;
@@ -381,9 +504,11 @@ int launch(Args a, long long B, void* stream, int H = 1) {
     if constexpr (kSrc == kStandard)
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.codes % 4 == 0 &&
                      (uintptr_t)a.delta % 16 == 0;
+    else if constexpr (kSrc == kUnmasked)
+        a.read_vec = a.L % 4 == 0 && (uintptr_t)a.delta % 16 == 0;
     else
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.packed % 16 == 0;
-    auto kernel = score_best_offsets_tc_kernel<kSrc, kOut>;
+    auto kernel = score_best_offsets_tc_kernel<kSrc, kOut, kProd>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -474,6 +599,36 @@ int score_hap_tc_launch(const void* codes, const void* delta,
     a.L = (int)L;
     a.W = (int)W;
     return launch<kStandard, kHapOut>(a, B, stream, (int)H);
+}
+
+// KX-A on K1's pipeline: `which` 0 is noA (codes not read), 3 is nodot
+// (R <= 4L and W <= 4L), the codes of score_ablation_launch
+// (score_variants.cu). codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R]
+// f32, win [B,L,W] int8; best [B,R] f32 and off [B,R] int32 out. All
+// contiguous on the device. Launches on `stream`, returns
+// cudaGetLastError().
+int score_ablation_tc_launch(const void* codes, const void* delta,
+                             const void* lnmis, const void* win, long long B,
+                             long long R, long long L, long long W, int which,
+                             void* best, void* off, void* stream) {
+    if (!in_range(B, R, L, W) ||
+        (which == 3 && (R > 4 * L || W > 4 * L)))
+        return (int)cudaErrorInvalidValue;
+    Args a = {};
+    a.codes = (const int8_t*)codes;
+    a.delta = (const float*)delta;
+    a.lnmis = (const float*)lnmis;
+    a.win = (const int8_t*)win;
+    a.best = (float*)best;
+    a.off = (int32_t*)off;
+    a.R = a.Rp = (int)R;
+    a.L = (int)L;
+    a.W = (int)W;
+    switch (which) {
+        case 0: return launch<kUnmasked, kBestOff>(a, B, stream);
+        case 3: return launch<kStandard, kBestOff, kSlabSlice>(a, B, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // extern "C"

@@ -44,16 +44,17 @@ from .score_kernel import exact_best_offsets
 SOURCE = os.path.join(_build.CSRC, "score_best_offsets_tc.cu")
 OUT = os.path.join(_build.BUILD_DIR, "tc_probe")
 _CAP = "constexpr int kMaxWg = 4;"
-_MMA = """            wgmma_u8(acc, desc(a_op + 2 * s * kCore, kCore, sbo_a),
-                     desc(b_op + 2 * s * kCore, kCore, 8 * kChunkK),
-                     kc > 0 || s > 0);"""
+_MMA = """                wgmma_u8(acc, desc(a_op + 2 * s * kCore, kCore, sbo_a),
+                         desc(b_op + 2 * s * kCore, kCore, 8 * kChunkK),
+                         kc > 0 || s > 0);"""
 # name -> (exact, [(text of the source, its replacement), ...])
 VARIANTS = {
     "wg2": (True, [(_CAP, "constexpr int kMaxWg = 2;")]),
     "wg1": (True, [(_CAP, "constexpr int kMaxWg = 1;")]),
-    "nofence": (True, [("        fence_acc(acc);\n        wgmma_fence();",
-                        "        wgmma_fence();")]),
-    "nomma": (False, [(_MMA, "            acc[s] += (int)(size_t)a_op + "
+    "nofence": (True, [("            fence_acc(acc);\n"
+                         "            wgmma_fence();",
+                         "            wgmma_fence();")]),
+    "nomma": (False, [(_MMA, "                acc[s] += (int)(size_t)a_op + "
                              "(int)(size_t)b_op;")]),
     "nobw": (False, [("            expand_w<kHap>(a, it + 1, raw + s1 * "
                       "kRawBytes,\n                           bw + s1 * "

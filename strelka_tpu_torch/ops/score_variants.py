@@ -42,9 +42,17 @@ the before-number of the tensor-core K1.
 - KX-A ``score_ablation`` (``limb2-noA``, ``-noW``, ``-nomax``,
   ``-nodot``): the timing ablations of the 2-limb body, each dropping
   the stage its Pallas body drops and computing that body's result,
-  wrong by design: limbs not masked by the read's code; each pair
-  scored against the window of the first pair of its grid step of G;
-  no argmax (offset 0); no product (see ``nodot_best_offsets``).
+  another function than K1's: limbs not masked by the read's code;
+  each pair scored against the window of the first pair of its grid
+  step of G; no argmax (offset 0); no product (see
+  ``nodot_best_offsets``). noA and nodot run on K1's u8 tensor-core
+  pipeline (``score_best_offsets_tc_kernel<kUnmasked, kBestOff>``: A
+  words with the limb in every code byte; ``<kStandard, kBestOff,
+  kSlabSlice>``: K1's slab build with the wgmma replaced by reads of
+  the slabs' terms); their earlier SIMT kernels are kept as their
+  before-numbers, ``score_ablation_simt`` (``KERNELS["noA_simt"]``,
+  ``["nodot_simt"]``), on no path. noW and nomax run the SIMT kernel
+  (csrc/score_variants.cu).
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what
 the kernel does not take) and runs its plain torch version, kept beside
@@ -93,10 +101,14 @@ LAUNCHES_HAP = 0        # KX-H, score_best_offsets_tc_kernel<kStandard,
 LAUNCHES_ONESUM_SIMT = 0    # KX-K-s, score_onesum_kernel
 LAUNCHES_HAP_SIMT = 0   # KX-H-s, score_hap_kernel
 LAUNCHES_INT8 = 0       # KX-I
-LAUNCHES_NOA = 0        # KX-A, score_ablation_kernel<kNoA>
+LAUNCHES_NOA = 0        # KX-A, score_best_offsets_tc_kernel<kUnmasked,
+                        # kBestOff>
 LAUNCHES_NOW = 0        # KX-A, score_ablation_kernel<kNoW>
 LAUNCHES_NOMAX = 0      # KX-A, score_ablation_kernel<kNoMax>
-LAUNCHES_NODOT = 0      # KX-A, score_ablation_kernel<kNoDot>
+LAUNCHES_NODOT = 0      # KX-A, score_best_offsets_tc_kernel<kStandard,
+                        # kBestOff, kSlabSlice>
+LAUNCHES_NOA_SIMT = 0   # KX-A-s, score_ablation_kernel<kNoA>
+LAUNCHES_NODOT_SIMT = 0     # KX-A-s, score_ablation_kernel<kNoDot>
 LAUNCHES_SIMT = 0       # K1-s, score_best_offsets_kernel<false>
 
 SOURCE = "strelka_tpu_torch/csrc/score_variants.cu"
@@ -288,8 +300,8 @@ def _hap_width(win_t, n_haps) -> int:
 # --- wrappers ---------------------------------------------------------------
 
 def _tc_lib():
-    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's and
-    KX-H's launches bound."""
+    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's, KX-H's
+    and KX-A's launches bound."""
     from .. import _build
     lib = _build.load(score_kernel.KERNEL_FUNCTIONS["exact"][0])
     if not getattr(lib, "_packed_bound", False):
@@ -297,7 +309,10 @@ def _tc_lib():
         lib.score_packed_tc_launch.argtypes = [vp, vp, vp] + [ll] * 5 + [
             vp, vp]
         lib.score_hap_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [vp] * 3
+        lib.score_ablation_tc_launch.argtypes = [vp] * 4 + [ll] * 4 + [
+            ctypes.c_int] + [vp] * 3
         for fn in (lib.score_packed_tc_launch, lib.score_hap_tc_launch,
+                   lib.score_ablation_tc_launch,
                    lib.score_best_offsets_tc_max_len):
             fn.restype = ctypes.c_int
         lib._packed_bound = True
@@ -562,13 +577,17 @@ def score_simt(codes, delta, lnmis, win_t):
     return out
 
 
-# ablation: (kernel's `which`, launch counter, plain version)
+# ablation: (the kernels' `which`, plain version); its launch counter is
+# LAUNCHES_<WHICH>, its SIMT before-number's LAUNCHES_<WHICH>_SIMT
 _ABLATIONS = {
-    "noA": (0, "LAUNCHES_NOA", noa_best_offsets),
-    "noW": (1, "LAUNCHES_NOW", now_best_offsets),
-    "nomax": (2, "LAUNCHES_NOMAX", nomax_best_offsets),
-    "nodot": (3, "LAUNCHES_NODOT", nodot_best_offsets),
+    "noA": (0, noa_best_offsets),
+    "noW": (1, now_best_offsets),
+    "nomax": (2, nomax_best_offsets),
+    "nodot": (3, nodot_best_offsets),
 }
+# the ablations on K1's u8 tensor-core pipeline; the others run the SIMT
+# kernel
+TC_ABLATIONS = ("noA", "nodot")
 
 
 def _known_ablation(which):
@@ -577,40 +596,73 @@ def _known_ablation(which):
                          f"{sorted(_ABLATIONS)}")
 
 
+def _counter(which, simt=False):
+    return f"LAUNCHES_{which.upper()}" + ("_SIMT" if simt else "")
+
+
 def ablation_best_offsets(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
     """Plain version of KX-A `which`: its body's (best, off) [B,R]. `G`
     is noW's grid step; the others ignore it."""
     _known_ablation(which)
-    plain = _ABLATIONS[which][2]
+    plain = _ABLATIONS[which][1]
     if which == "noW":
         return plain(codes, delta, lnmis, win_t, G)
     return plain(codes, delta, lnmis, win_t)
 
 
+def _launch_ablation(fn_name, which, codes, delta, lnmis, win_t, G, tc):
+    """Check KX-A's operands on the card and launch `which` on K1's
+    pipeline (`tc`) or the SIMT kernel; returns (best, off) [B,R]."""
+    code = _ABLATIONS[which][0]
+    lib = _tc_lib() if tc else _lib()
+    max_len = (lib.score_best_offsets_tc_max_len() if tc
+               else lib.score_variants_max_len())
+    B, R, L, W = _check_standard(fn_name, codes, delta, lnmis, win_t,
+                                 max_len)
+    if which == "nodot" and (R > N_BASE * L or W > N_BASE * L):
+        raise ValueError(f"{fn_name}: R={R} and W={W} must be at most "
+                         f"4L = {N_BASE * L}")
+    if G < 1:
+        raise ValueError(f"{fn_name}: G must be at least 1, got {G}")
+    best, off = _best_off((B, R), codes.device)
+    ptrs = (codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+            win_t.data_ptr(), B, R, L, W)
+    outs = (best.data_ptr(), off.data_ptr(), _stream(codes.device))
+    _raise_on(fn_name, lib.score_ablation_tc_launch(*ptrs, code, *outs) if tc
+              else lib.score_ablation_launch(*ptrs, G, code, *outs))
+    return best, off
+
+
 def score_ablation(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
     """KX-A: the timing ablation `which` (noA, noW, nomax, nodot) of
     the 2-limb body: (best, off) [B,R], the body's result (see the
-    plain versions). `G` is noW's grid step; the others ignore it.
-    Shapes and dtypes as score_best_offsets."""
+    plain versions); noA and nodot on K1's u8 tensor-core pipeline, noW
+    and nomax on the SIMT kernel. `G` is noW's grid step; the others
+    ignore it. Shapes and dtypes as score_best_offsets."""
     _known_ablation(which)
     if codes.device.type == "cpu":
         return ablation_best_offsets(which, codes, delta, lnmis, win_t, G)
-    code, counter, _ = _ABLATIONS[which]
-    lib = _lib()
-    B, R, L, W = _check_standard(f"score_ablation({which})", codes, delta,
-                                 lnmis, win_t, lib.score_variants_max_len())
-    if which == "nodot" and (R > N_BASE * L or W > N_BASE * L):
-        raise ValueError(f"score_ablation(nodot): R={R} and W={W} must be "
-                         f"at most 4L = {N_BASE * L}")
-    if G < 1:
-        raise ValueError(f"score_ablation: G must be at least 1, got {G}")
-    best, off = _best_off((B, R), codes.device)
-    _raise_on(f"score_ablation({which})", lib.score_ablation_launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, G, code, best.data_ptr(),
-        off.data_ptr(), _stream(codes.device)))
-    globals()[counter] += 1
-    return best, off
+    out = _launch_ablation(f"score_ablation({which})", which, codes, delta,
+                           lnmis, win_t, G, which in TC_ABLATIONS)
+    globals()[_counter(which)] += 1
+    return out
+
+
+def score_ablation_simt(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
+    """KX-A-s: noA's or nodot's result from the earlier SIMT kernel,
+    the before-number of its tensor-core one; on no path. Raises for
+    noW and nomax, whose SIMT kernel is score_ablation's."""
+    _known_ablation(which)
+    if which not in TC_ABLATIONS:
+        raise ValueError(f"score_ablation_simt: {which} has no SIMT "
+                         f"before-number (score_ablation runs its SIMT "
+                         f"kernel); known: {list(TC_ABLATIONS)}")
+    if codes.device.type == "cpu":
+        return ablation_best_offsets(which, codes, delta, lnmis, win_t, G)
+    out = _launch_ablation(f"score_ablation_simt({which})", which, codes,
+                           delta, lnmis, win_t, G, tc=False)
+    globals()[_counter(which, simt=True)] += 1
+    return out
 
 
 # --- the kernels: operands, wrapper and plain version of each ---------------
@@ -629,9 +681,9 @@ class Kernel(NamedTuple):
     plain: Callable
     source: str = SOURCE    # the CUDA source, path in the repository
     # the function it computes, as the smoke's library route names it
-    # ("k1", "onesum", "hap": K1's against HAP_WINDOWS windows, "int8");
-    # None: its Pallas body's, wrong by design
-    function: str | None = None
+    # ("k1", "onesum", "hap": K1's against HAP_WINDOWS windows, "int8",
+    # or an ablation: "noA", "noW" (with G), "nomax", "nodot")
+    function: str = "k1"
     before_of: str = ""     # the label of its redesign, if a before-number
 
 
@@ -667,15 +719,22 @@ def _packed_plain(p, m, w, R):
     return unpack_best_offsets(packed_best_offsets(p, m, w, n_reads=R))
 
 
-def _ablation(which, variant, line):
+def _ablation(which, kernel, line, simt=False):
+    """KX-A `which`'s kernel: on the path, or (`simt`) the SIMT
+    before-number of its tensor-core redesign."""
+    wrapper = score_ablation_simt if simt else score_ablation
+
     def call(c, d, m, w, G):
-        return score_ablation(which, c, d, m, w, G)
+        return wrapper(which, c, d, m, w, G)
 
     def plain(c, d, m, w, G):
         return ablation_best_offsets(which, c, d, m, w, G)
-    return Kernel(f"score_limb2_{which}", f"score_ablation_kernel<{variant}>",
-                  _ABLATIONS[which][1], f"{HARNESS}:{line}", _with_g, call,
-                  plain)
+    label = f"score_limb2_{which}"
+    tc = which in TC_ABLATIONS and not simt
+    return Kernel(label + ("_simt" if simt else ""), kernel,
+                  _counter(which, simt), f"{HARNESS}:{line}", _with_g, call,
+                  plain, TC_SOURCE if tc else SOURCE, which,
+                  label if simt else "")
 
 
 K1_TPU = "strelka_tpu/ops/pallas_readlik.py:76"
@@ -726,10 +785,16 @@ KERNELS = {
     "int8": Kernel("score_int8_mma", "score_int8_mma_kernel",
                    "LAUNCHES_INT8", f"{HARNESS}:109", _standard, score_int8,
                    int8_best_offsets, function="int8"),
-    "noA": _ablation("noA", "kNoA", 310),
-    "noW": _ablation("noW", "kNoW", 333),
-    "nomax": _ablation("nomax", "kNoMax", 360),
-    "nodot": _ablation("nodot", "kNoDot", 386),
+    "noA": _ablation("noA", "score_best_offsets_tc_kernel<kUnmasked, "
+                     "kBestOff>", 310),
+    "noW": _ablation("noW", "score_ablation_kernel<kNoW>", 333),
+    "nomax": _ablation("nomax", "score_ablation_kernel<kNoMax>", 360),
+    "nodot": _ablation("nodot", "score_best_offsets_tc_kernel<kStandard, "
+                       "kBestOff, kSlabSlice>", 386),
+    "noA_simt": _ablation("noA", "score_ablation_kernel<kNoA>", 310,
+                          simt=True),
+    "nodot_simt": _ablation("nodot", "score_ablation_kernel<kNoDot>", 386,
+                            simt=True),
     "simt": Kernel("score_best_offsets_simt",
                    "score_best_offsets_kernel<false>", "LAUNCHES_SIMT",
                    K1_TPU, _standard, score_simt, exact_best_offsets,

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
 tensor-core kernel, and K1-h on the bf16 tensor cores with K1-h-s, its
-SIMT before-number; the K1-x variants, KX-P and KX-H on K1's pipeline
-and KX-K on K1-h's among them, their SIMT before-numbers, and K1-s)
+SIMT before-number; the K1-x variants, KX-P, KX-H and the ablations noA
+and nodot on K1's pipeline and KX-K on K1-h's among them, their SIMT
+before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, and a cold --jobs 2 germline run on the card
@@ -475,7 +476,7 @@ def test_kx_kernel_bit_identical_to_plain(cuda, kind, B, R, L, W):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    if kind not in ("noA", "nodot"):
+    if kind not in ("noA", "nodot", "noA_simt", "nodot_simt"):
         assert torch.equal(got[0][0].reshape(R, -1)[:, 0], t[2][0])
 
 
@@ -620,6 +621,108 @@ def test_kxh_ties_at_window_boundaries(cuda, H, W):
     assert bool((off[..., 1:] == 0).all())
 
 
+def kxa_counts(which):
+    return (getattr(sv, f"LAUNCHES_{which.upper()}"),
+            getattr(sv, f"LAUNCHES_{which.upper()}_SIMT"))
+
+
+@pytest.mark.parametrize("which", ["noA", "nodot"])
+@pytest.mark.parametrize("B,R,L,W", [(512, 128, 128, 128), (256, 128, 160, 256),
+                                     (8, 128, 224, 256), (3, 40, 100, 70),
+                                     (2, 33, 99, 129), (4, 128, 32, 128),
+                                     (2, 256, 64, 256)])
+def test_kxa_tensor_cores_bit_identical_to_plain(cuda, which, B, R, L, W):
+    """noA and nodot on K1's u8 pipeline equal their plain versions bit
+    for bit: the harness's and the main path's shapes, L = 224 (A in
+    the ring at R = 128), ragged shapes, R = W = 4L, codes 4 and below
+    0 under non-zero deltas; each counts its own launches, its SIMT
+    before-number none."""
+    rng = np.random.default_rng(B + R + L + W)
+    arrs = k1_inputs(rng, B, R, L, W)
+    arrs[0][0] = 4
+    arrs[0][-1, :, ::3] = -1
+    arrs[3][-1, ::5] = -1
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = kxa_counts(which)
+    got = sv.score_ablation(which, *t)
+    assert kxa_counts(which) == (before[0] + 1, before[1])
+    want = sv.ablation_best_offsets(which, *t)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if L <= sv._lib().score_variants_max_len():
+        simt = sv.score_ablation_simt(which, *t)
+        assert kxa_counts(which) == (before[0] + 1, before[1] + 1)
+        for a, b in zip(simt, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_kxa_noa_beyond_the_simt_kernels_length(cuda):
+    """noA on K1's pipeline takes K1's read lengths (1816), past the
+    SIMT kernel's 907."""
+    assert sv._tc_lib().score_best_offsets_tc_max_len() == 1816
+    t = [torch.from_numpy(a).to(cuda)
+         for a in k1_inputs(np.random.default_rng(1000), 2, 64, 1000, 128)]
+    got = sv.score_ablation("noA", *t)
+    want = sv.noa_best_offsets(*t)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        sv.score_ablation_simt("noA", *t)
+
+
+@pytest.mark.parametrize("W", [128, 192, 256])
+def test_kxa_nodot_ties_across_n_tiles(cuda, W):
+    """nodot with an A slab of 0 (limb 1 = 0) and read r's Wo row 1 at
+    two offsets around an N-tile boundary: the first of them wins."""
+    rng = np.random.default_rng(W)
+    B, R, L = 4, 128, 128
+    cols = [(t + a, t + b) for t in range(64, W, 64)
+            for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, 64)) if t + b < W]
+    codes = rng.integers(-1, 5, (B, R, L)).astype(np.int8)
+    delta = (rng.integers(0, 256, (B, R, L)) / 2048).astype(np.float32)
+    lnmis = rng.normal(-100, 10, (B, R)).astype(np.float32)
+    win = rng.integers(1, 5, (B, L, W)).astype(np.int8)
+    for r in range(R):
+        for w in cols[r % len(cols)]:
+            win[:, r, w] = 0
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    best, off = sv.score_ablation("nodot", *t)
+    want = sv.nodot_best_offsets(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(best.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(off, want[1])
+    first = torch.tensor([cols[r % len(cols)][0] for r in range(R)],
+                         dtype=torch.int32, device=cuda)
+    assert torch.equal(off, first.expand(B, R))
+
+
+def test_kxa_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    c, d, m, w = (torch.from_numpy(a).to(cuda)
+                  for a in k1_inputs(np.random.default_rng(3), 2, 32, 64, 64))
+    before = kxa_counts("noA") + kxa_counts("nodot")
+    for fn in (sv.score_ablation, sv.score_ablation_simt):
+        for which in ("noA", "nodot"):
+            with pytest.raises(ValueError):
+                fn(which, c.to(torch.int32), d, m, w)
+            with pytest.raises(ValueError):  # not contiguous
+                fn(which, c, d, m, w.transpose(1, 2))
+            with pytest.raises(ValueError):
+                fn(which, c, d.cpu(), m, w)
+        with pytest.raises(ValueError, match="4L"):
+            fn("nodot", c, d, m, torch.zeros((2, 64, 257), dtype=torch.int8,
+                                             device=cuda))
+    long = [torch.zeros(s, dtype=dt, device=cuda) for s, dt in (
+        ((1, 2, 1817), torch.int8), ((1, 2, 1817), torch.float32),
+        ((1, 2), torch.float32), ((1, 1817, 8), torch.int8))]
+    with pytest.raises(ValueError, match="L <= 1816"):
+        sv.score_ablation("noA", *long)
+    with pytest.raises(ValueError, match="no SIMT before-number"):
+        sv.score_ablation_simt("noW", c, d, m, w)
+    assert kxa_counts("noA") + kxa_counts("nodot") == before
+
+
 def test_kxk_kxh_wrappers_reject_what_the_kernels_do_not_take(cuda):
     c, d, m, w = (torch.from_numpy(a).to(cuda)
                   for a in k1_inputs(np.random.default_rng(2), 2, 32, 64, 128))
@@ -698,6 +801,7 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
              "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
     before = packed_counts()
     before_kh = onesum_counts() + hap_counts()
+    before_a = kxa_counts("noA") + kxa_counts("nodot")
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(names)
@@ -715,3 +819,10 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     assert "kernel=score_highest_tc_kernel<kOneSum>" in lines[4]
     assert ("kernel=score_best_offsets_tc_kernel<kStandard, kHapOut>"
             in lines[5])
+    # limb2-noA and limb2-nodot reach K1's pipeline, their SIMT kernels
+    # are on no path
+    after_a = kxa_counts("noA") + kxa_counts("nodot")
+    assert after_a[0] > before_a[0] and after_a[2] > before_a[2]
+    assert (after_a[1], after_a[3]) == (before_a[1], before_a[3])
+    assert "kernel=score_best_offsets_tc_kernel<kUnmasked, kBestOff>" in (
+        lines[7])
