@@ -27,21 +27,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    harness at its shapes, with the launch counters set to 0 just before
    and read just after (every variant equal to its body's function,
    every K1-x kernel and K1 launched, the SIMT before-numbers K1-s,
-   KX-P-s, KX-K-s, KX-H-s and the noA and nodot KX-A-s no time); its
-   times are the kernels' times at the harness's shape. Then each
-   kernel of ops/score_variants.KERNELS (KX-P, KX-H and the ablations
-   noA and nodot on K1's u8 tensor-core pipeline, KX-K on K1-h's bf16
-   one, their SIMT before-numbers, KX-I, the ablations noW and nomax,
-   and K1-s) against its plain version bit for bit at the harness's
-   shape and the main path's, with tie, ragged and code-4 cases (KX-H
-   also ties at its window boundaries and windows of 96 and 160
-   offsets; KX-K also its largest sum, L = 256 with every v = 0xFFFF;
-   noA and nodot also L = 224, where K1's pipeline keeps A in its ring,
-   nodot at R = 4L and W = 4L and ties across N tiles, noA at L =
-   1000); its plain version and library route timed at both shapes,
-   the kernel and K1 at the main path's (the before-numbers, which no
-   variant name runs, at both); KX-K's row also carries its design's
-   own floor, two bf16 passes of the one-hot product;
+   KX-P-s, KX-K-s, KX-H-s and the four KX-A-s no time); its times are
+   the kernels' times at the harness's shape. Then each kernel of
+   ops/score_variants.KERNELS (KX-P, KX-H and the four ablations noA,
+   noW, nomax and nodot on K1's u8 tensor-core pipeline, KX-K on K1-h's
+   bf16 one, their SIMT before-numbers, KX-I and K1-s) against its
+   plain version bit for bit at the harness's shape and the main
+   path's, with tie, ragged and code-4 cases (KX-H also ties at its
+   window boundaries and windows of 96 and 160 offsets; KX-K also its
+   largest sum, L = 256 with every v = 0xFFFF; the ablations also L =
+   224, where K1's pipeline keeps A in its ring, nodot at R = 4L and W
+   = 4L and ties across N tiles, nomax ties across N tiles, noA, noW
+   and nomax at L = 1000; noW, whose rows name the plan it took (S: a
+   group's window expanded once into a slab; R: K1's ring on it), in
+   plan S at the harness's shape and at 256,32,160,192, in plan R at
+   the main path's, and with a partial last group in both); its plain
+   version and library route timed at both shapes, the kernel and K1
+   at the main path's (the before-numbers, which no variant name runs,
+   at both; noW also at 256,32,160,192);
+   KX-K's row also carries its design's own floor, two bf16 passes of
+   the one-hot product;
 3. snv: the SNV tile functions on the card against the port's CPU path
    (integer fields equal, lhood bit-equal);
 3b. somatic: the somatic SNV model on the card against the port's CPU
@@ -568,7 +573,7 @@ def phase_kx_runner(torch, sv, sk, dev, cuda: bool, B: int, R: int):
     with every counter set to 0 just before and read just after. Fails
     unless every variant equals its body's function and, on the card,
     every K1-x kernel and K1 launched, and the SIMT before-numbers
-    (K1-s, KX-P-s, KX-K-s, KX-H-s, noA's and nodot's KX-A-s) no time.
+    (K1-s, KX-P-s, KX-K-s, KX-H-s and the four KX-A-s) no time.
     Returns (counters, {name: row})."""
     names = [*sv.K1_VARIANTS, "limb2r@8", "fused", "fusedwhole", "fusedin",
              "fusedlm", "limb2k", "hap2", "int8", "limb2-noA", "limb2-noW",
@@ -655,8 +660,10 @@ def phase_kx(np, torch, dev, cuda: bool, shapes, hap_shapes, edge,
                    "max_abs_err": float((got[0] - want[0]).abs().max())}
             if hap:
                 row["windows"] = H
-            if kind == "noW":
+            if k.function == "noW":
                 row["G"] = G
+                if kind == "noW":
+                    row["plan"] = sv.now_plan(B, R, L, W, G, dev)
             if case == "random":
                 if i == 0 and kind in KX_TIMED_BY:
                     row["ms"] = runner[KX_TIMED_BY[kind]]["step_ms"]
@@ -1752,22 +1759,32 @@ def main(argv=None) -> int:
                ("ragged", (3, 40, 100, 70), k1_random),
                ("code4", (4, 32, 64, 64), k1_code4)]
     # each (kinds, cases): KX-H's window boundaries and widths (W of one
-    # window), KX-K's largest sums; noA and nodot at L = 224 (A in K1's
+    # window), KX-K's largest sums; the ablations at L = 224 (A in K1's
     # ring at R = 128), nodot's whole slabs (R = W = 4L) and ties across
-    # N tiles, noA beyond the SIMT kernel's L
+    # N tiles, nomax's ties across N tiles, noW timed in plan S at the
+    # main path's top shape and with a partial last group (B % 4 = 2) in
+    # both plans; last, as their SIMT before-numbers lack them, the
+    # tensor-core ablations beyond the SIMT kernel's L
+    ablations = ("noA", "noW", "nomax", "nodot")
     kx_kind_edge = [
         (sv.HAP_KINDS, [("window_ties", (8, 40, 128, 96), hap_window_ties),
                         ("window_ties", (8, 128, 160, 160), hap_window_ties),
                         ("ragged", (4, 33, 99, 160), k1_random)]),
         (("onesum", "onesum_simt"), [("max_sum", (4, 64, 256, 128),
                                       onesum_max)]),
-        (("noA", "noA_simt", "nodot", "nodot_simt"),
+        (ablations + tuple(f"{a}_simt" for a in ablations),
          [("ring", (8, 128, 224, 256), k1_random)]),
         (("nodot", "nodot_simt"),
          [("whole_slabs", (4, 128, 32, 128), k1_random),
           ("whole_slabs", (2, 256, 64, 256), k1_random),
           ("tile_ties", (4, 128, 128, 192), nodot_tile_ties)]),
-        (("noA",), [("long", (2, 64, 1000, 128), k1_random)])]
+        (("nomax", "nomax_simt"),
+         [("tile_ties", (8, 128, 128, 192), k1_tile_ties)]),
+        (("noW", "noW_simt"),
+         [("random", (256, 32, 160, 192), k1_random),
+          ("partial_group", (10, 128, 128, 128), k1_code4),
+          ("partial_group", (10, 128, 160, 256), k1_code4)]),
+        (("noA", "noW", "nomax"), [("long", (2, 64, 1000, 128), k1_random)])]
     kx_rows = phase_kx(np, torch, dev, cuda, kx_shapes, kx_hap, kx_edge,
                        kx_kind_edge, runner_rows)
     log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
@@ -1942,6 +1959,11 @@ def main(argv=None) -> int:
             "device_bound_share": top.get("device_bound_share"),
         }
         row["library_equal"] = top["library_equal"]
+        if kind == "noW":
+            row["G"] = top["G"]
+            row["plan"] = top["plan"]
+            row["plans"] = {",".join(map(str, r["shape"])): r["plan"]
+                            for r in rows}
         if "prev_ms" in top:
             row["prev_ms"] = top["prev_ms"]
             row["prev_device_ms"] = top.get("prev_device_ms")

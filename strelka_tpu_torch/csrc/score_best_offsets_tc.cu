@@ -32,7 +32,7 @@
 // At a window's last tile the first max is merged over the 4 lanes of a
 // read, stored and reset.
 //
-// Two timing ablations of the K1-x harness run on it too (KX-A), each
+// The four timing ablations of the K1-x harness run on it too (KX-A), each
 // computing its Pallas body's result and timed beside K1:
 // - noA (source kUnmasked) replaces _kernel_limb2_noA :310: the limbs count
 //   against every window code 0..3 whatever the read's code, S_j[w] =
@@ -48,6 +48,23 @@
 //   [win[l,w] == c]. The whole slab build stays (A words, the window ring,
 //   each step's Bw); the wgmma is replaced by reads of the slabs it built
 //   (slab_slice): K1's pipeline without the tensor cores.
+// - nomax (output kBestOnly) replaces _kernel_limb2_nomax :360: K1's best,
+//   offset 0. The tile loop keeps the strict > running max and tracks no
+//   offset, the lanes merge by max alone (merge_max) and off is stored 0:
+//   its time beside K1's is what the first-max bookkeeping costs.
+// - noW (window kGroupRing or kGroupSlab) replaces _kernel_limb2_noW :333,
+//   "W slab written once from tile 0 only": pair b faces the window of
+//   pair b/G*G, the first of its group of G (the last group may be
+//   partial). Plan S (kGroupSlab), the ablation itself: one CTA serves a
+//   group's pairs for one block of reads. Its first pair walks K1's
+//   pipeline, with each step's Bw expanded into a slab of all nT*nK step
+//   tiles instead of the ring; every later pair expands only its A words
+//   and lnmis and runs the wgmma chain over the slab, with no staging, no
+//   waits on the ring, no Bw expansion and no barrier a step. Plan R
+//   (kGroupRing) is K1's kernel staging the group's window, for shapes
+//   whose slab does not fit beside K1's resident A (now_slab_fits). Its
+//   time beside K1's is what building the window costs; the host chooses
+//   the plan and reports it (score_now_tc_plan).
 //
 // Only the reads' expansion into A words, lnmis, the window's columns, the
 // product and the output store differ (template parameters); K1's
@@ -66,7 +83,8 @@
 // bytes a base (no codes). nodot's function needs only the bases and
 // window rows its slices touch, B*(5*R*min(L,W) + min(R,L)*W + 12*R)
 // bytes, and 2 f32 operations a score; its time is that of the slab build
-// it keeps, as the ablation asks.
+// it keeps, as the ablation asks. nomax moves K1's bytes; noW reads one
+// window a group, B*(5*R*L + 12*R) + ceil(B/G)*L*W bytes.
 //
 // Design:
 // - wgmma.mma_async m64n64k32 .s32.u8.u8, both operands K-major in shared
@@ -94,12 +112,18 @@
 namespace {
 
 // Output forms: best [B,R] and off [B,R] apart (K1), interleaved [B,R,2]
-// (KX-P), best and off [B,R,H] against H windows (KX-H)
-enum Output { kBestOff, kPairOut, kHapOut };
+// (KX-P), best and off [B,R,H] against H windows (KX-H), best [B,R] with
+// off 0 (nomax: no argmax)
+enum Output { kBestOff, kPairOut, kHapOut, kBestOnly };
 
 // What a step does with its operands: the u8 wgmma (K1), or nodot's reads
 // of the slabs' terms (slab_slice)
 enum Product { kProduct, kSlabSlice };
+
+// The window a pair faces: its own (K1), or noW's, that of the first pair
+// of its group of G, staged through K1's ring (plan R) or expanded once
+// into a slab that the group's pairs share (plan S)
+enum Window { kOwn, kGroupRing, kGroupSlab };
 
 constexpr int kReadsPerWg = 32;                 // m64 = 32 reads x 2 limbs
 constexpr int kMaxWg = 4;
@@ -345,20 +369,80 @@ __device__ __forceinline__ void merge_lanes(float& run_s, int& run_w) {
     }
 }
 
-template <int kSrc, int kOut, int kProd = kProduct>
+// the max over the 4 lanes that share a read (nomax): the same strict > as
+// merge_lanes, so NaN and signed zeros fare as in K1 (s is never -0)
+__device__ __forceinline__ void merge_max(float& run_s) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+        const float os = __shfl_xor_sync(0xffffffffu, run_s, o);
+        if (os > run_s) run_s = os;
+    }
+}
+
+// N tile w0's sums into the thread's running first max: the thread holds
+// read r at offsets w0 + 8j + 2*t4 + e, limb 1 in acc[4j+e], limb 0 in
+// acc[4j+2+e], visited in ascending order; nomax tracks no offset
+template <int kOut>
+__device__ __forceinline__ void tile_max(const Args& a, const int (&acc)[32],
+                                         int w0, int t4, float ls,
+                                         float& run_s, int& run_w) {
+#pragma unroll
+    for (int j = 0; j < kNTile / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int w = w0 + 8 * j + 2 * t4 + e;   // ascending
+            const int S = acc[4 * j + e] * 256 + acc[4 * j + 2 + e];
+            const float s =
+                __fadd_rn(__fmul_rn(__int2float_rn(S), kQuantInv), ls);
+            if (w < a.W && s > run_s) {   // strict keeps the first
+                run_s = s;
+                if constexpr (kOut != kBestOnly) run_w = w;
+            }
+        }
+    }
+}
+
+// pair b's result for read r: the lanes of the read merged, lane 0 stores
+// (every form but KX-H's, which stores at each window's last tile)
+template <int kOut>
+__device__ __forceinline__ void store_pair(const Args& a, int b, long long r,
+                                           int t4, float run_s, int run_w) {
+    if constexpr (kOut == kBestOnly)
+        merge_max(run_s);
+    else
+        merge_lanes(run_s, run_w);
+    if (t4 == 0 && r < a.R) {
+        const size_t o = (size_t)b * a.R + r;
+        if constexpr (kOut == kPairOut) {
+            a.out[2 * o] = run_s;
+            a.out[2 * o + 1] = __int_as_float(run_w);
+        } else {
+            a.best[o] = run_s;
+            a.off[o] = kOut == kBestOnly ? 0 : run_w;
+        }
+    }
+}
+
+template <int kSrc, int kOut, int kProd = kProduct, int kWin = kOwn>
 __global__ void __launch_bounds__(kMaxWg* kWgThreads)
     score_best_offsets_tc_kernel(const Args a) {
     constexpr bool kHap = kOut == kHapOut;
+    constexpr bool kSlab = kWin == kGroupSlab;
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [kStages]
-    unsigned char* bw = smem + kBarBytes;                 // [kStages][kOpBytes]
-    unsigned char* raw = bw + kStages * kOpBytes;         // [kStages][kRawBytes]
+    // Bw: a ring of kStages step tiles, or (plan S) the slab of all nT*nK
+    unsigned char* bw = smem + kBarBytes;
+    unsigned char* raw =                                  // [kStages][kRawBytes]
+        bw + (kSlab ? a.nT * a.nK : kStages) * kOpBytes;
     unsigned char* as = raw + kStages * kRawBytes;        // A words
     const int tid = threadIdx.x;
     const int n_wg = blockDim.x / kWgThreads;
     const int wg = tid / kWgThreads;
     const int n_reads = n_wg * kReadsPerWg;
-    const int b = blockIdx.y;
+    // the pair (plan S: the first of the CTA's group), and the pair whose
+    // window it faces
+    const int b = kSlab ? blockIdx.y * a.G : blockIdx.y;
+    const int b_win = kWin == kGroupRing ? b / a.G * a.G : b;
     const long long r0 = (long long)blockIdx.x * n_reads;
     const int total = a.nT * a.nK;   // steps: N tiles x K chunks, K fastest
     // A: the whole read length (row group stride 32*Lp), or a 3-slot ring
@@ -368,7 +452,7 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
 
     init_ring(full);
     for (int s = 0; s < 2 && s < total; ++s)
-        stage_window<kHap>(a, b, s, raw + s * kRawBytes, &full[s]);
+        stage_window<kHap>(a, b_win, s, raw + s * kRawBytes, &full[s]);
     expand_a<kSrc>(a, b, r0, n_reads, 0,
                    a.resident ? a.Lp / 4 : kChunkBases / 4, as, sbo_a);
     mbar_wait(&full[0], 0);
@@ -400,7 +484,7 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
             (a.resident ? as + (size_t)kc * (kChunkK / 16) * kCore
                         : as + slot * a_slot) +
             (size_t)wg * 8 * sbo_a;
-        const unsigned char* b_op = bw + slot * kOpBytes;
+        const unsigned char* b_op = bw + (kSlab ? it : slot) * kOpBytes;
         if constexpr (kProd == kProduct) {
             // the tensor cores on step it (asynchronous)
             fence_acc(acc);
@@ -418,10 +502,11 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
         }
         // the window two steps ahead
         if (it + 2 < total)
-            stage_window<kHap>(a, b, it + 2,
+            stage_window<kHap>(a, b_win, it + 2,
                                raw + ((it + 2) % kStages) * kRawBytes,
                                &full[(it + 2) % kStages]);
-        // the operands of step it+1, into the slot step it-2 read
+        // the operands of step it+1, into the slot step it-2 read (plan
+        // S: into its own slot of the slab)
         if (it + 1 < total) {
             const int s1 = (it + 1) % kStages;
             if (!a.resident) {
@@ -431,31 +516,17 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
             }
             mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
             expand_w<kHap>(a, it + 1, raw + s1 * kRawBytes,
-                           bw + s1 * kOpBytes);
+                           bw + (kSlab ? it + 1 : s1) * kOpBytes);
             fence_proxy_async();
         }
         if (kc == a.nK - 1) {
-            // the tile's sums: thread holds read r at offsets
-            // 8j + 2*t4 + e, limb 1 in acc[4j+e], limb 0 in acc[4j+2+e]
+            // the tile's sums
             const int w0 = tile_w0<kHap>(a, nt);
             if constexpr (kProd == kProduct) {
                 wgmma_wait<0>();
                 fence_acc(acc);
             }
-#pragma unroll
-            for (int j = 0; j < kNTile / 8; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int w = w0 + 8 * j + 2 * t4 + e;   // ascending
-                    const int S = acc[4 * j + e] * 256 + acc[4 * j + 2 + e];
-                    const float s = __fadd_rn(
-                        __fmul_rn(__int2float_rn(S), kQuantInv), ls);
-                    if (w < a.W && s > run_s) {   // strict keeps the first
-                        run_s = s;
-                        run_w = w;
-                    }
-                }
-            }
+            tile_max<kOut>(a, acc, w0, t4, ls, run_s, run_w);
             if (kHap && w0 + kNTile >= a.W) {   // its window's last tile
                 merge_lanes(run_s, run_w);
                 if (t4 == 0 && r < a.R) {
@@ -473,34 +544,85 @@ __global__ void __launch_bounds__(kMaxWg* kWgThreads)
         __syncthreads();
     }
 
-    if constexpr (!kHap) {
-        merge_lanes(run_s, run_w);
-        if (t4 == 0 && r < a.R) {
-            const size_t o = (size_t)b * a.R + r;
-            if constexpr (kOut == kPairOut) {
-                a.out[2 * o] = run_s;
-                a.out[2 * o + 1] = __int_as_float(run_w);
-            } else {
-                a.best[o] = run_s;
-                a.off[o] = run_w;
+    if constexpr (!kHap) store_pair<kOut>(a, b, r, t4, run_s, run_w);
+
+    if constexpr (kSlab) {
+        // plan S: the group's later pairs against the slab the first
+        // pair's walk filled (A resident), one wgmma chain a tile
+        const int n_pairs = a.B - b < a.G ? a.B - b : a.G;
+        for (int p = b + 1; p < b + n_pairs; ++p) {
+            wgmma_wait<0>();
+            __syncthreads();   // no warpgroup reads the resident A any more
+            expand_a<kSrc>(a, p, r0, n_reads, 0, a.Lp / 4, as, sbo_a);
+            fence_proxy_async();
+            __syncthreads();
+            const float lp = r < a.R ? read_lnmis<kSrc>(a, p, r) : 0.0f;
+            float ps = -INFINITY;
+            int pw = INT_MAX;
+            for (int nt = 0; nt < a.nT; ++nt) {
+                fence_acc(acc);
+                wgmma_fence();
+                for (int kc = 0; kc < a.nK; ++kc) {
+                    const unsigned char* pa =
+                        as + (size_t)kc * (kChunkK / 16) * kCore +
+                        (size_t)wg * 8 * sbo_a;
+                    const unsigned char* pb =
+                        bw + (size_t)(nt * a.nK + kc) * kOpBytes;
+#pragma unroll
+                    for (int s = 0; s < kSteps; ++s)
+                        wgmma_u8(acc, desc(pa + 2 * s * kCore, kCore, sbo_a),
+                                 desc(pb + 2 * s * kCore, kCore,
+                                      8 * kChunkK),
+                                 kc > 0 || s > 0);
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_acc(acc);
+                tile_max<kOut>(a, acc, tile_w0<false>(a, nt), t4, lp, ps, pw);
             }
+            store_pair<kOut>(a, p, r, t4, ps, pw);
         }
     }
 }
 
-// Launches the instantiation on `a` (operand pointers, R, Rp, L, W set)
-// for B pairs (KX-H: B loci against H windows each); returns
-// cudaGetLastError().
-template <int kSrc, int kOut, int kProd = kProduct>
+// CTA's warpgroups for R reads: one per 32, at most kMaxWg
+inline int warpgroups(long long R) {
+    const long long want = (R + kReadsPerWg - 1) / kReadsPerWg;
+    return (int)(want < kMaxWg ? want : kMaxWg);
+}
+
+// plan S's shared memory: the barriers, the raw ring, the slab of all
+// nT*nK step tiles and the resident A of n_wg warpgroups (`a` planned)
+inline size_t slab_smem(const Args& a, int n_wg) {
+    return kBarBytes + (size_t)kStages * kRawBytes +
+           (size_t)a.nT * a.nK * kOpBytes + (size_t)n_wg * 64 * 4 * a.Lp;
+}
+
+// noW's plan for R reads of L bases against W offsets: S (the slab beside
+// K1's resident A, of K1's warpgroup count) where it fits, else R
+inline bool now_slab_fits(long long R, long long L, long long W) {
+    Args a = {};
+    a.R = (int)R;
+    a.L = (int)L;
+    a.W = (int)W;
+    plan_steps(a);
+    return slab_smem(a, warpgroups(R)) <= (size_t)kSmemLimit;
+}
+
+// Launches the instantiation on `a` (operand pointers, R, Rp, L, W set;
+// noW: B and G too) for B pairs (KX-H: B loci against H windows each);
+// returns cudaGetLastError().
+template <int kSrc, int kOut, int kProd = kProduct, int kWin = kOwn>
 int launch(Args a, long long B, void* stream, int H = 1) {
     plan_steps(a, H);
-    const long long want = (a.R + kReadsPerWg - 1) / kReadsPerWg;
-    const int n_wg = (int)(want < kMaxWg ? want : kMaxWg);
+    const int n_wg = warpgroups(a.R);
     const size_t fixed = kBarBytes + (size_t)kStages * (kOpBytes + kRawBytes);
     const size_t resident = fixed + (size_t)n_wg * 64 * 4 * a.Lp;
-    a.resident = resident <= (size_t)kSmemLimit;
+    a.resident = kWin == kGroupSlab || resident <= (size_t)kSmemLimit;
     const size_t smem =
-        a.resident ? resident : fixed + (size_t)kStages * n_wg * kOpBytes;
+        kWin == kGroupSlab ? slab_smem(a, n_wg)
+        : a.resident       ? resident
+                           : fixed + (size_t)kStages * n_wg * kOpBytes;
     if constexpr (kSrc == kStandard)
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.codes % 4 == 0 &&
                      (uintptr_t)a.delta % 16 == 0;
@@ -508,14 +630,16 @@ int launch(Args a, long long B, void* stream, int H = 1) {
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.delta % 16 == 0;
     else
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.packed % 16 == 0;
-    auto kernel = score_best_offsets_tc_kernel<kSrc, kOut, kProd>;
+    auto kernel = score_best_offsets_tc_kernel<kSrc, kOut, kProd, kWin>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     const long long per_cta = (long long)n_wg * kReadsPerWg;
-    const dim3 grid((unsigned)((a.R + per_cta - 1) / per_cta), (unsigned)B);
+    // plan S: a CTA a group of G pairs
+    const long long ny = kWin == kGroupSlab ? (B + a.G - 1) / a.G : B;
+    const dim3 grid((unsigned)((a.R + per_cta - 1) / per_cta), (unsigned)ny);
     kernel<<<grid, n_wg * kWgThreads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
@@ -601,17 +725,19 @@ int score_hap_tc_launch(const void* codes, const void* delta,
     return launch<kStandard, kHapOut>(a, B, stream, (int)H);
 }
 
-// KX-A on K1's pipeline: `which` 0 is noA (codes not read), 3 is nodot
-// (R <= 4L and W <= 4L), the codes of score_ablation_launch
-// (score_variants.cu). codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R]
-// f32, win [B,L,W] int8; best [B,R] f32 and off [B,R] int32 out. All
-// contiguous on the device. Launches on `stream`, returns
-// cudaGetLastError().
+// KX-A on K1's pipeline: `which` 0 is noA (codes not read), 1 noW (pair b
+// scores against the window of pair b/G*G, G >= 1; plan S or R as
+// score_now_tc_plan says), 2 nomax (off 0), 3 nodot (R <= 4L and W <= 4L),
+// the codes and arguments of score_ablation_launch (score_variants.cu).
+// codes [B,R,L] int8, delta [B,R,L] f32, lnmis [B,R] f32, win [B,L,W] int8;
+// best [B,R] f32 and off [B,R] int32 out. All contiguous on the device.
+// Launches on `stream`, returns cudaGetLastError().
 int score_ablation_tc_launch(const void* codes, const void* delta,
                              const void* lnmis, const void* win, long long B,
-                             long long R, long long L, long long W, int which,
-                             void* best, void* off, void* stream) {
-    if (!in_range(B, R, L, W) ||
+                             long long R, long long L, long long W,
+                             long long G, int which, void* best, void* off,
+                             void* stream) {
+    if (!in_range(B, R, L, W) || G < 1 ||
         (which == 3 && (R > 4 * L || W > 4 * L)))
         return (int)cudaErrorInvalidValue;
     Args a = {};
@@ -624,11 +750,30 @@ int score_ablation_tc_launch(const void* codes, const void* delta,
     a.R = a.Rp = (int)R;
     a.L = (int)L;
     a.W = (int)W;
+    a.B = (int)B;
+    a.G = (int)(G < B ? G : B);   // a group of B or more: all B pairs
     switch (which) {
         case 0: return launch<kUnmasked, kBestOff>(a, B, stream);
+        case 1:
+            return now_slab_fits(R, L, W)
+                       ? launch<kStandard, kBestOff, kProduct, kGroupSlab>(
+                             a, B, stream)
+                       : launch<kStandard, kBestOff, kProduct, kGroupRing>(
+                             a, B, stream);
+        case 2: return launch<kStandard, kBestOnly>(a, B, stream);
         case 3: return launch<kStandard, kBestOff, kSlabSlice>(a, B, stream);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// The plan a noW launch of this shape takes: 1 for S (one expanded window,
+// the slab, a group of G pairs; the shared memory of the barriers, the raw
+// ring, the slab and K1's resident A fits in 232,448 bytes), 0 for R (K1's
+// ring on the group's window); -1 for a shape the launch refuses.
+int score_now_tc_plan(long long B, long long R, long long L, long long W,
+                      long long G) {
+    if (!in_range(B, R, L, W) || G < 1) return -1;
+    return now_slab_fits(R, L, W) ? 1 : 0;
 }
 
 }  // extern "C"

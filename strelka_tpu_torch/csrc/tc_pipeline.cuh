@@ -56,6 +56,7 @@ struct Args {
     int resident;           // A words of the whole read length stay
     int win_vec;            // window rows 16-byte aligned
     int read_vec;           // reads 4 bases a load
+    int B, G;               // pairs, and pairs a window serves (KX-A noW)
 };
 
 // (s, w) beats (bs, bw): larger score, or the same score at a lower offset

@@ -24,6 +24,16 @@ waits), then one JSON line per shape: each kernel's ms, and K1-s's.
 
 times KX-H instead (the same source's hap output form, held to its plain
 version) at the variants runner's hap shapes, without K1-s's column.
+
+    python -m strelka_tpu_torch.ops.score_tc_probe --now G [G ...]
+
+times KX-A noW (score_variants.score_ablation, as built) at each group
+size G beside K1, at the harness's shape and the main path's two: each
+held to now_best_offsets, device ms by the replay of 50 calls captured
+in one CUDA graph, in turns (K1, the G, the G reversed, K1; the least of
+each's two times). One JSON line a shape, with the plan it took. It
+shows what a group's shared window saves against what the group's
+fewer CTAs cost.
 """
 from __future__ import annotations
 
@@ -57,8 +67,8 @@ VARIANTS = {
     "nomma": (False, [(_MMA, "                acc[s] += (int)(size_t)a_op + "
                              "(int)(size_t)b_op;")]),
     "nobw": (False, [("            expand_w<kHap>(a, it + 1, raw + s1 * "
-                      "kRawBytes,\n                           bw + s1 * "
-                      "kOpBytes);\n", "")]),
+                      "kRawBytes,\n                           bw + (kSlab ? "
+                      "it + 1 : s1) * kOpBytes);\n", "")]),
     "nocopy": (False, [("        if (it + 2 < total)\n            stage_window",
                         "        if (false)\n            stage_window"),
                        ("            mbar_wait(&full[s1], ((it + 1) / kStages)"
@@ -72,6 +82,8 @@ SHAPES = [(256, r, 160, w) for r in (32, 128, 512) for w in (256, 320)] + [
     (256, 32, 160, 192)]
 # KX-H's loci, reads, read length and window width (x HAP_WINDOWS)
 HAP_SHAPES = [(256, 128, 128, 128), (128, 128, 160, 256)]
+# noW's: the harness's, the main path's and its top launch shape
+NOW_SHAPES = [(512, 128, 128, 128), (256, 128, 160, 256), (256, 32, 160, 192)]
 
 
 def variant_source(name: str) -> str:
@@ -156,6 +168,52 @@ def loop_ms(fn, dev, iters=50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=50) -> float:
+    """Device ms a call of `fn`: `iters` calls captured in one CUDA
+    graph, its replay timed by CUDA events (no host time between the
+    calls)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def probe_now(groups, dev) -> None:
+    """noW at each G in `groups` beside K1 at NOW_SHAPES (see the
+    module's docstring); prints one JSON line a shape."""
+    for B, R, L, W in NOW_SHAPES:
+        t = [torch.from_numpy(a).to(dev)
+             for a in sv.harness_inputs(B, R, L, W)]
+        fns = {"k1": lambda: sv.score_best_offsets(*t)}
+        for g in groups:
+            got = sv.score_ablation("noW", *t, G=g)
+            want = sv.now_best_offsets(*t, g)
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"noW G={g} at {[B, R, L, W]} differs "
+                                     f"from the plain version")
+            fns[f"G{g}"] = (lambda g=g: sv.score_ablation("noW", *t, G=g))
+        names = list(fns)[1:]
+        times = {n: [] for n in fns}
+        for name in ["k1", *names, *names[::-1], "k1"]:
+            times[name].append(graph_ms(fns[name]))
+        print(json.dumps({"shape": [B, R, L, W],
+                          "plan": sv.now_plan(B, R, L, W, groups[0], dev),
+                          **{n: min(v) for n, v in times.items()}}),
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m strelka_tpu_torch.ops.score_tc_probe",
@@ -164,7 +222,15 @@ def main(argv=None) -> int:
                     help=f"of {' '.join(VARIANTS)} (default: all)")
     ap.add_argument("--hap", action="store_true",
                     help="time KX-H (H windows) instead of K1")
+    ap.add_argument("--now", type=int, nargs="+", metavar="G",
+                    help="time KX-A noW at these group sizes beside K1 "
+                         "instead")
     args = ap.parse_args(argv)
+    if args.now:
+        if args.variants or args.hap or min(args.now) < 1:
+            ap.error("--now takes group sizes of 1 or more, alone")
+        probe_now(args.now, devmod.resolve("cuda"))
+        return 0
     names = args.variants or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

@@ -45,14 +45,19 @@ the before-number of the tensor-core K1.
   another function than K1's: limbs not masked by the read's code;
   each pair scored against the window of the first pair of its grid
   step of G; no argmax (offset 0); no product (see
-  ``nodot_best_offsets``). noA and nodot run on K1's u8 tensor-core
-  pipeline (``score_best_offsets_tc_kernel<kUnmasked, kBestOff>``: A
-  words with the limb in every code byte; ``<kStandard, kBestOff,
-  kSlabSlice>``: K1's slab build with the wgmma replaced by reads of
-  the slabs' terms); their earlier SIMT kernels are kept as their
-  before-numbers, ``score_ablation_simt`` (``KERNELS["noA_simt"]``,
-  ``["nodot_simt"]``), on no path. noW and nomax run the SIMT kernel
-  (csrc/score_variants.cu).
+  ``nodot_best_offsets``). All four run on K1's u8 tensor-core
+  pipeline: noA as ``score_best_offsets_tc_kernel<kUnmasked,
+  kBestOff>`` (A words with the limb in every code byte); noW as
+  ``<kStandard, kBestOff, kProduct, kGroupSlab>`` (plan S: one CTA a
+  group of G pairs, the group's window expanded once into a slab that
+  every pair of the group reads) or ``<..., kGroupRing>`` (plan R:
+  K1's ring on the group's window), whichever ``now_plan`` names;
+  nomax as ``<kStandard, kBestOnly>`` (a max-only epilogue); nodot as
+  ``<kStandard, kBestOff, kSlabSlice>`` (K1's slab build with the
+  wgmma replaced by reads of the slabs' terms). Their earlier SIMT
+  kernels (csrc/score_variants.cu) are kept as their before-numbers,
+  ``score_ablation_simt`` (``KERNELS["noA_simt"]``, ``["noW_simt"]``,
+  ``["nomax_simt"]``, ``["nodot_simt"]``), on no path.
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what
 the kernel does not take) and runs its plain torch version, kept beside
@@ -65,7 +70,8 @@ from numpy seed 0 at its shapes (B,R,L,W = 512,128,128,128; hap2 at
 B/2 loci x H=2 windows), checks each variant's result on the first 8
 pairs, times its counterpart with CUDA events (median of 20 launches
 after warm-up) and prints ``name: step=...ms reads/s=...M exact=...
-body_exact=... kernel=...``. ``exact`` is the harness's check, against
+body_exact=... kernel=...`` (``limb2-noW`` also ``plan=S`` or
+``plan=R``, ``now_plan``). ``exact`` is the harness's check, against
 K1's function (per window for hap2); it is False where the body
 computes another function by design (int8, the ablations), as it would
 be on the TPU. ``body_exact`` holds the kernel against the plain
@@ -103,11 +109,15 @@ LAUNCHES_HAP_SIMT = 0   # KX-H-s, score_hap_kernel
 LAUNCHES_INT8 = 0       # KX-I
 LAUNCHES_NOA = 0        # KX-A, score_best_offsets_tc_kernel<kUnmasked,
                         # kBestOff>
-LAUNCHES_NOW = 0        # KX-A, score_ablation_kernel<kNoW>
-LAUNCHES_NOMAX = 0      # KX-A, score_ablation_kernel<kNoMax>
+LAUNCHES_NOW = 0        # KX-A, score_best_offsets_tc_kernel<kStandard,
+                        # kBestOff, kProduct, kGroupSlab or kGroupRing>
+LAUNCHES_NOMAX = 0      # KX-A, score_best_offsets_tc_kernel<kStandard,
+                        # kBestOnly>
 LAUNCHES_NODOT = 0      # KX-A, score_best_offsets_tc_kernel<kStandard,
                         # kBestOff, kSlabSlice>
 LAUNCHES_NOA_SIMT = 0   # KX-A-s, score_ablation_kernel<kNoA>
+LAUNCHES_NOW_SIMT = 0   # KX-A-s, score_ablation_kernel<kNoW>
+LAUNCHES_NOMAX_SIMT = 0     # KX-A-s, score_ablation_kernel<kNoMax>
 LAUNCHES_NODOT_SIMT = 0     # KX-A-s, score_ablation_kernel<kNoDot>
 LAUNCHES_SIMT = 0       # K1-s, score_best_offsets_kernel<false>
 
@@ -122,6 +132,13 @@ ONESUM_MAX_LEN = 256
 DEFAULT_G = 4           # the harness's tiles per grid step (:782)
 HAP_WINDOWS = 2         # H of hap2 (:920)
 _MAX_B = 65535          # the kernels' grid y dimension
+# noW's plan S on K1's pipeline (csrc/score_best_offsets_tc.cu): its
+# shared memory holds the barriers, the raw window ring, the slab of every
+# step's expanded Bw tile and K1's resident A, within the card's 232,448
+# bytes a block
+_SMEM_LIMIT = 232448
+_TC_BAR, _TC_RAW_RING = 128, 3 * 32 * 64    # bytes
+_TC_STEP_TILE = 64 * 128                    # a step's Bw: 64 offsets x 128 K
 
 
 # --- plain versions ---------------------------------------------------------
@@ -309,10 +326,11 @@ def _tc_lib():
         lib.score_packed_tc_launch.argtypes = [vp, vp, vp] + [ll] * 5 + [
             vp, vp]
         lib.score_hap_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [vp] * 3
-        lib.score_ablation_tc_launch.argtypes = [vp] * 4 + [ll] * 4 + [
+        lib.score_ablation_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [
             ctypes.c_int] + [vp] * 3
+        lib.score_now_tc_plan.argtypes = [ll] * 5
         for fn in (lib.score_packed_tc_launch, lib.score_hap_tc_launch,
-                   lib.score_ablation_tc_launch,
+                   lib.score_ablation_tc_launch, lib.score_now_tc_plan,
                    lib.score_best_offsets_tc_max_len):
             fn.restype = ctypes.c_int
         lib._packed_bound = True
@@ -585,9 +603,9 @@ _ABLATIONS = {
     "nomax": (2, nomax_best_offsets),
     "nodot": (3, nodot_best_offsets),
 }
-# the ablations on K1's u8 tensor-core pipeline; the others run the SIMT
-# kernel
-TC_ABLATIONS = ("noA", "nodot")
+# the ablations on K1's u8 tensor-core pipeline: all four, each with its
+# SIMT kernel kept as its before-number
+TC_ABLATIONS = tuple(_ABLATIONS)
 
 
 def _known_ablation(which):
@@ -610,6 +628,37 @@ def ablation_best_offsets(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
     return plain(codes, delta, lnmis, win_t)
 
 
+def now_slab_bytes(R, L, W) -> int:
+    """Shared memory of noW's plan S for R reads of L bases against W
+    offsets: the barriers, the raw window ring, the slab of all nT*nK
+    step tiles (4*Lp*nTw*64 bytes) and K1's resident A of its warpgroups
+    (one per 32 reads, at most 4; 256*Lp bytes each), Lp = L rounded up
+    to 32 (csrc/score_best_offsets_tc.cu slab_smem)."""
+    Lp = -(-L // 32) * 32
+    n_wg = min(-(-R // 32), 4)
+    return (_TC_BAR + _TC_RAW_RING + (Lp // 32) * -(-W // 64) * _TC_STEP_TILE
+            + n_wg * 256 * Lp)
+
+
+def now_plan(B, R, L, W, G=DEFAULT_G, device="cpu") -> str:
+    """The plan noW's tensor-core kernel takes at this shape: "S" where
+    now_slab_bytes fits in a block's shared memory (one CTA a group of G
+    pairs, the group's window expanded once), else "R" (K1's ring on the
+    group's window). On a CUDA device it is the kernel library's own
+    answer (score_now_tc_plan), else the same rule here. Raises for a
+    shape the kernel does not take."""
+    if min(B, R, L, W, G) < 1 or B > _MAX_B:
+        raise ValueError(f"noW: no plan for B={B} R={R} L={L} W={W} G={G}")
+    if torch.device(device).type == "cuda":
+        lib = _tc_lib()
+        code = lib.score_now_tc_plan(B, R, L, W, G)
+        if code < 0:
+            raise ValueError(f"noW: the kernel takes no B={B} R={R} L={L} "
+                             f"W={W} G={G}")
+        return "S" if code else "R"
+    return "S" if now_slab_bytes(R, L, W) <= _SMEM_LIMIT else "R"
+
+
 def _launch_ablation(fn_name, which, codes, delta, lnmis, win_t, G, tc):
     """Check KX-A's operands on the card and launch `which` on K1's
     pipeline (`tc`) or the SIMT kernel; returns (best, off) [B,R]."""
@@ -625,38 +674,34 @@ def _launch_ablation(fn_name, which, codes, delta, lnmis, win_t, G, tc):
     if G < 1:
         raise ValueError(f"{fn_name}: G must be at least 1, got {G}")
     best, off = _best_off((B, R), codes.device)
-    ptrs = (codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-            win_t.data_ptr(), B, R, L, W)
-    outs = (best.data_ptr(), off.data_ptr(), _stream(codes.device))
-    _raise_on(fn_name, lib.score_ablation_tc_launch(*ptrs, code, *outs) if tc
-              else lib.score_ablation_launch(*ptrs, G, code, *outs))
+    launch = lib.score_ablation_tc_launch if tc else lib.score_ablation_launch
+    _raise_on(fn_name, launch(
+        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+        win_t.data_ptr(), B, R, L, W, G, code, best.data_ptr(),
+        off.data_ptr(), _stream(codes.device)))
     return best, off
 
 
 def score_ablation(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
     """KX-A: the timing ablation `which` (noA, noW, nomax, nodot) of
     the 2-limb body: (best, off) [B,R], the body's result (see the
-    plain versions); noA and nodot on K1's u8 tensor-core pipeline, noW
-    and nomax on the SIMT kernel. `G` is noW's grid step; the others
-    ignore it. Shapes and dtypes as score_best_offsets."""
+    plain versions), on K1's u8 tensor-core pipeline. `G` is noW's grid
+    step (its plan: ``now_plan``); the others ignore it. Shapes and
+    dtypes as score_best_offsets."""
     _known_ablation(which)
     if codes.device.type == "cpu":
         return ablation_best_offsets(which, codes, delta, lnmis, win_t, G)
     out = _launch_ablation(f"score_ablation({which})", which, codes, delta,
-                           lnmis, win_t, G, which in TC_ABLATIONS)
+                           lnmis, win_t, G, tc=True)
     globals()[_counter(which)] += 1
     return out
 
 
 def score_ablation_simt(which, codes, delta, lnmis, win_t, G=DEFAULT_G):
-    """KX-A-s: noA's or nodot's result from the earlier SIMT kernel,
-    the before-number of its tensor-core one; on no path. Raises for
-    noW and nomax, whose SIMT kernel is score_ablation's."""
+    """KX-A-s: the ablation `which`'s result from the earlier SIMT
+    kernel (csrc/score_variants.cu, L <= 907), the before-number of its
+    tensor-core one; on no path."""
     _known_ablation(which)
-    if which not in TC_ABLATIONS:
-        raise ValueError(f"score_ablation_simt: {which} has no SIMT "
-                         f"before-number (score_ablation runs its SIMT "
-                         f"kernel); known: {list(TC_ABLATIONS)}")
     if codes.device.type == "cpu":
         return ablation_best_offsets(which, codes, delta, lnmis, win_t, G)
     out = _launch_ablation(f"score_ablation_simt({which})", which, codes,
@@ -730,10 +775,9 @@ def _ablation(which, kernel, line, simt=False):
     def plain(c, d, m, w, G):
         return ablation_best_offsets(which, c, d, m, w, G)
     label = f"score_limb2_{which}"
-    tc = which in TC_ABLATIONS and not simt
     return Kernel(label + ("_simt" if simt else ""), kernel,
                   _counter(which, simt), f"{HARNESS}:{line}", _with_g, call,
-                  plain, TC_SOURCE if tc else SOURCE, which,
+                  plain, SOURCE if simt else TC_SOURCE, which,
                   label if simt else "")
 
 
@@ -787,12 +831,18 @@ KERNELS = {
                    int8_best_offsets, function="int8"),
     "noA": _ablation("noA", "score_best_offsets_tc_kernel<kUnmasked, "
                      "kBestOff>", 310),
-    "noW": _ablation("noW", "score_ablation_kernel<kNoW>", 333),
-    "nomax": _ablation("nomax", "score_ablation_kernel<kNoMax>", 360),
+    "noW": _ablation("noW", "score_best_offsets_tc_kernel<kStandard, "
+                     "kBestOff, kProduct, kGroupSlab | kGroupRing>", 333),
+    "nomax": _ablation("nomax", "score_best_offsets_tc_kernel<kStandard, "
+                       "kBestOnly>", 360),
     "nodot": _ablation("nodot", "score_best_offsets_tc_kernel<kStandard, "
                        "kBestOff, kSlabSlice>", 386),
     "noA_simt": _ablation("noA", "score_ablation_kernel<kNoA>", 310,
                           simt=True),
+    "noW_simt": _ablation("noW", "score_ablation_kernel<kNoW>", 333,
+                          simt=True),
+    "nomax_simt": _ablation("nomax", "score_ablation_kernel<kNoMax>", 360,
+                            simt=True),
     "nodot_simt": _ablation("nodot", "score_ablation_kernel<kNoDot>", 386,
                             simt=True),
     "simt": Kernel("score_best_offsets_simt",
@@ -912,13 +962,18 @@ def run(variants, device="cuda", B=HARNESS_SHAPE[0],
         exact, body_exact = _equal(got, oracle), _equal(got, body)
         ms = median_ms(step, dev)
         pairs = shape[0] * R * (HAP_WINDOWS if hap else 1)
-        rows.append({"name": name, "kernel": k.kernel, "label": k.label,
-                     "device": dev.type, "shape": list(shape), "G": G,
-                     "step_ms": ms, "reads_per_s": pairs / ms * 1e3,
-                     "exact": exact, "body_exact": body_exact})
+        row = {"name": name, "kernel": k.kernel, "label": k.label,
+               "device": dev.type, "shape": list(shape), "G": G,
+               "step_ms": ms, "reads_per_s": pairs / ms * 1e3,
+               "exact": exact, "body_exact": body_exact}
+        plan = ""
+        if k is KERNELS["noW"]:
+            row["plan"] = now_plan(*shape, G, dev)
+            plan = f" plan={row['plan']}"
+        rows.append(row)
         print(f"{name}: step={ms:.3f}ms reads/s={pairs / ms / 1e3:.1f}M "
-              f"exact={exact} body_exact={body_exact} kernel={k.kernel}",
-              flush=True)
+              f"exact={exact} body_exact={body_exact} kernel={k.kernel}"
+              f"{plan}", flush=True)
     return rows
 
 

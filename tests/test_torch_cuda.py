@@ -1,8 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
 tensor-core kernel, and K1-h on the bf16 tensor cores with K1-h-s, its
-SIMT before-number; the K1-x variants, KX-P, KX-H and the ablations noA
-and nodot on K1's pipeline and KX-K on K1-h's among them, their SIMT
-before-numbers, and K1-s)
+SIMT before-number; the K1-x variants, KX-P, KX-H and the four ablations
+(noA, noW in both its plans, nomax, nodot) on K1's pipeline and KX-K on
+K1-h's among them, their SIMT before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, and a cold --jobs 2 germline run on the card
@@ -698,12 +698,125 @@ def test_kxa_nodot_ties_across_n_tiles(cuda, W):
     assert torch.equal(off, first.expand(B, R))
 
 
+# noW's plan at each shape (sv.now_slab_bytes against 232,448 bytes)
+NOW_PLANS = {(512, 128, 128, 128): "S", (256, 32, 160, 192): "S",
+             (256, 128, 160, 256): "R", (256, 128, 128, 192): "R"}
+
+
+@pytest.mark.parametrize("which", ["noW", "nomax"])
+@pytest.mark.parametrize("B,R,L,W,plan", [
+    (512, 128, 128, 128, "S"), (256, 128, 160, 256, "R"),   # both shapes
+    (256, 32, 160, 192, "S"), (8, 128, 224, 256, "R"),      # A in the ring
+    (2, 64, 1000, 128, "R"),          # beyond the SIMT kernel's 907
+    (10, 128, 128, 128, "S"), (10, 128, 160, 256, "R"),     # B % 4 = 2
+    (3, 40, 100, 70, "S"), (6, 33, 99, 129, "S")])
+def test_kxa_now_nomax_tensor_cores_bit_identical_to_plain(cuda, which, B,
+                                                           R, L, W, plan):
+    """noW (G = 4, in the plan the shape gets) and nomax on K1's u8
+    pipeline equal their plain versions bit for bit: both shapes, both
+    plans, a partial last group, L = 224 and L = 1000, ragged shapes,
+    codes 4 and below 0 under non-zero deltas; each counts its own
+    launches, its SIMT before-number none; nomax's best is K1's."""
+    rng = np.random.default_rng(B + R + L + W + len(which))
+    arrs = k1_inputs(rng, B, R, L, W)
+    arrs[0][0] = 4
+    arrs[0][-1, :, ::3] = -1
+    arrs[3][-1, ::5] = -1
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    if which == "noW":
+        assert sv.now_plan(B, R, L, W, 4, cuda) == plan
+    before = kxa_counts(which)
+    got = sv.score_ablation(which, *t, G=4)
+    assert kxa_counts(which) == (before[0] + 1, before[1])
+    want = sv.ablation_best_offsets(which, *t, G=4)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if which == "nomax":
+        k1 = sk_exact(*t)[0]
+        assert torch.equal(got[0].view(torch.int32), k1.view(torch.int32))
+        assert bool((got[1] == 0).all())
+    if L <= sv._lib().score_variants_max_len():
+        simt = sv.score_ablation_simt(which, *t, G=4)
+        assert kxa_counts(which) == (before[0] + 1, before[1] + 1)
+        for a, b in zip(simt, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    else:
+        with pytest.raises(ValueError, match="outside the kernel's range"):
+            sv.score_ablation_simt(which, *t, G=4)
+
+
+def test_kxa_now_plan_query_gives_the_tables_answers(cuda):
+    """The kernel library's plan (score_now_tc_plan) is S where the
+    slab fits beside K1's resident A and R elsewhere, the table's answer
+    at its shapes and the Python rule's at every shape, whatever G; it
+    refuses what the launch refuses."""
+    for (B, R, L, W), plan in NOW_PLANS.items():
+        for G in (1, 4, B, 2 * B):
+            assert sv.now_plan(B, R, L, W, G, cuda) == plan
+    for R in (1, 32, 33, 96, 128, 512):
+        for L in (1, 32, 100, 128, 160, 224, 1000, 1816):
+            for W in (1, 64, 128, 192, 256, 320):
+                assert (sv.now_plan(8, R, L, W, 4, cuda)
+                        == sv.now_plan(8, R, L, W, 4)), (R, L, W)
+    lib = sv._tc_lib()
+    assert lib.score_now_tc_plan(8, 32, 1817, 64, 4) == -1
+    assert lib.score_now_tc_plan(65536, 32, 128, 64, 4) == -1
+    assert lib.score_now_tc_plan(8, 32, 128, 64, 0) == -1
+
+
+@pytest.mark.parametrize("W", [128, 192, 256])
+def test_kxa_nomax_ties_across_n_tiles(cuda, W):
+    """Each pair's reads carry one sequence found exactly at two offsets
+    around an N-tile boundary: K1 takes the first, nomax keeps K1's best
+    bits and offset 0."""
+    rng = np.random.default_rng(W + 1)
+    B, R, L = 8, 128, 128
+    cols = [(t + a, t + b) for t in range(64, W, 64)
+            for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, 64)) if t + b < W]
+    codes, delta, lnmis, win = k1_inputs(rng, B, R, L, W)
+    reads = rng.integers(0, 4, (B, L))
+    codes[:] = reads[:, None]
+    win = rng.integers(0, 4, (B, L, W)).astype(np.int8)
+    for b in range(B):
+        for w in cols[b % len(cols)]:
+            win[b, :, w] = reads[b]
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    best, off = sv.score_ablation("nomax", *t)
+    k1_best, k1_off = sk_exact(*t)
+    torch.cuda.synchronize()
+    first = torch.tensor([cols[b % len(cols)][0] for b in range(B)],
+                         dtype=torch.int32, device=cuda)
+    assert torch.equal(k1_off, first[:, None].expand(B, R))
+    assert torch.equal(best.view(torch.int32), k1_best.view(torch.int32))
+    assert bool((off == 0).all())
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 6, 8])
+@pytest.mark.parametrize("R,L,W", [(128, 128, 128), (128, 160, 256)])
+def test_kxa_now_groups_of_every_size(cuda, G, R, L, W):
+    """B = 6 in groups of G, in plan S (128,128,128) and plan R
+    (128,160,256): a partial last group (G = 4), G = 1 (K1's result),
+    G = 3, G >= B (one group) all equal now_best_offsets."""
+    B = 6
+    t = [torch.from_numpy(a).to(cuda) for a in k1_inputs(
+        np.random.default_rng(G + L), B, R, L, W)]
+    got = sv.score_ablation("noW", *t, G=G)
+    want = sv.now_best_offsets(*t, G)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if G == 1:
+        for a, b in zip(got, sk_exact(*t)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_kxa_wrappers_reject_what_the_kernels_do_not_take(cuda):
     c, d, m, w = (torch.from_numpy(a).to(cuda)
                   for a in k1_inputs(np.random.default_rng(3), 2, 32, 64, 64))
-    before = kxa_counts("noA") + kxa_counts("nodot")
+    before = [kxa_counts(w) for w in sv.TC_ABLATIONS]
     for fn in (sv.score_ablation, sv.score_ablation_simt):
-        for which in ("noA", "nodot"):
+        for which in sv.TC_ABLATIONS:
             with pytest.raises(ValueError):
                 fn(which, c.to(torch.int32), d, m, w)
             with pytest.raises(ValueError):  # not contiguous
@@ -718,9 +831,10 @@ def test_kxa_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ((1, 2), torch.float32), ((1, 1817, 8), torch.int8))]
     with pytest.raises(ValueError, match="L <= 1816"):
         sv.score_ablation("noA", *long)
-    with pytest.raises(ValueError, match="no SIMT before-number"):
-        sv.score_ablation_simt("noW", c, d, m, w)
-    assert kxa_counts("noA") + kxa_counts("nodot") == before
+    for fn in (sv.score_ablation, sv.score_ablation_simt):
+        with pytest.raises(ValueError, match="G must be at least 1"):
+            fn("noW", c, d, m, w, G=0)
+    assert [kxa_counts(w) for w in sv.TC_ABLATIONS] == before
 
 
 def test_kxk_kxh_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -801,7 +915,7 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
              "int8", "limb2-noA", "limb2-noW", "limb2-nomax", "limb2-nodot"]
     before = packed_counts()
     before_kh = onesum_counts() + hap_counts()
-    before_a = kxa_counts("noA") + kxa_counts("nodot")
+    before_a = [kxa_counts(w) for w in sv.TC_ABLATIONS]
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(names)
@@ -819,10 +933,14 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     assert "kernel=score_highest_tc_kernel<kOneSum>" in lines[4]
     assert ("kernel=score_best_offsets_tc_kernel<kStandard, kHapOut>"
             in lines[5])
-    # limb2-noA and limb2-nodot reach K1's pipeline, their SIMT kernels
-    # are on no path
-    after_a = kxa_counts("noA") + kxa_counts("nodot")
-    assert after_a[0] > before_a[0] and after_a[2] > before_a[2]
-    assert (after_a[1], after_a[3]) == (before_a[1], before_a[3])
+    # the four ablations reach K1's pipeline, their SIMT kernels are on
+    # no path; limb2-noW takes plan S at the harness's L and W
+    after_a = [kxa_counts(w) for w in sv.TC_ABLATIONS]
+    for (tc, simt), (tc0, simt0) in zip(after_a, before_a):
+        assert tc > tc0 and simt == simt0
     assert "kernel=score_best_offsets_tc_kernel<kUnmasked, kBestOff>" in (
         lines[7])
+    assert ("kernel=score_best_offsets_tc_kernel<kStandard, kBestOff, "
+            "kProduct, kGroupSlab | kGroupRing> plan=S") in lines[8]
+    assert ("kernel=score_best_offsets_tc_kernel<kStandard, kBestOnly>"
+            in lines[9])

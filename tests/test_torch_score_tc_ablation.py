@@ -385,10 +385,11 @@ def test_code4_and_negative_codes(interpret):
 # --- the wrappers and the table on the CPU ----------------------------------
 
 def test_wrappers_and_kernel_table():
-    """noA and nodot name the tensor-core instantiations; their SIMT
-    kernels are before-numbers with their own counters; on CPU tensors
-    every wrapper runs the plain version and counts nothing."""
+    """The four ablations name their tensor-core instantiations; their
+    SIMT kernels are before-numbers with their own counters; on CPU
+    tensors every wrapper runs the plain version and counts nothing."""
     K = sv.KERNELS
+    assert sv.TC_ABLATIONS == ("noA", "noW", "nomax", "nodot")
     assert K["noA"].kernel == ("score_best_offsets_tc_kernel<kUnmasked, "
                                "kBestOff>")
     assert K["nodot"].kernel == ("score_best_offsets_tc_kernel<kStandard, "
@@ -400,10 +401,9 @@ def test_wrappers_and_kernel_table():
         assert tc.counter != simt.counter
         assert tc.function == simt.function == which
         assert sv.variant_kernel(f"limb2-{which}")[1] is tc
-    for which in ("noW", "nomax"):
-        assert K[which].source == sv.SOURCE and K[which].function == which
-        with pytest.raises(ValueError, match="no SIMT before-number"):
-            sv.score_ablation_simt(which, *[None] * 4)
+    for which, variant in (("noW", "kNoW"), ("nomax", "kNoMax")):
+        assert K[f"{which}_simt"].kernel == (
+            f"score_ablation_kernel<{variant}>")
     inp = [torch.from_numpy(a) for a in lut_inputs(
         np.random.default_rng(3), 2, 16, 32, 64)]
     counters = [getattr(sv, K[k].counter) for k in K]

@@ -306,7 +306,7 @@ def test_wrappers_on_cpu_launch_nothing():
     and counts no launch."""
     inp = t(*harness_inputs(np.random.default_rng(6), 32, W=2 * W))
     counters = [k.counter for k in sv.KERNELS.values()]
-    assert len(set(counters)) == len(sv.KERNELS) == 16
+    assert len(set(counters)) == len(sv.KERNELS) == 18
     before = [getattr(sv, c) for c in counters] + [sk.LAUNCHES]
     for k in sv.KERNELS.values():
         best, off = k.call(*k.prepare(inp, G))
@@ -331,7 +331,8 @@ def test_runner_on_cpu(capsys):
             in lines[0])
     assert "kernel=score_highest_tc_kernel<kOneSum>" in lines[1]
     assert "kernel=score_best_offsets_tc_kernel<kStandard, kHapOut>" in lines[2]
-    assert "kernel=score_ablation_kernel<kNoW>" in lines[4]
+    assert ("kernel=score_best_offsets_tc_kernel<kStandard, kBestOff, "
+            "kProduct, kGroupSlab | kGroupRing> plan=S") in lines[4]
 
 
 def test_runner_raises_on_ablations_and_unknown_names():
