@@ -31,13 +31,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels' times at the harness's shape. Then each kernel of
    ops/score_variants.KERNELS (KX-P, KX-H and the four ablations noA,
    noW, nomax and nodot on K1's u8 tensor-core pipeline, KX-K on K1-h's
-   bf16 one, their SIMT before-numbers, KX-I and K1-s) against its
+   bf16 one, KX-I on K1's u8 pipeline with the limbs clamped, their
+   before-numbers, and K1-s) against its
    plain version bit for bit at the harness's shape and the main
    path's, with tie, ragged and code-4 cases (KX-H also ties at its
    window boundaries and windows of 96 and 160 offsets; KX-K also its
    largest sum, L = 256 with every v = 0xFFFF; the ablations also L =
    224, where K1's pipeline keeps A in its ring, nodot at R = 4L and W
-   = 4L and ties across N tiles, nomax ties across N tiles, noA, noW
+   = 4L and ties across N tiles, nomax ties across N tiles, KX-I and its
+   mma.sync before-number limbs at 126, 127, 128 and 255 with negative
+   deltas and ties across N tiles, noA, noW
    and nomax at L = 1000; noW, whose rows name the plan it took (S: a
    group's window expanded once into a slab; R: K1's ring on it), in
    plan S at the harness's shape and at 256,32,160,192, in plan R at
@@ -48,7 +51,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    KX-K's row also carries its design's own floor, two bf16 passes of
    the one-hot product;
 3. snv: the SNV tile functions on the card against the port's CPU path
-   (integer fields equal, lhood bit-equal);
+   (integer fields equal, lhood bit-equal), and RNA mode's tiles (the
+   het-VF extension with per-call dependent-eprob deltas, at a tile's
+   own D and in chunks padded to 32) with lhood, strand bias and the
+   integer fields bit-equal;
 3b. somatic: the somatic SNV model on the card against the port's CPU
    path on a 200,000-row random tile (grid states bit-equal, integer
    fields equal), and its peak bytes per row against the sizes from
@@ -85,6 +91,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    repository has no CRAM writer: the fixture is the only CRAM input)
    and on synth.bam, with identical records. The fixture's pairs are
    all improper, so no read reaches tier 1 and K1 is launched no time.
+12. EVS model files: phase 4's contig with SNV and indel forests that
+   forest_json writes from numpy seed 12 (the card's machine has no
+   sklearn), cuda then cpu, every record equal; the records EVS changed
+   against phase 4 (none fails);
+13. continuous-VF: germline --call-continuous-vf on phase 4's contig's
+   first CONT_MB Mb (host code: no K1, no SNV tile), cuda then cpu,
+   every record equal;
+14. RNA: germline --rna --disable-evs on phase 4's contig, cuda then
+   cpu, every record equal; the SNV tiles' launches and stream ms on the
+   card (the het-VF extension there).
+Phases 12-14 log each run's size, wall and stream ms by device phase.
 
 The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
@@ -526,6 +543,20 @@ def nodot_tile_ties(np, rng, B, R, L, W):
     return codes, delta, lnmis, win
 
 
+def int8_limbs(np, rng, B, R, L, W):
+    """KX-I's clamp: each limb of d_int one of 126, 127, 128 and 255, a
+    quarter of the deltas negative (their two's complement bytes clamp),
+    codes -1..4 and windows -1..4."""
+    edge = np.array([126, 127, 128, 255])
+    d = (edge[rng.integers(0, 4, (B, R, L))] * 256
+         + edge[rng.integers(0, 4, (B, R, L))])
+    d = np.where(rng.random((B, R, L)) < 0.25, -d, d)
+    return (rng.integers(-1, 5, (B, R, L)).astype(np.int8),
+            (d / 2048).astype(np.float32),
+            rng.normal(-80, 10, (B, R)).astype(np.float32),
+            rng.integers(-1, 5, (B, L, W)).astype(np.int8))
+
+
 def k1_code4(np, rng, B, R, L, W):
     """Random inputs with pair 0's reads all code 4 under non-zero
     deltas and its window code 4 at the first 7 offsets: pair 0 scores
@@ -946,6 +977,45 @@ def phase_snv(np, torch, dev, cuda: bool, L: int):
                 got.strand_bias - want.strand_bias).max()),
         }
         log(f"snv D={D}: " + json.dumps(diffs))
+    phase_snv_rna(np, dev, L // 8)
+
+
+def phase_snv_rna(np, dev, n: int):
+    """RNA mode's tiles (the het-VF extension, per-call dependent-eprob
+    deltas) on `dev` against the port's CPU path: lhood, strand bias
+    and the integer fields bit for bit, at one tile's D and in chunks
+    whose D is padded to 32 (a region longer than SNV_TILE_L)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    rng = np.random.default_rng(8)
+    for D, L in ((45, n), (70, sd.SNV_TILE_L + n)):
+        ref = rng.integers(0, 5, L).astype(np.int32)
+        base = np.where(rng.random((L, D)) < 0.3,
+                        rng.integers(0, 4, (L, D)),
+                        np.minimum(ref, 3)[:, None]).astype(np.int8)
+        qual = rng.integers(0, 45, (L, D)).astype(np.uint8)
+        mask = rng.random((L, D)) < 0.8
+        fwd = rng.random((L, D)) < 0.5
+        plane = np.where(rng.random((L, D)) < 0.1,
+                         -rng.random((L, D)), 0.0).astype(np.float32)
+        # RNA mode reads the per-call deltas alone (dep[1])
+        dep = (np.zeros((L, 4), np.float32),
+               lambda rows: plane[np.arange(L) if rows is None else rows])
+        tile = sd.SnvPileupTile(base_id=base, qual=qual, is_fwd=fwd,
+                                mask=mask, ref_gt=ref)
+        got, want = (sd.call_snv_tile_chunked(tile, 0.001, None, 0.45,
+                                              0.0501, dep=dep, device=d)
+                     for d in (dev, "cpu"))
+        for f in ("genome_max_gt", "poly_max_gt", "snv_qphred",
+                  "genome_max_gt_qphred", "poly_max_gt_qphred",
+                  "phred_loghood", "lhood", "strand_bias"):
+            a = np.ascontiguousarray(getattr(got, f))
+            b = np.ascontiguousarray(getattr(want, f))
+            if a.tobytes() != b.tobytes():
+                fail(f"snv rna D={D} L={L}: {f} differs from the CPU path")
+        log(f"snv rna D={D}: " + json.dumps({
+            "rows": L, "snp_rows": int((want.snv_qphred != 0).sum()),
+            "ln_ref_max_abs_diff": float(np.abs(
+                got.ln_ref_pprob - want.ln_ref_pprob).max())}))
 
 
 def phase_somatic_snv(np, torch, dev, L: int):
@@ -1450,6 +1520,7 @@ def worker_report(out, n, cuda: bool) -> list[dict]:
 
 
 JOBS = 4
+CONT_MB = 1.0   # phase 13's region (continuous-VF is host code)
 
 
 def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
@@ -1689,6 +1760,132 @@ def phase_cram(cuda: bool, workdir):
     return counts
 
 
+# the germline EVS features of phase 12's forests (the names the port's
+# gVCF writer computes; tests/test_germline_snv_evs.py and
+# tests/test_germline_indel_evs.py train on the same)
+EVS_SNV_FEATURES = [
+    "SiteHomopolymerLength", "SampleStrandBias",
+    "SamplePrimaryAltAlleleDepth", "VariantAlleleQuality",
+    "SampleMeanDistanceFromReadEdge", "SamplePrimaryAltAlleleDepthFraction",
+    "SampleRMSMappingQuality", "SampleUsedDepthFraction"]
+EVS_INDEL_FEATURES = [
+    "GenotypeCategory", "SampleIndelRepeatCount",
+    "SampleIndelRepeatUnitSize", "SampleIndelAlleleBiasLower",
+    "SampleIndelAlleleBias", "SampleProxyRMSMappingQuality",
+    "RelativeTotalLocusDepth", "SamplePrimaryAltAlleleDepthFraction",
+    "ConservativeGenotypeQuality", "InterruptedHomopolymerLength",
+    "ContextCompressability", "IndelCategory",
+    "SampleAlleleCountStrandBias", "NormalizedAltHaplotypeCountRatio"]
+
+
+def forest_json(np, rng, features, kind, key, cut, path, n_trees=8,
+                depth=4):
+    """A seeded random forest in the reference's scoring-model JSON
+    (CalibrationModels -> Germline -> kind; each tree's "tree",
+    "decisions" and "node_votes", as ops/rf.load_scoring_model reads
+    them), written without sklearn: full trees of `depth` splits whose
+    root splits feature `key` near `cut` and sends the calls below it to
+    leaves voting mostly false positive."""
+    trees = []
+    n_inner = 2 ** depth - 1
+    for _ in range(n_trees):
+        tree, dec, votes = {}, {}, {}
+        for i in range(2 ** (depth + 1) - 1):
+            if i < n_inner:
+                tree[str(i)] = [2 * i + 1, 2 * i + 2]
+                f = key if i == 0 else int(rng.integers(0, len(features)))
+                thr = (cut * float(rng.uniform(0.7, 1.3)) if f == key
+                       else float(rng.normal(0.5, 1.0)))
+                dec[str(i)] = [f, thr]
+            else:
+                tree[str(i)] = [-1, -1]
+            node, low = i, False   # below the root's split?
+            while node > 0:
+                parent = (node - 1) // 2
+                low = node == 2 * parent + 1
+                node = parent
+            fp = float(rng.integers(6, 10) if low else rng.integers(0, 4))
+            votes[str(i)] = [fp, 10.0 - fp]
+        trees.append({"tree": tree, "decisions": dec, "node_votes": votes})
+    doc = {"CalibrationModels": {"Germline": {kind: {
+        "Features": features, "Calibration": {"Scale": 1.0, "Power": 1.0},
+        "FilterCutoff": 3.0, "ModelType": "RandomForest",
+        "Date": "2026-01-01T00:00:00+00:00", "Model": trees}}}}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def phase_mode(torch, cuda: bool, label, fa, bam, n_reads, mb, workdir,
+               extra, k1_expected=True, tiles_expected=True):
+    """The germline CLI with `extra` on the card (launch counters set to
+    0 just before and read just after, stream time of the device phases)
+    and then on the CPU, on phase 4's data; every record of
+    variants.vcf.gz and genome.S1.vcf.gz equal. Returns (the card run's
+    counts, its output directory, the row of numbers logged)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import score_kernel as sk
+    devices = ["cuda", "cpu"] if cuda else ["cpu"]
+    outs, row = {}, {"contig_mb": mb, "reads": n_reads, "extra": extra}
+    counts = None
+    for device in devices:
+        out = os.path.join(workdir, f"{label}_{device}")
+        timer = StreamTimer(torch, device == "cuda")
+        timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
+        timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
+        timer.wrap(sd, "call_snv_tile", "snv_call_tiles")
+        timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
+        try:
+            wall, _, c = launches_during(
+                lambda: run_cli(fa, bam, out, device, extra))  # noqa: B023
+        finally:
+            timer.restore()
+        var, gv = check_outputs(out, n_reads)
+        row[f"{device}_wall_s"] = wall
+        row[f"{device}_stream_ms_by_phase"] = timer.totals_ms()
+        row["variant_records"], row["gvcf_records"] = len(var), len(gv)
+        outs[device] = out
+        if counts is None:
+            counts = c
+            check_path_launches(label, c, cuda, k1_expected)
+            row["k1_launches"] = c["k1"]
+            row["snv_tile_launches"] = c["snv"]
+            if cuda and tiles_expected and tile_count(
+                    c, "snv", "tile", "cuda") == 0:
+                fail(f"{label} ran no SNV tile on the card")
+    if cuda:
+        row["records_equal"] = compare_records(
+            outs["cuda"], outs["cpu"], ("variants.vcf.gz",
+                                        "genome.S1.vcf.gz"),
+            f"{label}: cuda against cpu")
+    log(f"{label}: " + json.dumps(row))
+    return counts, outs[devices[0]], row
+
+
+def phase_evs(np, torch, cuda, fa, bam, n_reads, mb, workdir, extra,
+              plain_out):
+    """Phase 12: SNV and indel forests from forest_json; how many records
+    EVS changed against phase 4's run (none changed fails: the models
+    were not applied)."""
+    rng = np.random.default_rng(12)
+    snv = forest_json(np, rng, EVS_SNV_FEATURES, "SNV", 3, 40.0,
+                      os.path.join(workdir, "germlineSNV.json"))
+    indel = forest_json(np, rng, EVS_INDEL_FEATURES, "INDEL", 8, 30.0,
+                        os.path.join(workdir, "germlineIndel.json"))
+    counts, out, row = phase_mode(
+        torch, cuda, "evs", fa, bam, n_reads, mb, workdir,
+        [*extra, "--snv-scoring-model-file", snv,
+         "--indel-scoring-model-file", indel])
+    a = vcf_records(os.path.join(plain_out, "variants.vcf.gz"))
+    b = vcf_records(os.path.join(out, "variants.vcf.gz"))
+    changed = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    if changed == 0:
+        fail("phase 12: EVS changed no record against phase 4")
+    log("evs: " + json.dumps({"records_changed_by_evs": changed,
+                              "records": len(b)}))
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
@@ -1761,10 +1958,12 @@ def main(argv=None) -> int:
     # each (kinds, cases): KX-H's window boundaries and widths (W of one
     # window), KX-K's largest sums; the ablations at L = 224 (A in K1's
     # ring at R = 128), nodot's whole slabs (R = W = 4L) and ties across
-    # N tiles, nomax's ties across N tiles, noW timed in plan S at the
-    # main path's top shape and with a partial last group (B % 4 = 2) in
-    # both plans; last, as their SIMT before-numbers lack them, the
-    # tensor-core ablations beyond the SIMT kernel's L
+    # N tiles, nomax's ties across N tiles, KX-I's limbs at its clamp
+    # (126, 127, 128, 255 and negative deltas) and ties across N tiles,
+    # noW timed in plan S at the main path's top shape and with a partial
+    # last group (B % 4 = 2) in both plans; last, as their before-numbers
+    # lack them, the tensor-core ablations and KX-I beyond the SIMT and
+    # mma.sync kernels' L
     ablations = ("noA", "noW", "nomax", "nodot")
     kx_kind_edge = [
         (sv.HAP_KINDS, [("window_ties", (8, 40, 128, 96), hap_window_ties),
@@ -1780,11 +1979,16 @@ def main(argv=None) -> int:
           ("tile_ties", (4, 128, 128, 192), nodot_tile_ties)]),
         (("nomax", "nomax_simt"),
          [("tile_ties", (8, 128, 128, 192), k1_tile_ties)]),
+        (("int8", "int8_mma"),
+         [("limbs", (64, 128, 128, 128), int8_limbs),
+          ("limbs", (16, 128, 160, 256), int8_limbs),
+          ("tile_ties", (8, 128, 128, 192), k1_tile_ties)]),
         (("noW", "noW_simt"),
          [("random", (256, 32, 160, 192), k1_random),
           ("partial_group", (10, 128, 128, 128), k1_code4),
           ("partial_group", (10, 128, 160, 256), k1_code4)]),
-        (("noA", "noW", "nomax"), [("long", (2, 64, 1000, 128), k1_random)])]
+        (("noA", "noW", "nomax", "int8"),
+         [("long", (2, 64, 1000, 128), k1_random)])]
     kx_rows = phase_kx(np, torch, dev, cuda, kx_shapes, kx_hap, kx_edge,
                        kx_kind_edge, runner_rows)
     log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
@@ -1855,10 +2059,35 @@ def main(argv=None) -> int:
 
     log(f"== phase 11: germline --device {dev.type} on CRAM against BAM")
     cram = phase_cram(cuda, workdir)
+
+    # phases 12-14 on phase 4's data, one segment a worker's size as in
+    # phase 4; phase 13 (host code) on the contig's first CONT_MB Mb
+    base_args = ["--max-region-size", str(seg)]
+    log("== phase 12: germline EVS model files, cuda then cpu")
+    t0 = time.perf_counter()
+    evs = phase_evs(np, torch, cuda, fa, bam, n_reads, mb, workdir,
+                    base_args, out_dev)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 13: germline --call-continuous-vf, cuda then cpu")
+    t0 = time.perf_counter()
+    cont_mb = min(mb, CONT_MB)
+    region = f"syn:1-{int(cont_mb * 1_000_000)}"
+    continuous, _, _ = phase_mode(
+        torch, cuda, "continuous", fa, bam, n_reads, cont_mb, workdir,
+        [*base_args, "--call-continuous-vf", "syn", "--region", region],
+        k1_expected=False, tiles_expected=False)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 14: germline --rna --disable-evs, cuda then cpu")
+    t0 = time.perf_counter()
+    rna, _, _ = phase_mode(torch, cuda, "rna", fa, bam, n_reads, mb,
+                           workdir, [*base_args, "--rna", "--disable-evs"])
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
     # each CLI path's launch counts, read just after it ran
     paths = {"germline": germline, "somatic": somatic,
              "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
-             "germline_joint": joint, "cram": cram}
+             "germline_joint": joint, "cram": cram, "germline_evs": evs,
+             "germline_continuous": continuous, "germline_rna": rna}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

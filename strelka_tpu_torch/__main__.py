@@ -12,10 +12,11 @@ Both take BAM or CRAM input and the fan-out options of strelka_tpu
 (--jobs, --cluster-submit/--cluster-status with --retry-*,
 --process-index/--process-count with --merge-only, and coordinated
 processes through STRELKA_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID);
-germline calls one sample or several jointly. Not ported yet: germline
---rna, --call-continuous-vf, --estimate-sequence-error and the germline
-EVS model files (they raise NotPortedError), and the other subcommands
-of strelka_tpu (denovo, noise-extractor, tools), which exit 2.
+germline calls one sample or several jointly, with the germline EVS
+model files, --disable-evs, --call-continuous-vf and --rna. Not ported
+yet: germline --estimate-sequence-error (it raises NotPortedError), and
+the other subcommands of strelka_tpu (denovo, noise-extractor, tools),
+which exit 2.
 """
 from __future__ import annotations
 

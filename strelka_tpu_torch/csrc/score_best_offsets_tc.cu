@@ -32,6 +32,13 @@
 // At a window's last tile the first max is merged over the 4 lanes of a
 // read, stored and reset.
 //
+// With source kClamped it is KX-I: it replaces the harness's _kernel_int8
+// :109 (pallas_call :720), K1's function on limbs clamped to 0..127 (the
+// body's clamp, :122), which the Pallas body fed to the int8 MXU. Every
+// clamped limb is a u8 value, so K1's .s32.u8.u8 product computes the
+// clamped function exactly: only the A words differ (a_words_clamped,
+// min(limb, 127) after the & 255).
+//
 // The four timing ablations of the K1-x harness run on it too (KX-A), each
 // computing its Pallas body's result and timed beside K1:
 // - noA (source kUnmasked) replaces _kernel_limb2_noA :310: the limbs count
@@ -83,8 +90,8 @@
 // bytes a base (no codes). nodot's function needs only the bases and
 // window rows its slices touch, B*(5*R*min(L,W) + min(R,L)*W + 12*R)
 // bytes, and 2 f32 operations a score; its time is that of the slab build
-// it keeps, as the ablation asks. nomax moves K1's bytes; noW reads one
-// window a group, B*(5*R*L + 12*R) + ceil(B/G)*L*W bytes.
+// it keeps, as the ablation asks. nomax and KX-I move K1's bytes; noW
+// reads one window a group, B*(5*R*L + 12*R) + ceil(B/G)*L*W bytes.
 //
 // Design:
 // - wgmma.mma_async m64n64k32 .s32.u8.u8, both operands K-major in shared
@@ -170,6 +177,18 @@ __device__ __forceinline__ void a_words(int c, float d, unsigned& w1,
     a_words_int(c, (int)__fmul_rn(d, 2048.0f), w1, w0);
 }
 
+// KX-I's A words of one base: K1's with each limb clamped to 127 after
+// the & 255, as clamp_limbs does (a negative d_int clamps its two's
+// complement bytes)
+__device__ __forceinline__ void a_words_clamped(int c, float d, unsigned& w1,
+                                                unsigned& w0) {
+    const int di = (int)__fmul_rn(d, 2048.0f);
+    const bool ok = (unsigned)c < 4u;
+    const unsigned sh = 8u * ((unsigned)c & 3u);
+    w1 = ok ? min((unsigned)(di >> 8) & 255u, 127u) << sh : 0u;
+    w0 = ok ? min((unsigned)di & 255u, 127u) << sh : 0u;
+}
+
 // noA's A words of one base: its limbs in all four code bytes, whatever
 // the read's code
 __device__ __forceinline__ void a_words_unmasked(float d, unsigned& w1,
@@ -195,7 +214,7 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
         const int l = 4 * (q0 + kq);
         uint4 v1 = make_uint4(0u, 0u, 0u, 0u), v0 = v1;
         if (r < a.R && l < a.L) {
-            if constexpr (kSrc == kStandard) {
+            if constexpr (kSrc == kStandard || kSrc == kClamped) {
                 const size_t o = ((size_t)b * a.R + r) * a.L + l;
                 int c[4];
                 float d[4];
@@ -216,10 +235,17 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
                         d[k] = in ? a.delta[o + k] : 0.0f;
                     }
                 }
-                a_words(c[0], d[0], v1.x, v0.x);
-                a_words(c[1], d[1], v1.y, v0.y);
-                a_words(c[2], d[2], v1.z, v0.z);
-                a_words(c[3], d[3], v1.w, v0.w);
+                if constexpr (kSrc == kClamped) {
+                    a_words_clamped(c[0], d[0], v1.x, v0.x);
+                    a_words_clamped(c[1], d[1], v1.y, v0.y);
+                    a_words_clamped(c[2], d[2], v1.z, v0.z);
+                    a_words_clamped(c[3], d[3], v1.w, v0.w);
+                } else {
+                    a_words(c[0], d[0], v1.x, v0.x);
+                    a_words(c[1], d[1], v1.y, v0.y);
+                    a_words(c[2], d[2], v1.z, v0.z);
+                    a_words(c[3], d[3], v1.w, v0.w);
+                }
             } else if constexpr (kSrc == kUnmasked) {   // no codes read
                 const size_t o = ((size_t)b * a.R + r) * a.L + l;
                 float d[4];
@@ -237,6 +263,8 @@ __device__ void expand_a(const Args& a, int b, long long r0, int n_reads,
                 a_words_unmasked(d[2], v1.z, v0.z);
                 a_words_unmasked(d[3], v1.w, v0.w);
             } else {   // packed: code p & 7, d_int p >> 3
+                static_assert(kSrc == kPacked || kSrc == kPackedFold,
+                              "expand_a: a source it does not name");
                 const size_t o = ((size_t)b * a.Rp + r) * a.L + l;
                 int p[4];
                 if (a.read_vec) {
@@ -623,7 +651,7 @@ int launch(Args a, long long B, void* stream, int H = 1) {
         kWin == kGroupSlab ? slab_smem(a, n_wg)
         : a.resident       ? resident
                            : fixed + (size_t)kStages * n_wg * kOpBytes;
-    if constexpr (kSrc == kStandard)
+    if constexpr (kSrc == kStandard || kSrc == kClamped)
         a.read_vec = a.L % 4 == 0 && (uintptr_t)a.codes % 4 == 0 &&
                      (uintptr_t)a.delta % 16 == 0;
     else if constexpr (kSrc == kUnmasked)
@@ -723,6 +751,27 @@ int score_hap_tc_launch(const void* codes, const void* delta,
     a.L = (int)L;
     a.W = (int)W;
     return launch<kStandard, kHapOut>(a, B, stream, (int)H);
+}
+
+// KX-I: K1's function on limbs clamped to 0..127, the operands and
+// results of score_best_offsets_tc_launch. Launches on `stream`, returns
+// cudaGetLastError().
+int score_int8_tc_launch(const void* codes, const void* delta,
+                         const void* lnmis, const void* win, long long B,
+                         long long R, long long L, long long W, void* best,
+                         void* off, void* stream) {
+    if (!in_range(B, R, L, W)) return (int)cudaErrorInvalidValue;
+    Args a = {};
+    a.codes = (const int8_t*)codes;
+    a.delta = (const float*)delta;
+    a.lnmis = (const float*)lnmis;
+    a.win = (const int8_t*)win;
+    a.best = (float*)best;
+    a.off = (int32_t*)off;
+    a.R = a.Rp = (int)R;
+    a.L = (int)L;
+    a.W = (int)W;
+    return launch<kClamped, kBestOff>(a, B, stream);
 }
 
 // KX-A on K1's pipeline: `which` 0 is noA (codes not read), 1 noW (pair b

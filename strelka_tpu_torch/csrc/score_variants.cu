@@ -10,7 +10,10 @@
 // score_hap_kernel (KX-H-s), replaced on every path by K1-h's bf16 pipeline
 // on two pieces (score_highest_tc.cu, score_onesum_tc_launch) and by K1's
 // u8 pipeline walking H windows (score_best_offsets_tc.cu,
-// score_hap_tc_launch): KERNELS["onesum_simt"], ["hap_simt"].
+// score_hap_tc_launch): KERNELS["onesum_simt"], ["hap_simt"]. And so
+// does score_int8_mma_kernel (KX-I's mma.sync design), replaced on every
+// path by K1's u8 pipeline on the clamped limbs (score_best_offsets_tc.cu,
+// score_int8_tc_launch): KERNELS["int8_mma"].
 //
 //   score_packed_kernel<false>  build_fused.kern :451 / _kernel_fused :418,
 //                               build_packedin.kern :579 (pallas_call :489,
@@ -355,9 +358,9 @@ Args standard_args(const void* codes, const void* delta, const void* lnmis,
 // As a product: A [2R, 4L] s8 (row (j, r), column (l, c): the clamped limb j
 // of base l where its code is c, else 0) times B [4L, W] s8 (the window's
 // one-hot: B[(l, c), w] = [win[l,w] == c]), summed in s32, which is exact.
-// With .u8.u8 operands and no clamp the same product would give K1's own
-// function; whether K1 should move to the tensor cores is the redesign's
-// question, not this kernel's.
+// With .u8.u8 operands the same product takes limbs up to 255: K1's wgmma
+// pipeline runs it on the clamped limbs for KX-I (score_int8_tc_launch),
+// and this kernel stays as its before-number.
 //
 // Bound: bytes. It moves K1's B*(5RL + LW + 12R) bytes, ~15 us at the
 // harness's shape at 3.35 TB/s, against 2*(2R)*(4L)*W*B = 17.2 G int8

@@ -36,13 +36,14 @@ constexpr int kMaxLen = 1816;   // the range of the SIMT kernels they replaced
 constexpr float kQuantInv = 1.0f / 2048.0f;
 
 // Operand sources of the u8 kernel (K1's codes and delta, KX-P's packed
-// words with lnmis beside them or folded into extra rows, or KX-A noA's
-// delta alone, its limbs unmasked by the read's code)
-enum Source { kStandard, kPacked, kPackedFold, kUnmasked };
+// words with lnmis beside them or folded into extra rows, KX-A noA's
+// delta alone, its limbs unmasked by the read's code, or KX-I's codes and
+// delta with each limb clamped to 127)
+enum Source { kStandard, kPacked, kPackedFold, kUnmasked, kClamped };
 
 struct Args {
-    const int8_t* codes;    // [B,R,L]      (kStandard)
-    const float* delta;     // [B,R,L]      (kStandard, kUnmasked)
+    const int8_t* codes;    // [B,R,L]      (kStandard, kClamped)
+    const float* delta;     // [B,R,L]      (kStandard, kUnmasked, kClamped)
     const int32_t* packed;  // [B,Rp,L]     (kPacked, kPackedFold)
     const float* lnmis;     // [B,R]        (all but kPackedFold)
     const int8_t* win;      // [B,L,W]

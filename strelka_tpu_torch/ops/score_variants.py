@@ -37,8 +37,13 @@ the before-number of the tensor-core K1.
   ``score_hap_simt`` (``KERNELS["onesum_simt"]``, ``["hap_simt"]``),
   on no path.
 - KX-I ``score_int8`` (``int8``): K1 with each limb clamped to
-  ``min(limb, 127)`` (the Pallas body's clamp, exp_exact_kernel.py:122),
-  on the int8 tensor cores (mma.sync m16n8k32 s8, s32 accumulators).
+  ``min(limb, 127)`` (the Pallas body's clamp, exp_exact_kernel.py:122).
+  Every clamped limb is a u8 value, so its kernel is K1's u8 pipeline
+  with the clamp in the A words
+  (``score_best_offsets_tc_kernel<kClamped, kBestOff>``). Its earlier
+  kernel on the int8 tensor cores (csrc/score_variants.cu, mma.sync
+  m16n8k32 s8) is kept as its before-number, ``score_int8_mma``
+  (``KERNELS["int8_mma"]``), on no path.
 - KX-A ``score_ablation`` (``limb2-noA``, ``-noW``, ``-nomax``,
   ``-nodot``): the timing ablations of the 2-limb body, each dropping
   the stage its Pallas body drops and computing that body's result,
@@ -106,7 +111,9 @@ LAUNCHES_HAP = 0        # KX-H, score_best_offsets_tc_kernel<kStandard,
                         # kHapOut>
 LAUNCHES_ONESUM_SIMT = 0    # KX-K-s, score_onesum_kernel
 LAUNCHES_HAP_SIMT = 0   # KX-H-s, score_hap_kernel
-LAUNCHES_INT8 = 0       # KX-I
+LAUNCHES_INT8 = 0       # KX-I, score_best_offsets_tc_kernel<kClamped,
+                        # kBestOff>
+LAUNCHES_INT8_MMA = 0   # KX-I-s, score_int8_mma_kernel
 LAUNCHES_NOA = 0        # KX-A, score_best_offsets_tc_kernel<kUnmasked,
                         # kBestOff>
 LAUNCHES_NOW = 0        # KX-A, score_best_offsets_tc_kernel<kStandard,
@@ -317,8 +324,8 @@ def _hap_width(win_t, n_haps) -> int:
 # --- wrappers ---------------------------------------------------------------
 
 def _tc_lib():
-    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's, KX-H's
-    and KX-A's launches bound."""
+    """K1's library (csrc/score_best_offsets_tc.cu) with KX-P's, KX-H's,
+    KX-I's and KX-A's launches bound."""
     from .. import _build
     lib = _build.load(score_kernel.KERNEL_FUNCTIONS["exact"][0])
     if not getattr(lib, "_packed_bound", False):
@@ -326,11 +333,12 @@ def _tc_lib():
         lib.score_packed_tc_launch.argtypes = [vp, vp, vp] + [ll] * 5 + [
             vp, vp]
         lib.score_hap_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [vp] * 3
+        lib.score_int8_tc_launch.argtypes = [vp] * 4 + [ll] * 4 + [vp] * 3
         lib.score_ablation_tc_launch.argtypes = [vp] * 4 + [ll] * 5 + [
             ctypes.c_int] + [vp] * 3
         lib.score_now_tc_plan.argtypes = [ll] * 5
         for fn in (lib.score_packed_tc_launch, lib.score_hap_tc_launch,
-                   lib.score_ablation_tc_launch, lib.score_now_tc_plan,
+                   lib.score_int8_tc_launch, lib.score_ablation_tc_launch, lib.score_now_tc_plan,
                    lib.score_best_offsets_tc_max_len):
             fn.restype = ctypes.c_int
         lib._packed_bound = True
@@ -572,15 +580,31 @@ def score_hap_simt(codes, delta, lnmis, win_t, n_haps):
 
 def score_int8(codes, delta, lnmis, win_t):
     """KX-I: (best, off) [B,R] of K1's function on limbs clamped to
-    0..127, on the int8 tensor cores. Shapes as score_best_offsets."""
+    0..127, on K1's u8 tensor-core pipeline. Shapes as
+    score_best_offsets."""
     global LAUNCHES_INT8
     if codes.device.type == "cpu":
         return int8_best_offsets(codes, delta, lnmis, win_t)
-    lib = _lib()
-    out = _launch_standard("score_int8", lib.score_int8_mma_launch,
-                           lib.score_variants_max_len(), codes, delta,
+    lib = _tc_lib()
+    out = _launch_standard("score_int8", lib.score_int8_tc_launch,
+                           lib.score_best_offsets_tc_max_len(), codes, delta,
                            lnmis, win_t)
     LAUNCHES_INT8 += 1
+    return out
+
+
+def score_int8_mma(codes, delta, lnmis, win_t):
+    """KX-I-s: score_int8's function from its earlier kernel on the
+    int8 tensor cores (mma.sync), the before-number of the wgmma one; on
+    no path."""
+    global LAUNCHES_INT8_MMA
+    if codes.device.type == "cpu":
+        return int8_best_offsets(codes, delta, lnmis, win_t)
+    lib = _lib()
+    out = _launch_standard("score_int8_mma", lib.score_int8_mma_launch,
+                           lib.score_variants_max_len(), codes, delta,
+                           lnmis, win_t)
+    LAUNCHES_INT8_MMA += 1
     return out
 
 
@@ -826,9 +850,14 @@ KERNELS = {
                        "LAUNCHES_HAP_SIMT", f"{HARNESS}:860", _with_haps,
                        score_hap_simt, hap_best_offsets, function="hap",
                        before_of="score_hap"),
-    "int8": Kernel("score_int8_mma", "score_int8_mma_kernel",
+    "int8": Kernel("score_int8",
+                   "score_best_offsets_tc_kernel<kClamped, kBestOff>",
                    "LAUNCHES_INT8", f"{HARNESS}:109", _standard, score_int8,
-                   int8_best_offsets, function="int8"),
+                   int8_best_offsets, TC_SOURCE, "int8"),
+    "int8_mma": Kernel("score_int8_mma", "score_int8_mma_kernel",
+                       "LAUNCHES_INT8_MMA", f"{HARNESS}:109", _standard,
+                       score_int8_mma, int8_best_offsets, function="int8",
+                       before_of="score_int8"),
     "noA": _ablation("noA", "score_best_offsets_tc_kernel<kUnmasked, "
                      "kBestOff>", 310),
     "noW": _ablation("noW", "score_best_offsets_tc_kernel<kStandard, "

@@ -10,11 +10,13 @@ strelkaSharedWorkflow.py:102-148).
 
 Port of strelka_tpu/workflow/germline.py, with --device {cuda,cpu} in
 place of --platform/--mesh: one or more samples (joint calling), BAM or
-CRAM input, and the fan-out of the JAX package (--jobs, the cluster
-options, --process-index/--process-count with --merge-only, and the
-coordinated STRELKA_TPU_* processes of parallel/runner.py). The RNA,
-continuous-VF, sequence-error estimation and EVS model paths raise
-NotPortedError.
+CRAM input, germline EVS model files (--snv/--indel-scoring-model-file,
+--disable-evs), continuous-VF chromosomes (--call-continuous-vf), RNA
+mode (--rna: the het-VF extension on the SNV tiles, RNAseq models from
+the flags or $STRELKA_TPU_MODEL_DIR), and the fan-out of the JAX package
+(--jobs, the cluster options, --process-index/--process-count with
+--merge-only, and the coordinated STRELKA_TPU_* processes of
+parallel/runner.py). Sequence-error estimation raises NotPortedError.
 
 The --jobs parent and a --merge-only run touch no device: only the
 workers, each on its own segment groups, run on --device.
@@ -73,10 +75,13 @@ def run_germline(argv=None) -> int:
     p.add_argument("--ploidy-region-vcf", default=None,
                    help="VCF with per-sample CN (0/1) regions for "
                         "non-diploid calling")
-    # not ported yet: each of these raises NotPortedError
-    p.add_argument("--rna", action="store_true")
-    p.add_argument("--snv-scoring-model-file", default=None)
-    p.add_argument("--indel-scoring-model-file", default=None)
+    p.add_argument("--rna", action="store_true",
+                   help="RNA-seq mode: het variant-frequency extension "
+                        "0.45 + RNA scoring models")
+    p.add_argument("--snv-scoring-model-file", default=None,
+                   help="germline SNV EVS model JSON")
+    p.add_argument("--indel-scoring-model-file", default=None,
+                   help="germline indel EVS model JSON")
     p.add_argument("--disable-evs", action="store_true",
                    help="disable empirical variant scoring; hard "
                         "filters apply (reference --disableEVS)")
@@ -99,10 +104,13 @@ def run_germline(argv=None) -> int:
     p.add_argument("--nocompress-bed", default=None,
                    help="BED of positions always emitted as individual "
                         "gVCF sites (reference --noCompress)")
-    p.add_argument("--call-continuous-vf", action="append", default=None)
+    p.add_argument("--call-continuous-vf", action="append", default=None,
+                   help="chromosome(s) to call in continuous "
+                        "variant-frequency mode (e.g. chrM)")
     p.add_argument("--indel-error-models-file", action="append",
                    default=None, dest="indel_error_models_files",
                    help="per-sample adaptive indel error model JSON(s)")
+    # not ported yet: raises NotPortedError
     p.add_argument("--estimate-sequence-error", action="store_true")
     p.add_argument("--process-index", type=int, default=None,
                    help="this worker's index for local multi-process "
@@ -124,23 +132,54 @@ def run_germline(argv=None) -> int:
                         "fragments into final outputs")
     args = p.parse_args(argv)
 
-    for flag, what in ((args.rna, "--rna"),
-                       (args.call_continuous_vf, "--call-continuous-vf"),
-                       (args.estimate_sequence_error,
-                        "--estimate-sequence-error"),
-                       (args.snv_scoring_model_file,
-                        "--snv-scoring-model-file (EVS models)"),
-                       (args.indel_scoring_model_file,
-                        "--indel-scoring-model-file (EVS models)")):
-        if flag:
-            raise NotPortedError(what)
+    if args.estimate_sequence_error:
+        raise NotPortedError("--estimate-sequence-error")
+    args.evs_models = evs_models(args, p.error)
     return rn.dispatch("strelka_tpu_torch.workflow.germline", args, argv,
                        _run_germline)
+
+
+def evs_models(args, error) -> tuple:
+    """The germline EVS models to score with, (SNV, indel), each a
+    (model JSON, category) or None: the JAX package's rule
+    (strelka_tpu/workflow/germline.py:186-226). --disable-evs scores
+    nothing. --rna takes the RNAseq models of the flags or of
+    $STRELKA_TPU_MODEL_DIR (RNA{SNV,Indel}ScoringModels.json) and calls
+    `error` where either is missing; otherwise each flag's file scores
+    its type under the file's first category."""
+    if args.disable_evs:
+        return None, None
+    if args.rna:
+        cfg = os.environ.get("STRELKA_TPU_MODEL_DIR")
+        paths = (args.snv_scoring_model_file
+                 or (cfg and os.path.join(cfg, "RNASNVScoringModels.json")),
+                 args.indel_scoring_model_file
+                 or (cfg and os.path.join(cfg, "RNAIndelScoringModels.json")))
+        for label, path in zip(("SNV", "indel"), paths):
+            if not path or not os.path.exists(path):
+                error(f"--rna requires an {label} EVS model: pass "
+                      "--snv-scoring-model-file/--indel-scoring-model-file,"
+                      " set $STRELKA_TPU_MODEL_DIR to a directory with "
+                      "RNA{SNV,Indel}ScoringModels.json, or pass "
+                      "--disable-evs")
+        return tuple((path, "RNAseq") for path in paths)
+    return tuple((path, None) if path else None
+                 for path in (args.snv_scoring_model_file,
+                              args.indel_scoring_model_file))
 
 
 def _run_germline(args, argv) -> int:
     t0 = time.time()
     opt = GermlineOptions(min_mapping_quality=args.min_mapping_quality)
+    if args.rna:
+        # strelkaGermlineWorkflow.py's RNA branch: het-VF extension 0.45
+        opt = GermlineOptions(min_mapping_quality=args.min_mapping_quality,
+                              het_variant_frequency_extension=0.45,
+                              retain_optimal_soft_clipping=True)
+    from ..ops.rf import load_scoring_model
+    snv_forest, indel_forest = (
+        None if m is None else load_scoring_model(m[0], kind, m[1])
+        for m, kind in zip(args.evs_models, ("SNV", "INDEL")))
     if args.config:
         from ..options import apply_ini
         opt, ini_extras = apply_ini(opt, args.config)
@@ -251,6 +290,8 @@ def _run_germline(args, argv) -> int:
     runner = rn.SegmentRunner(workspace, process_index=proc_idx,
                               process_count=proc_cnt)
 
+    continuous_chroms = set(args.call_continuous_vf or [])
+
     # per-chrom read ref-end positions: each segment task slices the
     # chromosome batch down to reads overlapping its halo'd window, so
     # per-segment work stays O(segment reads) instead of O(chrom reads)
@@ -275,6 +316,21 @@ def _run_germline(args, argv) -> int:
                 m = (re_arr > seg.begin - seg_halo) & \
                     (b.pos < seg.end + seg_halo)
                 batches.append(b.select(m) if not m.all() else b)
+            if seg.chrom in continuous_chroms:
+                from ..pipeline import continuous_caller as cc
+                for si in range(n_samples):
+                    res = cc.call_continuous_region(
+                        opt, ref, seg.chrom, seg.begin, seg.end, batches[si])
+                    clines = cc.emit_continuous_region(opt, res)
+                    lines_g[si].extend(clines)
+                    # reference blocks (ALT and QUAL ".") stay out of
+                    # variants.vcf.gz
+                    lines_v.extend(l for l in clines if "\t.\t.\t" not in
+                                   "\t".join(l.split("\t")[3:6]))
+                stats.reads_processed += sum(
+                    int(((b.pos >= seg.begin) & (b.pos < seg.end)).sum())
+                    for b in batches if b is not None)
+                continue
             result = germline_caller.call_region(
                 opt, ref, seg.chrom, seg.begin, seg.end, batches,
                 external_indel_vcfs=args.indel_candidates,
@@ -309,6 +365,8 @@ def _run_germline(args, argv) -> int:
                         nc_mask[lo - seg.begin:hi - seg.begin] = True
             gl, vl = gvcf.emit_region(opt, result, sample_names,
                                       chrom_depth=chrom_depth.get(seg.chrom),
+                                      snv_forest=snv_forest,
+                                      indel_forest=indel_forest,
                                       nocompress_mask=nc_mask)
             lines_v.extend(vl)
             for si in range(n_samples):

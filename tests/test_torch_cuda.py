@@ -1,8 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (K1, the
 tensor-core kernel, and K1-h on the bf16 tensor cores with K1-h-s, its
-SIMT before-number; the K1-x variants, KX-P, KX-H and the four ablations
-(noA, noW in both its plans, nomax, nodot) on K1's pipeline and KX-K on
-K1-h's among them, their SIMT before-numbers, and K1-s)
+SIMT before-number; the K1-x variants, KX-P, KX-H, KX-I and the four
+ablations (noA, noW in both its plans, nomax, nodot) on K1's pipeline and
+KX-K on K1-h's among them, their before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, and a cold --jobs 2 germline run on the card
@@ -177,7 +177,40 @@ def test_snv_tiles_on_card_match_cpu_path(cuda):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
-def test_germline_cli_cuda_matches_cpu(cuda, tmp_path):
+@pytest.mark.parametrize("D,L", [(45, 3000), (70, 33_000)])
+def test_rna_snv_tiles_on_card_match_cpu_path(cuda, D, L):
+    """RNA mode (the het-VF extension, per-call dependent-eprob deltas)
+    on the card equals the CPU path: lhood, strand bias and the integer
+    fields bit for bit, at one tile's D and, past SNV_TILE_L rows, in
+    chunks whose D is padded to 32."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    rng = np.random.default_rng(D)
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.3, rng.integers(0, 4, (L, D)),
+                    np.minimum(ref, 3)[:, None]).astype(np.int8)
+    plane = np.where(rng.random((L, D)) < 0.1, -rng.random((L, D)),
+                     0.0).astype(np.float32)
+    dep = (np.zeros((L, 4), np.float32),
+           lambda rows: plane[np.arange(L) if rows is None else rows])
+    tile = sd.SnvPileupTile(
+        base_id=base, qual=rng.integers(0, 45, (L, D)).astype(np.uint8),
+        is_fwd=rng.random((L, D)) < 0.5, mask=rng.random((L, D)) < 0.8,
+        ref_gt=ref)
+    got, want = (sd.call_snv_tile_chunked(tile, 0.001, None, 0.45, 0.0501,
+                                          dep=dep, device=d)
+                 for d in (cuda, "cpu"))
+    assert (want.snv_qphred != 0).any()
+    for f in ("lhood", "strand_bias", "genome_max_gt", "poly_max_gt",
+              "snv_qphred", "genome_max_gt_qphred", "poly_max_gt_qphred",
+              "phred_loghood"):
+        a, b = np.ascontiguousarray(getattr(got, f)), np.ascontiguousarray(
+            getattr(want, f))
+        assert a.tobytes() == b.tobytes(), f
+
+
+@pytest.mark.parametrize("extra", [[], ["--rna", "--disable-evs"]],
+                         ids=["wgs", "rna"])
+def test_germline_cli_cuda_matches_cpu(cuda, tmp_path, extra):
     from strelka_tpu_torch import synth
     from strelka_tpu_torch.__main__ import main
     from strelka_tpu_torch.io.bam import BamHeader
@@ -195,7 +228,7 @@ def test_germline_cli_cuda_matches_cpu(cuda, tmp_path):
     for dev in ("cuda", "cpu"):
         out = str(tmp_path / dev)
         assert main(["germline", "--reference", str(fa), "--align-file", bam,
-                     "--output-dir", out, "--device", dev]) == 0
+                     "--output-dir", out, "--device", dev, *extra]) == 0
         outs[dev] = out
     assert sk.LAUNCHES > before
     for name in ("variants.vcf.gz", "genome.S1.vcf.gz"):
@@ -792,6 +825,85 @@ def test_kxa_nomax_ties_across_n_tiles(cuda, W):
     assert bool((off == 0).all())
 
 
+def int8_counts():
+    return sv.LAUNCHES_INT8, sv.LAUNCHES_INT8_MMA
+
+
+def limb_edge_inputs(rng, B, R, L, W):
+    """Deltas whose two limbs are each one of 126, 127, 128 and 255, a
+    quarter of them negative, codes -1..4, windows -1..4."""
+    edge = np.array([126, 127, 128, 255])
+    d = (edge[rng.integers(0, 4, (B, R, L))] * 256
+         + edge[rng.integers(0, 4, (B, R, L))])
+    d = np.where(rng.random((B, R, L)) < 0.25, -d, d)
+    return (rng.integers(-1, 5, (B, R, L)).astype(np.int8),
+            (d / 2048).astype(np.float32),
+            rng.normal(-80, 10, (B, R)).astype(np.float32),
+            rng.integers(-1, 5, (B, L, W)).astype(np.int8))
+
+
+@pytest.mark.parametrize("make", ["random", "limbs"])
+@pytest.mark.parametrize("B,R,L,W", [(512, 128, 128, 128), (256, 128, 160, 256),
+                                     (256, 32, 160, 192), (8, 128, 224, 256),
+                                     (3, 40, 100, 70), (2, 33, 99, 129),
+                                     (2, 64, 1000, 128)])
+def test_kxi_tensor_cores_bit_identical_to_plain(cuda, make, B, R, L, W):
+    """KX-I on K1's u8 pipeline (<kClamped, kBestOff>) equals
+    int8_best_offsets bit for bit: the harness's and the main path's
+    shapes, L = 224 (A in the ring), ragged shapes, L = 1000 (past the
+    mma.sync kernel's length); LUT deltas with codes 4 and -1, or limbs
+    at 126, 127, 128 and 255 with negative deltas. It counts its own
+    launches, its mma.sync before-number none; the before-number equals
+    the plain version too where it takes the shape."""
+    rng = np.random.default_rng(B + R + L + W)
+    if make == "random":
+        arrs = k1_inputs(rng, B, R, L, W)
+        arrs[0][0] = 4
+        arrs[0][-1, :, ::3] = -1
+    else:
+        arrs = limb_edge_inputs(rng, B, R, L, W)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = int8_counts()
+    got = sv.score_int8(*t)
+    assert int8_counts() == (before[0] + 1, before[1])
+    want = sv.int8_best_offsets(*t)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if L <= sv._lib().score_variants_max_len():
+        mma = sv.score_int8_mma(*t)
+        assert int8_counts() == (before[0] + 1, before[1] + 1)
+        for a, b in zip(mma, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("W", [128, 192, 256])
+def test_kxi_ties_across_n_tiles(cuda, W):
+    """Each pair's reads carry one sequence found exactly at two offsets
+    around an N-tile boundary: KX-I takes the first, as its plain
+    version does."""
+    rng = np.random.default_rng(W + 2)
+    B, R, L = 8, 128, 128
+    cols = [(t + a, t + b) for t in range(64, W, 64)
+            for a, b in ((-1, 0), (-2, -1), (0, 1), (-1, 64)) if t + b < W]
+    codes, delta, lnmis, win = k1_inputs(rng, B, R, L, W)
+    reads = rng.integers(0, 4, (B, L))
+    codes[:] = reads[:, None]
+    win = rng.integers(0, 4, (B, L, W)).astype(np.int8)
+    for b in range(B):
+        for w in cols[b % len(cols)]:
+            win[b, :, w] = reads[b]
+    t = [torch.from_numpy(a).to(cuda) for a in (codes, delta, lnmis, win)]
+    best, off = sv.score_int8(*t)
+    want = sv.int8_best_offsets(*t)
+    torch.cuda.synchronize()
+    first = torch.tensor([cols[b % len(cols)][0] for b in range(B)],
+                         dtype=torch.int32, device=cuda)
+    assert torch.equal(off, first[:, None].expand(B, R))
+    assert torch.equal(best.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(off, want[1])
+
+
 @pytest.mark.parametrize("G", [1, 3, 4, 6, 8])
 @pytest.mark.parametrize("R,L,W", [(128, 128, 128), (128, 160, 256)])
 def test_kxa_now_groups_of_every_size(cuda, G, R, L, W):
@@ -916,6 +1028,7 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     before = packed_counts()
     before_kh = onesum_counts() + hap_counts()
     before_a = [kxa_counts(w) for w in sv.TC_ABLATIONS]
+    before_i = int8_counts()
     assert sv.main([*names, "--B", "64", "--R", "128"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(names)
@@ -944,3 +1057,8 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
             "kProduct, kGroupSlab | kGroupRing> plan=S") in lines[8]
     assert ("kernel=score_best_offsets_tc_kernel<kStandard, kBestOnly>"
             in lines[9])
+    # int8 reaches KX-I on K1's pipeline, its mma.sync kernel no path
+    after_i = int8_counts()
+    assert after_i[0] > before_i[0] and after_i[1] == before_i[1]
+    assert ("kernel=score_best_offsets_tc_kernel<kClamped, kBestOff>"
+            in lines[6])

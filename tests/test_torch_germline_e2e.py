@@ -75,10 +75,7 @@ def test_synth_copy_matches_benchmarks_synth():
                                       err_msg=f)
 
 
-@pytest.mark.parametrize("flag", [["--rna"],
-                                  ["--snv-scoring-model-file", "m.json"],
-                                  ["--estimate-sequence-error"],
-                                  ["--call-continuous-vf", "syn"]])
+@pytest.mark.parametrize("flag", [["--estimate-sequence-error"]])
 def test_unported_options_raise(dataset, flag):
     d, fa, bam = dataset
     with pytest.raises(NotPortedError):

@@ -306,7 +306,7 @@ def test_wrappers_on_cpu_launch_nothing():
     and counts no launch."""
     inp = t(*harness_inputs(np.random.default_rng(6), 32, W=2 * W))
     counters = [k.counter for k in sv.KERNELS.values()]
-    assert len(set(counters)) == len(sv.KERNELS) == 18
+    assert len(set(counters)) == len(sv.KERNELS) == 19
     before = [getattr(sv, c) for c in counters] + [sk.LAUNCHES]
     for k in sv.KERNELS.values():
         best, off = k.call(*k.prepare(inp, G))

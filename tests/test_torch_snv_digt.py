@@ -12,9 +12,9 @@ against the JAX package's, on the CPU.
   rounding boundary: phred fields are equal except at most
   PHRED_FLIP_SHARE of entries, each off by one (the bound that
   tests/test_native_snvcall.py holds the native path to against XLA).
-- snv_strand_bias_tile vs XLA's within SB_ATOL: the per-strand sums run
-  in a different order, and the per-call log/pow are different libm
-  implementations.
+- snv_strand_bias_tile vs XLA's within SB_ATOL (it follows XLA's order
+  and per-call values since the RNA slice, and tests/test_torch_rna.py
+  holds it bit for bit at the D the JAX package pads the tile to).
 """
 import numpy as np
 import pytest
@@ -24,7 +24,6 @@ import jax.numpy as jnp
 
 import strelka_tpu  # noqa: F401  (enables x64)
 from strelka_tpu.models import snv_digt as jsd
-from strelka_tpu_torch import NotPortedError
 from strelka_tpu_torch.models import snv_digt as tsd
 
 INT_FIELDS = ("genome_max_gt", "poly_max_gt", "snv_qphred",
@@ -189,10 +188,3 @@ def test_chunked_torch_tiles_match_native_path():
                                       np.asarray(getattr(want, f)),
                                       err_msg=f)
 
-
-def test_rna_extension_not_ported():
-    base, qual, mask, fwd, ref, _hap, _smis = make_tile(7, L=10)
-    with pytest.raises(NotPortedError):
-        tsd.call_snv_tile_chunked(tsd.SnvPileupTile(base, qual, fwd, mask,
-                                                    ref),
-                                  het_vf_extension=0.45, device="cpu")
