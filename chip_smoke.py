@@ -100,8 +100,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every record equal;
 14. RNA: germline --rna --disable-evs on phase 4's contig, cuda then
    cpu, every record equal; the SNV tiles' launches and stream ms on the
-   card (the het-VF extension there).
-Phases 12-14 log each run's size, wall and stream ms by device phase.
+   card (the het-VF extension there);
+15. error estimation: germline --estimate-sequence-error on phase 4's
+   contig's first CONT_MB Mb, cuda then cpu: the allele counts' npz
+   arrays equal, the model's rates within ERR_FLAT_RTOL, every record
+   equal, K1's launches counted on the cuda run; then tools
+   estimate-parameters <npz> indelIndy, cuda against cpu within
+   ERR_FIT_RTOL, on three of the counts' contexts. It logs the
+   counting's host wall, the fit's wall, Adam steps, launches a step
+   (a torch.profiler trace of a short fit) and stream ms, and each
+   run's wall.
+Phases 12-15 log each run's size, wall and stream ms by device phase.
 
 The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
@@ -126,7 +135,9 @@ no result line; it is for checking the script without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gzip
+import io
 import json
 import os
 import shutil
@@ -1521,6 +1532,13 @@ def worker_report(out, n, cuda: bool) -> list[dict]:
 
 JOBS = 4
 CONT_MB = 1.0   # phase 13's region (continuous-VF is host code)
+# phase 15's bounds, the tests' (tests/test_torch_error_fit.py FLAT_RTOL:
+# the fit keeps its least-loss step, and an ulp can pick another among
+# steps whose losses tie; tests/test_torch_error_zoo.py FIT_RTOL: the
+# zoo's fits keep their last step)
+ERR_FLAT_RTOL = 1e-6
+ERR_FIT_RTOL = 1e-10
+ERR_CONTEXTS = ((1, 1), (1, 2), (2, 2))   # phase 15's estimate-parameters
 
 
 def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
@@ -1886,6 +1904,146 @@ def phase_evs(np, torch, cuda, fa, bam, n_reads, mb, workdir, extra,
     return counts
 
 
+def fit_launches_per_step(torch, ef, cc, log_theta, steps=20) -> dict:
+    """The device work of one Adam step of fit_context on the card: the
+    kernels and copies of a torch.profiler trace of a `steps`-step fit,
+    each per step (None where the trace holds no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ef.fit_context(cc, log_theta, n_steps=steps, device="cuda")
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
+    return {"kernels_per_step": (len(ev) - copies) / steps if ev else None,
+            "copies_per_step": copies / steps if ev else None,
+            "trace_device_events": len(ev)}
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def npz_arrays(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
+                extra):
+    """Phase 15: germline --estimate-sequence-error, cuda then cpu (the
+    launch counters set to 0 just before the cuda run and read just
+    after); the counts' npz arrays equal, the model's rates within
+    ERR_FLAT_RTOL, every record equal; then tools estimate-parameters on
+    ERR_CONTEXTS of the counts, cuda against cpu within ERR_FIT_RTOL.
+    Returns the cuda run's launch counts."""
+    from strelka_tpu_torch.__main__ import main as torch_main
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.pipeline import allele_counts as ac
+    devices = ["cuda", "cpu"] if cuda else ["cpu"]
+    npz, model = ("sequenceAlleleCounts.Sample000.npz",
+                  "sequenceErrorModel.Sample000.json")
+    row = {"contig_mb": mb, "reads": n_reads, "extra": extra}
+    outs, counts = {}, None
+    for device in devices:
+        out = os.path.join(workdir, f"error_{device}")
+        timer = StreamTimer(torch, device == "cuda")
+        timer.wrap(ef, "fit_context", "error_fit")
+        timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
+        host = StreamTimer(torch, False)
+        host.wrap(ac, "collect_context_counts", "counting")
+        fits0 = dict(ef.FIT_STATS)
+        try:
+            wall, _, c = launches_during(
+                lambda: run_cli(fa, bam, out, device, extra))  # noqa: B023
+        finally:
+            timer.restore()
+            host.restore()
+        var, gv = check_outputs(out, n_reads)
+        stream = timer.totals_ms()
+        row[device] = {
+            "wall_s": wall,
+            "counting_host_s": host.totals_ms().get("counting", 0.0) / 1e3,
+            "fit_wall_s": ef.FIT_STATS["seconds"] - fits0["seconds"],
+            "fits": ef.FIT_STATS["fits"] - fits0["fits"],
+            "adam_steps": ef.FIT_STATS["steps"] - fits0["steps"],
+            "fit_stream_ms": stream.get("error_fit", 0.0),
+            "stream_ms_by_phase": stream}
+        row["variant_records"], row["gvcf_records"] = len(var), len(gv)
+        outs[device] = out
+        if counts is None:
+            counts = c
+            check_path_launches("error estimation", c, cuda)
+            row["k1_launches"] = c["k1"]
+        if not row[device]["fits"]:
+            fail(f"phase 15 on {device}: no context was fitted")
+    if cuda:
+        a = npz_arrays(os.path.join(outs["cuda"], npz))
+        b = npz_arrays(os.path.join(outs["cpu"], npz))
+        if sorted(a) != sorted(b) or any(
+                not np.array_equal(a[k], b[k]) for k in a):
+            fail("phase 15: the allele counts differ, cuda against cpu")
+        row["count_arrays_equal"] = len(a)
+        mg, mc = (read_json(os.path.join(outs[d], model))["sample"][0]
+                  for d in ("cuda", "cpu"))
+
+        def motifs(m):
+            return [(x["repeatPatternSize"], x["repeatCount"])
+                    for x in m["motif"]], m["isStatic"]
+        if motifs(mg) != motifs(mc):
+            fail("phase 15: the models' motifs differ, cuda against cpu")
+        worst = 0.0
+        for x, y in zip(mg["motif"], mc["motif"]):
+            for f in ("indelRate", "noisyLocusRate"):
+                worst = max(worst, abs(x[f] - y[f]) / abs(y[f]))
+        if worst > ERR_FLAT_RTOL:
+            fail(f"phase 15: model rates differ by {worst:.3g} relative, "
+                 f"over {ERR_FLAT_RTOL}")
+        row["model_rates_max_rel_diff"] = worst
+        row["records_equal"] = compare_records(
+            outs["cuda"], outs["cpu"], ("variants.vcf.gz",
+                                        "genome.S1.vcf.gz"),
+            "error estimation: cuda against cpu")
+    # tools estimate-parameters on ERR_CONTEXTS of the counts, each
+    # device's JSON from its stdout
+    full = ac.load_context_counts(os.path.join(outs[devices[0]], npz))
+    sub = os.path.join(workdir, "error_contexts.npz")
+    ac.save_context_counts(sub, {k: full[k] for k in ERR_CONTEXTS
+                                 if k in full})
+    if cuda:
+        row["fit_launches"] = fit_launches_per_step(
+            torch, ef, full[(1, 1)], float(np.log(0.001)))
+    est = {}
+    for device in devices:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = torch_main(["tools", "estimate-parameters", sub,
+                             "indelIndy", "--device", device])
+        if rc != 0:
+            fail(f"tools estimate-parameters --device {device} exited {rc}")
+        est[device] = json.loads(buf.getvalue())
+        row[f"estimate_parameters_{device}_wall_s"] = (
+            time.perf_counter() - t0)
+    if cuda:
+        worst = 0.0
+        if list(est["cuda"]) != list(est["cpu"]):
+            fail("phase 15: estimate-parameters contexts differ")
+        for ctx, want in est["cpu"].items():
+            for k, v in want.items():
+                worst = max(worst, abs(est["cuda"][ctx][k] - v) / abs(v))
+        if worst > ERR_FIT_RTOL:
+            fail(f"phase 15: estimate-parameters differs by {worst:.3g} "
+                 f"relative, over {ERR_FIT_RTOL}")
+        row["estimate_parameters_max_rel_diff"] = worst
+    row["estimate_parameters_contexts"] = len(est["cpu"])
+    log("error: " + json.dumps(row))
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
@@ -2082,12 +2240,20 @@ def main(argv=None) -> int:
     rna, _, _ = phase_mode(torch, cuda, "rna", fa, bam, n_reads, mb,
                            workdir, [*base_args, "--rna", "--disable-evs"])
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
+        "tools estimate-parameters")
+    t0 = time.perf_counter()
+    error = phase_error(np, torch, cuda, fa, bam, n_reads, cont_mb, workdir,
+                        [*base_args, "--region", region,
+                         "--estimate-sequence-error"])
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
     # each CLI path's launch counts, read just after it ran
     paths = {"germline": germline, "somatic": somatic,
              "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
              "germline_joint": joint, "cram": cram, "germline_evs": evs,
-             "germline_continuous": continuous, "germline_rna": rna}
+             "germline_continuous": continuous, "germline_rna": rna,
+             "germline_error_estimation": error}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -13,16 +13,21 @@ Both take BAM or CRAM input and the fan-out options of strelka_tpu
 --process-index/--process-count with --merge-only, and coordinated
 processes through STRELKA_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID);
 germline calls one sample or several jointly, with the germline EVS
-model files, --disable-evs, --call-continuous-vf and --rna. Not ported
-yet: germline --estimate-sequence-error (it raises NotPortedError), and
-the other subcommands of strelka_tpu (denovo, noise-extractor, tools),
-which exit 2.
+model files, --disable-evs, --call-continuous-vf, --rna and the
+sequence-error estimation pre-pass (--estimate-sequence-error, its fits
+on --device).
+
+  python -m strelka_tpu_torch tools <tool> ...
+
+runs the twelve tools of strelka_tpu (no tool: the list, exit 2);
+estimate-parameters takes --device cuda|cpu (default cuda). Not ported
+yet: the denovo and noise-extractor subcommands, which exit 2.
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("denovo", "noise-extractor", "tools")
+NOT_PORTED = ("denovo", "noise-extractor")
 
 
 def main(argv=None) -> int:
@@ -37,6 +42,9 @@ def main(argv=None) -> int:
     if cmd == "somatic":
         from .workflow.somatic import run_somatic
         return run_somatic(rest)
+    if cmd == "tools":
+        from .workflow.tools import main as tools_main
+        return tools_main(rest)
     if cmd in NOT_PORTED:
         print(f"{cmd}: not yet ported to strelka_tpu_torch "
               "(use python -m strelka_tpu)", file=sys.stderr)

@@ -819,7 +819,9 @@ def _vector_sum(x, vf, uf, epi):
 def _xla_windows(x, small):
     """The tree-reduction rewrite of a sum over x's last axis: `small`
     sums at most 32 terms; more go in windows of 32, each summed in
-    order, and the window sums are reduced again."""
+    order, and the window sums are reduced again by the same rule, with
+    the last level's at most 32 window sums added one at a time in
+    order (XLA's reduce of a reduce-window's output)."""
     n = x.shape[-1]
     if n <= 32:
         return small(x)
@@ -827,7 +829,7 @@ def _xla_windows(x, small):
     lo = (nb * 32 - n) // 2
     xp = torch.nn.functional.pad(x, (lo, nb * 32 - n - lo))
     blocks = _seq_terms(xp.reshape(*x.shape[:-1], nb, 32))
-    return _xla_windows(blocks, small)
+    return _xla_windows(blocks, _seq_terms)
 
 
 def _xla_minor_small(x):
@@ -843,10 +845,12 @@ def _xla_minor_small(x):
 
 def xla_sum_minor(x):
     """jnp.sum(x, axis=-1) of f32 x as XLA's CPU backend runs it in the
-    JAX package's RNA tile; bit-identical to it up to 480 terms
-    (tests/test_torch_rna.py). Past 480 (16 windows and more) the
-    window sums are reduced by the same rule, which was not held to
-    XLA's."""
+    JAX package's RNA tile: bit-identical to it up to 300 terms
+    (tests/test_torch_rna.py) and at 512, 1024 and 2048
+    (tests/test_torch_rna_deep.py). Past 32 terms the window sums are
+    added in order; LLVM's vectorized order holds only for a sum of at
+    most 32 terms straight from the tile (16-32 window sums, 481-1024
+    terms, are not vectorized)."""
     return _xla_windows(x, _xla_minor_small)
 
 

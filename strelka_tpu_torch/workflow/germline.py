@@ -16,7 +16,8 @@ mode (--rna: the het-VF extension on the SNV tiles, RNAseq models from
 the flags or $STRELKA_TPU_MODEL_DIR), and the fan-out of the JAX package
 (--jobs, the cluster options, --process-index/--process-count with
 --merge-only, and the coordinated STRELKA_TPU_* processes of
-parallel/runner.py). Sequence-error estimation raises NotPortedError.
+parallel/runner.py), and the sequence-error estimation pre-pass
+(--estimate-sequence-error: host counting, the fits on --device).
 
 The --jobs parent and a --merge-only run touch no device: only the
 workers, each on its own segment groups, run on --device.
@@ -36,7 +37,6 @@ import time
 
 import numpy as np
 
-from .. import NotPortedError
 from .. import device as devmod
 from ..io.bam import read_alignments, read_bam
 from ..io.fasta import FastaReference
@@ -109,9 +109,20 @@ def run_germline(argv=None) -> int:
                         "variant-frequency mode (e.g. chrM)")
     p.add_argument("--indel-error-models-file", action="append",
                    default=None, dest="indel_error_models_files",
-                   help="per-sample adaptive indel error model JSON(s)")
-    # not ported yet: raises NotPortedError
-    p.add_argument("--estimate-sequence-error", action="store_true")
+                   help="per-sample adaptive indel error model JSON(s) "
+                        "(as produced by --estimate-sequence-error)")
+    p.add_argument("--estimate-sequence-error", action="store_true",
+                   help="fit per-sample adaptive indel error models "
+                        "before calling (EstimateSequenceError workflow; "
+                        "the fits run on --device)")
+    p.add_argument("--use-all-data-for-sequence-error-estimation",
+                   action="store_true", dest="error_all_data",
+                   help="count every input region instead of stopping "
+                        "at the observation target (reference "
+                        "--useAllDataForSequenceErrorEstimation)")
+    p.add_argument("--error-count-target", type=int, default=25_000_000,
+                   help="stop counting once this many context instances "
+                        "are collected (dynamic early-stop)")
     p.add_argument("--process-index", type=int, default=None,
                    help="this worker's index for local multi-process "
                         "fan-out (pyflow-style); run one process per "
@@ -132,8 +143,6 @@ def run_germline(argv=None) -> int:
                         "fragments into final outputs")
     args = p.parse_args(argv)
 
-    if args.estimate_sequence_error:
-        raise NotPortedError("--estimate-sequence-error")
     args.evs_models = evs_models(args, p.error)
     return rn.dispatch("strelka_tpu_torch.workflow.germline", args, argv,
                        _run_germline)
@@ -166,6 +175,60 @@ def evs_models(args, error) -> tuple:
     return tuple((path, None) if path else None
                  for path in (args.snv_scoring_model_file,
                               args.indel_scoring_model_file))
+
+
+def estimate_sequence_error(args, ref, regions, batches_per_chrom,
+                            n_samples: int) -> list[str]:
+    """The --estimate-sequence-error pre-pass of the JAX package
+    (strelka_tpu/workflow/germline.py:326-367): per sample, count the
+    STR-context indel observations region by region on the host until
+    --error-count-target instances (unless
+    --use-all-data-for-sequence-error-estimation), write the merged
+    counts (sequenceAlleleCounts.Sample*.npz), fit the adaptive indel
+    error model on --device and write it
+    (sequenceErrorModel.Sample*.json). Returns the model paths. A
+    --merge-only run skips it (its workers wrote the files, and it
+    touches no device), where the JAX package runs it again."""
+    import json as _json
+
+    from ..models.error_fit import estimate_indel_error_model
+    from ..pipeline import allele_counts as ac
+    from ..pipeline import reads as rdm
+    estimated_paths = []
+    for si in range(n_samples):
+        per_region = []
+        total_instances = 0
+        for chrom, beg, end in regions:
+            b = batches_per_chrom.get(chrom, [None] * n_samples)[si]
+            if b is None or b.n == 0:
+                continue
+            keep, level = rdm.filter_and_classify_reads(
+                b, args.min_mapping_quality)
+            bk = b.select(keep)
+            ea = rdm.expand_alignments(bk)
+            rc = ref.fetch(chrom, beg, end)
+            cc = ac.collect_context_counts(bk, ea, level[keep], rc, beg,
+                                           beg, end)
+            per_region.append(cc)
+            total_instances += sum(c.total_instances for c in cc.values())
+            if (not args.error_all_data
+                    and total_instances >= args.error_count_target):
+                break  # dynamic early stop
+        merged = ac.merge_context_counts(per_region)
+        ac.save_context_counts(
+            os.path.join(args.output_dir,
+                         f"sequenceAlleleCounts.Sample{si:03d}.npz"),
+            merged)
+        model, ok = estimate_indel_error_model(
+            merged, sample_name=f"Sample{si:03d}", device=args.device)
+        path = os.path.join(args.output_dir,
+                            f"sequenceErrorModel.Sample{si:03d}.json")
+        with open(path, "w") as f:
+            _json.dump(model, f, indent=1)
+        print(f"error model sample {si}: acceptable={ok} -> {path}",
+              file=sys.stderr)
+        estimated_paths.append(path)
+    return estimated_paths
 
 
 def _run_germline(args, argv) -> int:
@@ -275,6 +338,15 @@ def _run_germline(args, argv) -> int:
         return 1
 
     n_samples = len(sample_names)
+
+    # --- optional sequence error estimation pre-pass -------------------
+    # (strelkaSequenceErrorEstimation.py: count until target reached,
+    # merge, fit; static-model fallback when the fit is unacceptable)
+    if args.estimate_sequence_error and not args.merge_only:
+        estimated = estimate_sequence_error(args, ref, regions,
+                                            batches_per_chrom, n_samples)
+        if args.indel_error_models_files is None:
+            args.indel_error_models_files = estimated
 
     # --- chromosome depth (feeds HighDepth filter) ---------------------
     chrom_depth: dict[str, float] = {}

@@ -5,8 +5,9 @@ ablations (noA, noW in both its plans, nomax, nodot) on K1's pipeline and
 KX-K on K1-h's among them, their before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
-cuda against --device cpu, and a cold --jobs 2 germline run on the card
-against a single-process one.
+cuda against --device cpu, a cold --jobs 2 germline run on the card
+against a single-process one, and the error-model fits (the emulated
+FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU.
 They skip without a GPU. On a machine with one (which need not have
 jax):
 
@@ -1062,3 +1063,73 @@ def test_kx_runner_on_card_is_exact(cuda, capsys):
     assert after_i[0] > before_i[0] and after_i[1] == before_i[1]
     assert ("kernel=score_best_offsets_tc_kernel<kClamped, kBestOff>"
             in lines[6])
+
+
+# --- the error-model fits (error estimation and tools) on the card ------
+
+# tests/test_torch_error_fit.py's bounds: FLAT_RTOL where the fit keeps
+# its least-loss step (an ulp can pick another among tied steps),
+# FIT_RTOL (tests/test_torch_error_zoo.py) where it keeps its last
+FLAT_RTOL = 1e-6
+FIT_RTOL = 1e-10
+
+
+def indel_counts(seed, n, depth, rate, noisy):
+    """(ref, alt[6]) of n loci: noisy ones with indel errors at `rate`,
+    a few het indels; deduplicated by the port's error_fit."""
+    from strelka_tpu_torch.models import error_fit as ef
+    rng = np.random.default_rng(seed)
+    e = np.where(rng.random(n) < noisy, rate, 1e-8)
+    ins, dels = rng.binomial(depth, e), rng.binomial(depth, e)
+    het = rng.random(n) < 0.002
+    ins = np.where(het, rng.binomial(depth, 0.5, n), ins)
+    alt = np.zeros((n, 6), np.int64)
+    alt[:, 0], alt[:, 3] = ins, np.where(het, 0, dels)
+    return ef.dedupe_counts(depth - alt.sum(axis=1), alt)
+
+
+def test_special_fma_and_adam_on_card_match_cpu(cuda):
+    """The emulated f64 FMA and the Adam step give the CPU's bits on the
+    card (each torch op is its own kernel, so nothing contracts)."""
+    from strelka_tpu_torch.utils import special as sp
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.normal(size=50_000) * np.exp(rng.normal(0, 10, 50_000))
+               for _ in range(3))
+    c[:10_000] = -(a[:10_000] * b[:10_000])
+    args = [torch.from_numpy(x) for x in (a, b, c)]
+    assert torch.equal(sp.fma(*(x.to(cuda) for x in args)).cpu(),
+                       sp.fma(*args))
+    G = rng.normal(0, 1, (600, 5)) * np.exp(rng.normal(0, 3, (600, 5)))
+    p0 = torch.from_numpy(rng.normal(size=5))
+    pc, pg = p0.clone(), p0.to(cuda)
+    ac, ag = sp.Adam(pc, 0.05), sp.Adam(pg, 0.05)
+    for g in G:
+        pc = ac.step(pc, torch.from_numpy(g))
+        pg = ag.step(pg, torch.from_numpy(g).to(cuda))
+    assert torch.equal(pg.cpu(), pc)
+
+
+@pytest.mark.parametrize("seed,rate,noisy", [(0, 5e-3, 1.0), (1, 2e-2, 0.3)])
+def test_fit_context_on_card_matches_cpu(cuda, seed, rate, noisy):
+    from strelka_tpu_torch.models import error_fit as ef
+    cc = indel_counts(seed, 3000, 35, rate, noisy)
+    want = ef.fit_context(cc, float(np.log(0.001)), device="cpu")
+    got = ef.fit_context(cc, float(np.log(0.001)), device=cuda)
+    assert (got.acceptable, got.n_instances) == (want.acceptable,
+                                                 want.n_instances)
+    for f in ("log_error_rate", "log_noisy_locus_rate", "log_insert_rate",
+              "log_delete_rate"):
+        assert getattr(got, f) == pytest.approx(getattr(want, f),
+                                                rel=FLAT_RTOL, abs=0), f
+
+
+@pytest.mark.parametrize("name", ["fit_indel_indy",
+                                  "fit_indel_binom_mixture"])
+def test_error_zoo_fit_on_card_matches_cpu(cuda, name):
+    from strelka_tpu_torch.models import error_zoo as ez
+    cc = indel_counts(2, 2000, 30, 1e-2, 0.5)
+    want = getattr(ez, name)(cc, steps=200, device="cpu")
+    got = getattr(ez, name)(cc, steps=200, device=cuda)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=FIT_RTOL, abs=0), k

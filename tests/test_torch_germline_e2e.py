@@ -17,7 +17,6 @@ from benchmarks import synth as jsynth
 from strelka_tpu.io.bam import BamHeader
 from strelka_tpu.io.bam_writer import write_bam
 from strelka_tpu.workflow.germline import run_germline as jax_germline
-from strelka_tpu_torch import NotPortedError
 from strelka_tpu_torch import synth as tsynth
 from strelka_tpu_torch.__main__ import main as torch_main
 
@@ -75,15 +74,9 @@ def test_synth_copy_matches_benchmarks_synth():
                                       err_msg=f)
 
 
-@pytest.mark.parametrize("flag", [["--estimate-sequence-error"]])
-def test_unported_options_raise(dataset, flag):
-    d, fa, bam = dataset
-    with pytest.raises(NotPortedError):
-        torch_main(["germline", "--reference", fa, "--align-file", bam,
-                    "--output-dir", str(d / "np"), "--device", "cpu", *flag])
-
-
 def test_unported_subcommands_exit_2():
+    """denovo and noise-extractor are not ported and exit 2; tools with no
+    tool prints the list and exits 2, as the JAX package's does."""
     assert torch_main(["denovo"]) == 2
     assert torch_main(["noise-extractor"]) == 2
     assert torch_main(["tools"]) == 2

@@ -34,9 +34,15 @@ def _imported_roots(path):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+    sources = list(_port_sources())
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
+    scanned = {os.path.relpath(p, REPO) for p in sources}
+    for path in ("models/error_fit.py", "models/error_zoo.py",
+                 "pipeline/allele_counts.py", "training/evs_train.py",
+                 "utils/special.py", "workflow/tools.py"):
+        assert os.path.join("strelka_tpu_torch", path) in scanned, path
 
 
 def test_import_and_cli_help_load_no_jax():
@@ -49,6 +55,12 @@ def test_import_and_cli_help_load_no_jax():
         "from strelka_tpu_torch.models import evs, somatic_indel\n"
         "from strelka_tpu_torch.parallel import hardware, runner\n"
         "from strelka_tpu_torch.io import cram\n"
+        "from strelka_tpu_torch.models import error_fit, error_zoo\n"
+        "from strelka_tpu_torch.pipeline import allele_counts\n"
+        "from strelka_tpu_torch.training import evs_train\n"
+        "from strelka_tpu_torch.utils import special\n"
+        "from strelka_tpu_torch.workflow import tools\n"
+        "assert main(['tools']) == 2\n"
         "for cmd in ('germline', 'somatic'):\n"
         "    try:\n"
         "        main([cmd, '--help'])\n"
@@ -65,6 +77,8 @@ def test_import_and_cli_help_load_no_jax():
     assert r.stdout.count("--jobs") >= 2
     assert r.stdout.count("--cluster-submit") >= 2
     assert "--tumor-align-file" in r.stdout
+    assert "--estimate-sequence-error" in r.stdout
+    assert "--error-count-target" in r.stdout
 
 
 def test_cuda_without_gpu_raises(monkeypatch, tmp_path):

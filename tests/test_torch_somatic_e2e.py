@@ -3,10 +3,11 @@ cpu) against the JAX package's on the dryrun T/N dataset
 (__graft_entry__.py: 60 kb reference with ref_seed 11; normal 25x, seed
 21; tumor 50x, seed 22, with somatic SNVs every 1500 bp at VAF 0.35 and
 somatic indels every 2100 bp; germline SNVs every 900 bp and indels
-every 1200 bp in both), in WGS mode, with --exome, with
---report-evs-features, with --disable-evs, on a --region with the
-callable-regions BED and the realigned BAMs, and with somatic scoring
-model files (small forests trained here).
+every 1200 bp in both), in WGS mode and with --exome; the other modes
+are in tests/test_torch_somatic_modes.py (--report-evs-features, a
+--region with the callable-regions BED and the realigned BAMs) and
+tests/test_torch_somatic_models.py (--disable-evs, somatic scoring model
+files).
 
 somatic.snvs.vcf.gz and somatic.indels.vcf.gz must be byte-identical
 after dropping the volatile header lines (##fileDate, ##startTime,
@@ -81,12 +82,15 @@ def _args(fa, nbam, tbam, out, extra):
 
 
 @pytest.mark.parametrize("mode,extra", [
-    ("wgs", []), ("exome", ["--exome"]),
-    ("evsf", ["--exome", "--report-evs-features"]),
-    ("disable_evs", ["--disable-evs"]),
-    ("region", ["--exome", "--region", "syn:10001-40000",
-                "--output-callable-regions", "--output-realigned-bam"])])
+    ("wgs", []), ("exome", ["--exome"])])
 def test_outputs_byte_identical_to_jax(dataset, mode, extra):
+    check_mode(dataset, mode, extra)
+
+
+def check_mode(dataset, mode, extra):
+    """Both CLIs with `extra`: byte-identical VCFs, the planted somatic
+    SNVs called; per mode, EVSF on every record, or the region's calls,
+    callable regions and realigned BAMs."""
     d, fa, nbam, tbam, truth = dataset
     jout, tout = str(d / f"jax_{mode}"), str(d / f"torch_{mode}")
     assert jax_somatic(_args(fa, nbam, tbam, jout, extra)) in (0, None)
@@ -118,66 +122,6 @@ def test_outputs_byte_identical_to_jax(dataset, mode, extra):
                 want = f.read()
             with open(os.path.join(tout, name), "rb") as f:
                 assert f.read() == want, name
-
-
-@pytest.fixture(scope="module")
-def evs_models(tmp_path_factory):
-    """Small somatic SNV and indel forests (10 features each, the first
-    being QSS_NT / QSI_NT), trained on random rows with
-    strelka_tpu.training.evs_train."""
-    import json
-
-    import numpy as np
-
-    from strelka_tpu.training import evs_train
-    d = tmp_path_factory.mktemp("somatic_evs")
-    paths = []
-    for kind, seed in (("SNV", 5), ("INDEL", 6)):
-        rng = np.random.default_rng(seed)
-        x = rng.normal(size=(1500, 10))
-        x[:, 0] = rng.uniform(0, 120, size=1500)
-        clf = evs_train.train_forest(x, (x[:, 0] > 30).astype(int),
-                                     n_trees=10, max_depth=5)
-        doc = evs_train.export_model_json(
-            clf, [f"F{i}" for i in range(10)], kind, "Somatic", 5.0)
-        path = str(d / f"somatic{kind}.json")
-        with open(path, "w") as f:
-            json.dump(doc, f)
-        paths.append(path)
-    return paths
-
-
-def test_scoring_model_files_byte_identical_to_jax(dataset, evs_models):
-    d, fa, nbam, tbam, _ = dataset
-    extra = ["--exome", "--somatic-snv-scoring-model-file", evs_models[0],
-             "--somatic-indel-scoring-model-file", evs_models[1]]
-    jout, tout = str(d / "jax_models"), str(d / "torch_models")
-    assert jax_somatic(_args(fa, nbam, tbam, jout, extra)) in (0, None)
-    assert torch_main(["somatic", *_args(fa, nbam, tbam, tout, extra),
-                       "--device", "cpu"]) == 0
-    for name in OUTPUTS:
-        a, b = _lines(jout, name), _lines(tout, name)
-        assert a == b, name
-        recs = [l for l in a if not l.startswith("#")]
-        assert recs and all(";SomaticEVS=" in l for l in recs), name
-
-
-def test_default_models_byte_identical_to_jax(dataset, evs_models,
-                                             monkeypatch):
-    """With no model flag both packages load their default model files:
-    pointed at the same forests, the VCFs are byte-identical and scored
-    with EVS."""
-    _pin_default_models(monkeypatch, evs_models)
-    d, fa, nbam, tbam, _ = dataset
-    jout, tout = str(d / "jax_default"), str(d / "torch_default")
-    assert jax_somatic(_args(fa, nbam, tbam, jout, ["--exome"])) in (0, None)
-    assert torch_main(["somatic", *_args(fa, nbam, tbam, tout, ["--exome"]),
-                       "--device", "cpu"]) == 0
-    for name in OUTPUTS:
-        a, b = _lines(jout, name), _lines(tout, name)
-        assert a == b, name
-        recs = [l for l in a if not l.startswith("#")]
-        assert recs and all(";SomaticEVS=" in l for l in recs), name
 
 
 @pytest.mark.parametrize("flag, path", [
