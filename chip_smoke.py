@@ -98,9 +98,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. continuous-VF: germline --call-continuous-vf on phase 4's contig's
    first CONT_MB Mb (host code: no K1, no SNV tile), cuda then cpu,
    every record equal;
-14. RNA: germline --rna --disable-evs on phase 4's contig, cuda then
-   cpu, every record equal; the SNV tiles' launches and stream ms on the
-   card (the het-VF extension there);
+14. RNA: germline --rna --disable-evs on phase 4's contig's first
+   RNA_MB Mb (2 of its 4, for the time limit), cuda then cpu, every
+   record equal; the SNV tiles' launches and stream ms on the card (the
+   het-VF extension there);
 15. error estimation: germline --estimate-sequence-error on phase 4's
    contig's first CONT_MB Mb, cuda then cpu: the allele counts' npz
    arrays equal, the model's rates within ERR_FLAT_RTOL, every record
@@ -111,6 +112,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (a torch.profiler trace of a short fit) and stream ms, and each
    run's wall.
 Phases 12-15 log each run's size, wall and stream ms by device phase.
+16. denovo: per-sample mode on phase 10's gVCFs (sample 1 the proband)
+   and multi-sample mode on its variants.vcf.gz (host code): every input
+   record kept, changed in DQ alone; the scored sites logged;
+17. noise panel: two more 30x normals of phase 6's reference over its
+   first NOISE_MB Mb through noise-extractor, then the somatic CLI with
+   --noise-vcf on phase 6's T/N over that --region, cuda then cpu (every
+   record equal), and on cuda without the panel (the records whose
+   PNOISE/PNOISE2 or FILTER moved logged);
+18. sim: SIM_SITES het and hom-ref sites from simulate_germline_sites
+   through the SNV tiles and SIM_STRELKA sites of each state from
+   simulate_strelka_sites through the somatic SNV model, cuda then cpu,
+   every field equal; tests/test_simulators.py's gates on the card's
+   results (het rate > 0.97, FP rate < 0.01 at Q >= 30; somatic Q >= 15
+   in > 90% of SOMATIC sites and < 5% of REF and GERMLINE ones);
+19. mesh: germline --mesh auto and --mesh 1 on phase 4's data and
+   somatic --mesh 1 on phase 6's (every record equal to phases 4 and 6,
+   the counters set to 0 just before each and read just after: K1 one
+   launch a shard); sharded_best_offsets over meshes that repeat the
+   card at MESH_SHAPES and 256,32,160,192 with padding-window ties and
+   all-N reads, bit for bit one unsharded K1 launch, one launch a shard;
+   the SNV and somatic chunks split over the card four times, bit for
+   bit; dryrun(1); --mesh past the visible cards exits 2. The card's
+   machine has one card, so a mesh's shards there run on one card.
 
 The second-to-last lines are the card's name and power limit
 (nvidia-smi) and one JSON line {"kernels": [...]}; the last line is
@@ -131,6 +155,12 @@ of the port calls it.
 --rehearse runs the same control flow on the CPU at a small size (the
 kernel checks then hold the plain version against itself) and prints
 no result line; it is for checking the script without a card.
+
+--mesh-cards runs, after the build, only the engine mesh over every
+visible card (two or more; phase_mesh_cards: K1 on each card, K1 sharded
+over the cards, germline and somatic with --mesh against without, on a
+1 Mb contig and a 0.5 Mb T/N contig) and prints no result line; with
+--rehearse, over the CPU four times.
 """
 from __future__ import annotations
 
@@ -1532,6 +1562,9 @@ def worker_report(out, n, cuda: bool) -> list[dict]:
 
 JOBS = 4
 CONT_MB = 1.0   # phase 13's region (continuous-VF is host code)
+# phase 14's region: the contig's first 2 Mb (4 Mb until phases 16-19
+# came, when a smoke from git archive took 1078.7 s of its 1200 s)
+RNA_MB = 2.0
 # phase 15's bounds, the tests' (tests/test_torch_error_fit.py FLAT_RTOL:
 # the fit keeps its least-loss step, and an ulp can pick another among
 # steps whose losses tie; tests/test_torch_error_zoo.py FIT_RTOL: the
@@ -2044,11 +2077,454 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     return counts
 
 
+NOISE_MB = 0.4     # phase 17's span: the panel's normals and the --region
+SIM_SITES = 20_000  # phase 18's het and hom-ref germline sites each
+SIM_STRELKA = 2_000  # phase 18's somatic sites per simulated state
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2), (4, 1))   # phase 19's (dp, sp)
+# the wall each of phases 16-19 is sized to fit (s), logged beside its wall
+BUDGET_S = {16: 15, 17: 120, 18: 20, 19: 60}
+
+
+def quiet(fn):
+    """fn() with its stderr captured: (fn's result, the captured text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def check_dq_only(src, out, label) -> dict:
+    """Fails unless `out` holds every record of `src` in order, each
+    unchanged but for a DQ= appended to INFO; returns the counts."""
+    a, b = vcf_records(src), vcf_records(out)
+    if len(a) != len(b):
+        fail(f"{label}: {len(a)} records in, {len(b)} out")
+    dq = []
+    for ra, rb in zip(a, b):
+        if ra == rb:
+            continue
+        info = ra[7]
+        ok = (ra[:7] == rb[:7] and ra[8:] == rb[8:]
+              and (rb[7].startswith(info + ";DQ=") if info != "."
+                   else rb[7].startswith("DQ=")))
+        if not ok:
+            fail(f"{label}: a record changed beyond DQ:\n {ra[:8]}\n "
+                 f"{rb[:8]}")
+        dq.append(float(rb[7].rsplit("DQ=", 1)[1].split(";")[0]))
+    return {"records": len(b), "scored": len(dq),
+            "dq_max": max(dq) if dq else None,
+            "dq_ge_20": sum(x >= 20 for x in dq)}
+
+
+def phase_denovo(cuda: bool, workdir, n_samples=3):
+    """Phase 16: denovo in per-sample mode on phase 10's gVCFs (sample 1
+    the proband, 2 the mother, 3 the father) and in multi-sample mode on
+    its variants.vcf.gz; every input record kept, changed in DQ alone."""
+    from strelka_tpu_torch.__main__ import main as torch_main
+    joint = os.path.join(workdir, f"joint_{'cuda' if cuda else 'cpu'}")
+    gv = [os.path.join(joint, f"genome.S{i + 1}.vcf.gz")
+          for i in range(n_samples)]
+    var = os.path.join(joint, "variants.vcf.gz")
+    ids = [f"joint_S{i + 1}" for i in range(n_samples)]
+    row = {}
+    for label, argv, src in (
+            ("per_sample", ["--proband", gv[0], "--mother", gv[1],
+                            "--father", gv[2]], gv[0]),
+            ("multi_sample", ["--vcf", var, "--proband-id", ids[0],
+                              "--mother-id", ids[1], "--father-id", ids[2]],
+             var)):
+        out = os.path.join(workdir, f"denovo_{label}.vcf.gz")
+        t0 = time.perf_counter()
+        rc, err = quiet(lambda: torch_main(  # noqa: B023
+            ["denovo", *argv, "--output", out]))
+        if rc != 0:
+            fail(f"denovo ({label}) exited {rc}: {err.strip()}")
+        row[label] = dict(check_dq_only(src, out, f"denovo {label}"),
+                          wall_s=time.perf_counter() - t0,
+                          message=err.strip())
+    log("denovo: " + json.dumps(row))
+
+
+def phase_noise(cuda: bool, fa, nbam, tbam, tn_mb, workdir):
+    """Phase 17: two more 30x normals of phase 6's reference (ref_seed
+    11, seeds 23 and 24) over its first NOISE_MB Mb through
+    noise-extractor; then the somatic CLI with --noise-vcf on phase 6's
+    T/N, --region over that span, cuda then cpu (every record equal),
+    and on cuda without the panel: the records whose PNOISE/PNOISE2 or
+    FILTER the panel moved are logged."""
+    from strelka_tpu_torch import synth
+    from strelka_tpu_torch.__main__ import main as torch_main
+    from strelka_tpu_torch.io.bam import BamHeader
+    from strelka_tpu_torch.io.bam_writer import write_bam
+    from strelka_tpu_torch.io.fasta import FastaReference, decode_bases
+    span = int(min(NOISE_MB, tn_mb) * 1_000_000)
+    ref = FastaReference(fa)
+    full = ref.contig_length("syn")
+    t0 = time.perf_counter()
+    bams, n_reads = [], 0
+    for seed in (23, 24):
+        refs, batch, _ = synth.generate(L=span, depth=30, read_len=150,
+                                        snv_every=900, indel_every=1200,
+                                        seed=seed, ref_seed=11)
+        if refs != decode_bases(ref.fetch("syn", 0, span)):
+            fail("phase 17: the panel's reference is not phase 6's")
+        bam = os.path.join(workdir, f"panel_normal{seed}.bam")
+        write_bam(bam, BamHeader(text="", ref_names=["syn"],
+                                 ref_lengths=[full]), batch)
+        bams.append(bam)
+        n_reads += batch.n
+    row = {"span_mb": span / 1e6, "panel_reads": n_reads,
+           "data_s": time.perf_counter() - t0}
+    panel = os.path.join(workdir, "noise_panel.vcf.gz")
+    t0 = time.perf_counter()
+    rc, err = quiet(lambda: torch_main(
+        ["noise-extractor", "--reference", fa, "--output", panel,
+         "--align-file", bams[0], "--align-file", bams[1]]))
+    if rc != 0:
+        fail(f"noise-extractor exited {rc}: {err.strip()}")
+    row["extractor_wall_s"] = time.perf_counter() - t0
+    sites = vcf_records(panel)
+    if not sites or any(r[8] != "DP:AD" or len(r) != 11 for r in sites):
+        fail(f"phase 17: malformed or empty panel ({len(sites)} sites)")
+    row["panel_sites"] = len(sites)
+    region = ["--region", f"syn:1-{span}"]
+    outs = {}
+    runs = [("cuda", True), ("cpu", True), ("cuda", False)] if cuda else [
+        ("cpu", True), ("cpu", False)]
+    for device, with_panel in runs:
+        tag = f"noise_{device}" + ("" if with_panel else "_bare")
+        out = os.path.join(workdir, tag)
+        extra = ["--noise-vcf", panel] if with_panel else []
+        t0 = time.perf_counter()
+        rc = torch_main(["somatic", "--reference", fa, "--normal-align-file",
+                         nbam, "--tumor-align-file", tbam, "--output-dir",
+                         out, "--device", device, *region, *extra])
+        if rc not in (0, None):
+            fail(f"phase 17: somatic {tag} exited {rc}")
+        row[f"{tag}_wall_s"] = time.perf_counter() - t0
+        outs[tag] = out
+    dev = "cuda" if cuda else "cpu"
+    if cuda:
+        row["records_equal"] = compare_records(
+            outs["noise_cuda"], outs["noise_cpu"], SOMATIC_OUTPUTS,
+            "phase 17: somatic with the panel, cuda against cpu")
+    moved = annotated = 0
+    for name in SOMATIC_OUTPUTS:
+        a = vcf_records(os.path.join(outs[f"noise_{dev}"], name))
+        b = vcf_records(os.path.join(outs[f"noise_{dev}_bare"], name))
+        if [r[:5] for r in a] != [r[:5] for r in b]:
+            fail(f"phase 17: {name}'s sites moved with the panel")
+        for ra, rb in zip(a, b):
+            pn = info_of(ra, ("PNOISE", "PNOISE2"))
+            annotated += pn != (None, None)
+            moved += (pn != info_of(rb, ("PNOISE", "PNOISE2"))
+                      or ra[6] != rb[6])
+    row.update(records_moved_by_panel=moved, records_with_pnoise=annotated)
+    log("noise: " + json.dumps(row))
+
+
+def phase_sim(np, torch, dev, cuda: bool, n_sites: int, n_strelka: int):
+    """Phase 18: germline sites from simulate_germline_sites (het A/C and
+    hom-ref, n_sites each) through the SNV tiles, and
+    simulate_strelka_sites (SOMATIC, REF, GERMLINE and NOISE states)
+    through the somatic SNV model, on `dev` then on the CPU: every field
+    equal; tests/test_simulators.py's gates on the card's results."""
+    from strelka_tpu_torch import sim
+    from strelka_tpu_torch.models import digt
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(42)
+    opt = sim.SimOptions(depth=30, qscore=30, ref_base=0)
+    germ = {gt: sim.simulate_germline_sites(rng, n_sites, gt, opt)
+            for gt in ((0, 1), (0, 0))}
+    strelka = {}
+    for mode in (sim.SIM_SOMATIC, sim.SIM_REF, sim.SIM_GERMLINE,
+                 sim.SIM_NOISE):
+        o = sim.StrelkaSimOptions(total_sites=n_strelka, ncov=35, tcov=60,
+                                  mode=mode)
+        strelka[mode] = list(sim.simulate_strelka_sites(rng, o))
+    row = {"sites_germline": 2 * n_sites,
+           "sites_somatic": len(strelka) * n_strelka,
+           "draw_s": time.perf_counter() - t0}
+    devices = [dev, torch.device("cpu")] if cuda else [dev]
+    res = {}
+    for d in devices:
+        t0 = time.perf_counter()
+        out = {}
+        for gt, (b, q, f, m) in germ.items():
+            tile = sd.SnvPileupTile(base_id=b, qual=q, is_fwd=f, mask=m,
+                                    ref_gt=np.zeros(len(b), np.int32))
+            out[gt] = sd.call_snv_tile_chunked(tile, device=d)
+        for mode, sites in strelka.items():
+            lh = []
+            for key in ("normal", "tumor"):
+                piles = [getattr(x, key) for x in sites]
+                D = max(max(len(p[0]) for p in piles), 1)
+                arr = [np.full((len(piles), D), -1, np.int32),
+                       np.zeros((len(piles), D), np.int32),
+                       np.zeros((len(piles), D), bool),
+                       np.zeros((len(piles), D), bool)]
+                for i, (pb, pq, pf) in enumerate(piles):
+                    k = len(pb)
+                    arr[0][i, :k], arr[1][i, :k] = pb, pq
+                    arr[2][i, :k], arr[3][i, :k] = pf, True
+                t = [torch.from_numpy(a).to(d) for a in arr]
+                lh.append(ss.freq_grid_lhoods(
+                    t[0], t[1], t[3], t[2],
+                    torch.zeros(len(piles), dtype=torch.int32, device=d)))
+            r = ss.somatic_snv_call_capped(*lh)
+            out[mode] = {f: getattr(r, f).cpu().numpy()
+                         for f in ss.SomaticSnvResult._fields}
+        res[d.type] = out
+        row[f"{d.type}_s"] = time.perf_counter() - t0
+    if cuda:
+        a, b = res["cuda"], res["cpu"]
+        for gt in germ:
+            for f in ("genome_max_gt", "poly_max_gt", "snv_qphred",
+                      "genome_max_gt_qphred", "poly_max_gt_qphred",
+                      "phred_loghood", "lhood"):
+                if not np.array_equal(getattr(a[gt], f), getattr(b[gt], f)):
+                    fail(f"phase 18: germline {gt} {f} differs, cuda "
+                         f"against cpu")
+        for mode in strelka:
+            for f in ("qphred", "from_ntype_qphred", "ntype", "max_gt",
+                      "nonsomatic_qphred"):
+                if not np.array_equal(a[mode][f], b[mode][f]):
+                    fail(f"phase 18: somatic {mode} {f} differs, cuda "
+                         f"against cpu")
+    got = res[dev.type]
+    het = float((got[(0, 1)].genome_max_gt == digt.LABELS.index("AC")).mean())
+    fp = float((got[(0, 0)].snv_qphred >= 30).mean())
+    q15 = {m: float((got[m]["qphred"] >= 15).mean()) for m in strelka}
+    row.update(het_rate=het, homref_fp_rate_q30=fp, somatic_q15_rate=q15)
+    if het <= 0.97 or fp >= 0.01:
+        fail(f"phase 18: germline gates missed: het {het}, FP {fp}")
+    if (q15[sim.SIM_SOMATIC] <= 0.9 or q15[sim.SIM_REF] >= 0.05
+            or q15[sim.SIM_GERMLINE] >= 0.05):
+        fail(f"phase 18: somatic gates missed: {q15}")
+    log("sim: " + json.dumps(row))
+
+
+def mesh_inputs(np, B, R, L, W):
+    """K1 inputs with padding windows that tie real offsets and all-N
+    reads that tie everywhere at lnmis (tests/test_mesh.py's cases)."""
+    codes, delta, lnmis, win = k1_random(np, np.random.default_rng(19),
+                                         B, R, L, W)
+    win[:, :, W // 2:] = 4
+    codes[:, :2] = 4
+    delta[:, :2] = 0.0
+    lnmis[:, :2] = 0.0
+    return codes, delta, lnmis, win
+
+
+def phase_mesh(np, torch, dev, cuda: bool, fa, bam, seg, out_dev, tn,
+               som_dev, workdir):
+    """Phase 19: germline --mesh auto and --mesh 1 on phase 4's data and
+    somatic --mesh 1 on phase 6's (on the card), every record equal to
+    phases 4 and 6, K1 launched one time a shard; sharded_best_offsets
+    over meshes that repeat the one card at MESH_SHAPES, bit for bit one
+    unsharded K1 launch, one launch a shard; the SNV and somatic chunks
+    split over a mesh of the card four times, bit for bit; dryrun(1);
+    --mesh with more cards than are visible exits 2. Returns the CLI
+    runs' launch counts by path."""
+    from strelka_tpu_torch.__main__ import main as torch_main
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.parallel import mesh as pm
+    from strelka_tpu_torch.pipeline import somatic_caller as sc
+    device = dev.type
+    row, paths = {}, {}
+    for spec in ("auto", "1"):
+        out = os.path.join(workdir, f"mesh_{spec}")
+        wall, _, c = launches_during(lambda: run_cli(  # noqa: B023
+            fa, bam, out, device, ["--max-region-size", str(seg), "--mesh",
+                                   spec]))
+        check_path_launches(f"germline --mesh {spec}", c, cuda)
+        row[f"germline_mesh_{spec}"] = {
+            "wall_s": wall, "k1_launches": c["k1"],
+            "records_equal": compare_records(
+                out, out_dev, ("variants.vcf.gz", "genome.S1.vcf.gz"),
+                f"germline --mesh {spec} against phase 4")}
+        paths[f"germline_mesh_{spec}"] = c
+    fa_tn, nbam, tbam = tn[:3]
+    out = os.path.join(workdir, "mesh_somatic")
+    shutil.rmtree(out, ignore_errors=True)
+    rc, wall, c = launches_during(lambda: torch_main(
+        ["somatic", "--reference", fa_tn, "--normal-align-file", nbam,
+         "--tumor-align-file", tbam, "--output-dir", out, "--device", device,
+         "--mesh", "1"]))
+    if rc not in (0, None):
+        fail(f"somatic --mesh 1 exited {rc}")
+    check_path_launches("somatic --mesh 1", c, cuda)
+    row["somatic_mesh_1"] = {
+        "wall_s": wall, "k1_launches": c["k1"],
+        "records_equal": compare_records(out, som_dev, SOMATIC_OUTPUTS,
+                                         "somatic --mesh 1 against phase 6")}
+    paths["somatic_mesh_1"] = c
+    # one card: a mesh of one entry; each run launches K1 as the
+    # unmeshed run does, one launch a chunk (a shard)
+    if cuda:   # on the CPU a mesh repeats the CPU: any N is there
+        too_many = str(torch.cuda.device_count() + 1)
+        rc, err = quiet(lambda: torch_main(
+            ["germline", "--reference", fa, "--align-file", bam,
+             "--output-dir", os.path.join(workdir, "mesh_too_many"),
+             "--device", device, "--mesh", too_many]))
+        if rc == 0 or "visible" not in err:
+            fail(f"germline --mesh {too_many} exited {rc}: {err.strip()}")
+        row["mesh_past_the_cards"] = {"spec": too_many, "exit": rc,
+                                      "message": err.strip()}
+    # sharded K1 over meshes that repeat the card
+    B, R, L, W = 256, 32, 160, 192
+    host = [torch.from_numpy(a) for a in mesh_inputs(np, B, R, L, W)]
+    one = sk.score_best_offsets(*(t.to(dev) for t in host))
+    want = (one[0].cpu(), one[1].cpu())
+    sharded = {}
+    for dp, sp in MESH_SHAPES:
+        fn = pm.sharded_best_offsets(
+            sk.score_best_offsets, pm.make_mesh([dev] * (dp * sp), dp=dp,
+                                                sp=sp))
+        before = sk.LAUNCHES
+        got = fn(*host)
+        n = sk.LAUNCHES - before
+        if cuda and n != dp * sp:
+            fail(f"sharded K1 ({dp},{sp}) launched {n} times, not {dp * sp}")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail(f"sharded K1 ({dp},{sp}) differs from one launch")
+        sharded[f"{dp}x{sp}"] = {"launches": n, "ms": time_ms(
+            torch, cuda, lambda: fn(*host), 1 if not cuda else 10)}  # noqa: B023
+    row["sharded_k1"] = dict(shape=[B, R, L, W], **sharded)
+    # the SNV chunks (two full and a tail) and the somatic tier1 chunks
+    # split over the card four times
+    rng = np.random.default_rng(20)
+    Lr, D = 2 * (sd.SNV_TILE_L * 4 if cuda else sd.SNV_TILE_L) + 777, 40
+    refc = rng.integers(0, 4, Lr).astype(np.int32)
+    base = np.where(rng.random((Lr, D)) < 0.2, rng.integers(0, 4, (Lr, D)),
+                    refc[:, None]).astype(np.int8)
+    tile = sd.SnvPileupTile(
+        base_id=base, qual=rng.integers(0, 45, (Lr, D)).astype(np.uint8),
+        is_fwd=rng.random((Lr, D)) < 0.5, mask=rng.random((Lr, D)) < 0.8,
+        ref_gt=refc)
+    ns = __import__("types").SimpleNamespace
+    pus = [ns(base_id=base, qual=tile.qual.astype(np.int16),
+              is_fwd=tile.is_fwd, valid=tile.mask,
+              used=rng.random((Lr, D)) < 0.9, tier2_used=tile.mask)
+           for _ in range(2)]
+
+    def chunks(n):
+        # a 1x1 mesh is the unsharded run, on the torch tiles on either
+        # device (without a mesh the CPU takes the native tail)
+        pm.set_engine_mesh(pm.make_mesh([dev] * n, dp=n, sp=1))
+        try:
+            return (sd.call_snv_tile_chunked(tile, device=dev),
+                    sc._snv_tier1_fused(pus, refc,
+                                        ss.somatic_snv_call_capped, dev))
+        finally:
+            pm.set_engine_mesh(None)
+    plain, meshed = chunks(1), chunks(4)
+    for a, b in zip(plain, meshed):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x is not None and (np.asarray(x).tobytes()
+                                  != np.asarray(y).tobytes()):
+                fail(f"phase 19: chunks over the mesh differ in {f}")
+    row["mesh_chunks_equal"] = {"snv_rows": Lr, "somatic_rows": Lr}
+    q, gt, best = pm.dryrun(1, device)
+    row["dryrun"] = {"loci": int(q.shape[0]), "best": list(best.shape),
+                     "finite": bool(torch.isfinite(best).all())}
+    if not row["dryrun"]["finite"]:
+        fail("phase 19: dryrun(1) gave a non-finite score")
+    log("mesh: " + json.dumps(row))
+    return paths
+
+
+def phase_mesh_cards(np, torch, cuda: bool, workdir, mb, tn_mb):
+    """--mesh-cards: the engine mesh over every visible card (at least
+    two; on the CPU, in a rehearsal, the CPU four times). K1 on each
+    card, launched with card 0 current, against card 0; K1 sharded over
+    the cards (n x 1 and n/2 x 2) against one launch, one launch a
+    shard, timed; germline without --mesh, with --mesh 1, auto and 2x2
+    (four cards) on a `mb` Mb contig, and somatic without and with
+    --mesh auto on a `tn_mb` Mb T/N contig: every record equal, K1's
+    launches and each run's wall logged."""
+    from strelka_tpu_torch.__main__ import main as torch_main
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.parallel import mesh as pm
+    device = "cuda" if cuda else "cpu"
+    n = torch.cuda.device_count() if cuda else 4
+    if n < 2:
+        fail(f"--mesh-cards needs two cards or more; {n} visible")
+    cards = pm.local_devices(device, n)
+    row = {"cards": n}
+    host = [torch.from_numpy(a) for a in mesh_inputs(np, 256, 32, 160, 192)]
+    one = sk.score_best_offsets(*(t.to(cards[0]) for t in host))
+    want = (one[0].cpu(), one[1].cpu())
+    for d in cards[1:]:
+        with (torch.cuda.device(0) if cuda else contextlib.nullcontext()):
+            got = sk.score_best_offsets(*(t.to(d) for t in host))
+        if got[0].device != d or not (torch.equal(got[0].cpu(), want[0])
+                                      and torch.equal(got[1].cpu(),
+                                                      want[1])):
+            fail(f"K1 on {d} with card 0 current differs from card 0")
+    row["k1_on_every_card_equal"] = True
+    sharded = {}
+    for dp, sp in [(n, 1)] + ([(n // 2, 2)] if n % 2 == 0 else []):
+        fn = pm.sharded_best_offsets(sk.score_best_offsets,
+                                     pm.make_mesh(cards, dp=dp, sp=sp))
+        before = sk.LAUNCHES
+        got = fn(*host)
+        launched = sk.LAUNCHES - before
+        if cuda and launched != dp * sp:
+            fail(f"sharded K1 ({dp},{sp}) launched {launched} times")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail(f"sharded K1 ({dp},{sp}) over the cards differs")
+        sharded[f"{dp}x{sp}"] = {"launches": launched, "ms": time_ms(
+            torch, cuda, lambda: fn(*host), 10 if cuda else 1)}  # noqa: B023
+    row["sharded_k1"] = dict(shape=[256, 32, 160, 192], **sharded)
+    fa, bam, n_reads = make_dataset(np, workdir, mb)
+    specs = ["", "1", "auto"] + (["2x2"] if n == 4 else [])
+    for spec in specs:
+        out = os.path.join(workdir, f"cards_mesh_{spec or 'none'}")
+        extra = ["--mesh", spec] if spec else []
+        wall, _, c = launches_during(lambda: run_cli(  # noqa: B023
+            fa, bam, out, device, extra))
+        row[f"germline_mesh_{spec or 'none'}"] = {
+            "wall_s": wall, "k1_launches": c["k1"], "records_equal": (
+                compare_records(out, os.path.join(workdir, "cards_mesh_none"),
+                                ("variants.vcf.gz", "genome.S1.vcf.gz"),
+                                f"germline --mesh {spec}") if spec else None)}
+    fa_tn, nbam, tbam = make_tn_dataset(np, workdir, tn_mb)[:3]
+    for spec in ("", "auto"):
+        out = os.path.join(workdir, f"cards_somatic_{spec or 'none'}")
+        shutil.rmtree(out, ignore_errors=True)
+        extra = ["--mesh", spec] if spec else []
+        rc, wall, c = launches_during(lambda: torch_main(  # noqa: B023
+            ["somatic", "--reference", fa_tn, "--normal-align-file", nbam,
+             "--tumor-align-file", tbam, "--output-dir", out, "--device",
+             device, *extra]))
+        if rc not in (0, None):
+            fail(f"somatic --mesh {spec} exited {rc}")
+        row[f"somatic_mesh_{spec or 'none'}"] = {
+            "wall_s": wall, "k1_launches": c["k1"], "records_equal": (
+                compare_records(out, os.path.join(workdir,
+                                                  "cards_somatic_none"),
+                                SOMATIC_OUTPUTS, "somatic --mesh auto")
+                if spec else None)}
+    log("mesh_cards: " + json.dumps(row))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
                     help="run on the CPU at a small size; no result line")
-    rehearse = ap.parse_args(argv).rehearse
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="only the engine mesh over every visible card "
+                         "(two or more); no result line")
+    opts = ap.parse_args(argv)
+    rehearse = opts.rehearse
 
     import numpy as np
     import torch
@@ -2074,6 +2550,14 @@ def main(argv=None) -> int:
 
     log("== phase 1: build")
     phase_build(torch, cuda)
+    if opts.mesh_cards:
+        log("== the engine mesh over every visible card")
+        workdir = os.path.join(HERE, "build", "smoke_cards")
+        shutil.rmtree(workdir, ignore_errors=True)
+        phase_mesh_cards(np, torch, cuda, workdir, 0.1 if rehearse else 1.0,
+                         0.1 if rehearse else 0.5)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     main_shapes = [(256, r, 160, w) for r in (32, 128, 512)
                    for w in (256, 320)]
@@ -2237,8 +2721,11 @@ def main(argv=None) -> int:
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     log("== phase 14: germline --rna --disable-evs, cuda then cpu")
     t0 = time.perf_counter()
-    rna, _, _ = phase_mode(torch, cuda, "rna", fa, bam, n_reads, mb,
-                           workdir, [*base_args, "--rna", "--disable-evs"])
+    rna_mb = min(mb, RNA_MB)
+    rna, _, _ = phase_mode(torch, cuda, "rna", fa, bam, n_reads, rna_mb,
+                           workdir, [*base_args, "--rna", "--disable-evs",
+                                     "--region",
+                                     f"syn:1-{int(rna_mb * 1_000_000)}"])
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
         "tools estimate-parameters")
@@ -2248,12 +2735,38 @@ def main(argv=None) -> int:
                          "--estimate-sequence-error"])
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    log("== phase 16: denovo on phase 10's trio, per-sample and "
+        "multi-sample")
+    t0 = time.perf_counter()
+    phase_denovo(cuda, workdir)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s of its "
+        f"{BUDGET_S[16]} s budget")
+    log("== phase 17: noise-extractor panel, then somatic --noise-vcf, "
+        "cuda then cpu")
+    t0 = time.perf_counter()
+    phase_noise(cuda, fa_tn, nbam, tbam, tn_mb, workdir)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s of its "
+        f"{BUDGET_S[17]} s budget")
+    log("== phase 18: the site simulators through the SNV tiles and the "
+        "somatic model, cuda then cpu")
+    t0 = time.perf_counter()
+    phase_sim(np, torch, dev, cuda, 2000 if rehearse else SIM_SITES,
+              200 if rehearse else SIM_STRELKA)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s of its "
+        f"{BUDGET_S[18]} s budget")
+    log(f"== phase 19: the engine mesh (--mesh) on {dev.type}")
+    t0 = time.perf_counter()
+    mesh_paths = phase_mesh(np, torch, dev, cuda, fa, bam, seg, out_dev, tn,
+                            som_dev, workdir)
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s of its "
+        f"{BUDGET_S[19]} s budget")
+
     # each CLI path's launch counts, read just after it ran
     paths = {"germline": germline, "somatic": somatic,
              "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
              "germline_joint": joint, "cram": cram, "germline_evs": evs,
              "germline_continuous": continuous, "germline_rna": rna,
-             "germline_error_estimation": error}
+             "germline_error_estimation": error, **mesh_paths}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -3,31 +3,31 @@
 Reference analog: the configureStrelka*Workflow.py entry scripts.
 
   python -m strelka_tpu_torch germline --reference ... --align-file ... \\
-      [--align-file ...] --output-dir ... [--device cuda|cpu] [--jobs N]
+      [--align-file ...] --output-dir ... [--device cuda|cpu] [--jobs N] \\
+      [--mesh auto|N|DPxSP]
   python -m strelka_tpu_torch somatic --reference ... \\
       --normal-align-file ... --tumor-align-file ... \\
-      --output-dir ... [--device cuda|cpu] [--jobs N]
-
-Both take BAM or CRAM input and the fan-out options of strelka_tpu
-(--jobs, --cluster-submit/--cluster-status with --retry-*,
---process-index/--process-count with --merge-only, and coordinated
-processes through STRELKA_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID);
-germline calls one sample or several jointly, with the germline EVS
-model files, --disable-evs, --call-continuous-vf, --rna and the
-sequence-error estimation pre-pass (--estimate-sequence-error, its fits
-on --device).
-
+      --output-dir ... [--device cuda|cpu] [--jobs N] [--mesh auto|N|DPxSP]
+  python -m strelka_tpu_torch denovo --proband ... --mother ... --father ...
+  python -m strelka_tpu_torch noise-extractor --reference ... --align-file ...
   python -m strelka_tpu_torch tools <tool> ...
 
-runs the twelve tools of strelka_tpu (no tool: the list, exit 2);
-estimate-parameters takes --device cuda|cpu (default cuda). Not ported
-yet: the denovo and noise-extractor subcommands, which exit 2.
+germline and somatic take BAM or CRAM input and the fan-out options of
+strelka_tpu (--jobs, --cluster-submit/--cluster-status with --retry-*,
+--process-index/--process-count with --merge-only, and coordinated
+processes through STRELKA_TPU_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID),
+and --mesh, the engine mesh that shards a process's kernel launches over
+local devices; germline calls one sample or several jointly, with the
+germline EVS model files, --disable-evs, --call-continuous-vf, --rna and
+the sequence-error estimation pre-pass (--estimate-sequence-error, its
+fits on --device). denovo (trio DQ, per-sample gVCFs or one multi-sample
+VCF) and noise-extractor (a panel-of-normals site-noise VCF) are host
+code. tools runs the twelve tools of strelka_tpu (no tool: the list,
+exit 2); estimate-parameters takes --device cuda|cpu (default cuda).
 """
 from __future__ import annotations
 
 import sys
-
-NOT_PORTED = ("denovo", "noise-extractor")
 
 
 def main(argv=None) -> int:
@@ -45,10 +45,12 @@ def main(argv=None) -> int:
     if cmd == "tools":
         from .workflow.tools import main as tools_main
         return tools_main(rest)
-    if cmd in NOT_PORTED:
-        print(f"{cmd}: not yet ported to strelka_tpu_torch "
-              "(use python -m strelka_tpu)", file=sys.stderr)
-        return 2
+    if cmd == "denovo":
+        from .workflow.denovo import run_denovo
+        return run_denovo(rest)
+    if cmd == "noise-extractor":
+        from .workflow.noise_extractor import run_noise_extractor
+        return run_noise_extractor(rest)
     print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
     return 2
 

@@ -1036,7 +1036,10 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
     package; on CUDA the torch tile functions run on the card, in the
     same canonical order. het_vf_extension > 0 (RNA mode) skips the
     native path on the CPU too, as the JAX package does: the torch tiles
-    add the het-VF extension (call_snv_tile) on either device.
+    add the het-VF extension (call_snv_tile) on either device. With an
+    engine mesh (parallel/mesh.py, --mesh) the torch tiles run on the
+    CPU as well, each chunk's rows split over the mesh's devices; rows
+    are independent, so the results are the unsharded ones.
 
     dep: optional (s_delta [L, 4] f32, plane_fn(rows) -> [n, D] f32)
     dependent-eprob deltas from dependent_eprob_deltas; None disables
@@ -1054,12 +1057,15 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
     s_delta = dep[0] if dep is not None else None
     plane_fn = dep[1] if dep is not None else None
 
+    from ..parallel import mesh as pmesh
     rna = (het_vf_extension, het_vf_increment, plane_fn)
     out = None
     if het_vf_extension > 0:
         out = _genotype_chunks(dev, base, qual, mask, ref_gt, hap, None,
                                theta, rna)
-    elif dev.type == "cpu" and D <= 127:
+    elif dev.type == "cpu" and D <= 127 and pmesh.engine_mesh() is None:
+        # with an engine mesh (--mesh) the torch tiles run sharded on
+        # the CPU too, as the JAX package runs its XLA tiles there
         out = _call_snv_tile_native(base, qual, mask, ref_gt, theta,
                                     hap, s_delta)
     if out is None:
@@ -1077,30 +1083,35 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
         # the JAX package pads the strand-bias tile's D to a multiple of
         # 32 with masked calls, which decides XLA's order of its sums
         Dsb = -(-D // SNV_TILE_D_PAD) * SNV_TILE_D_PAD
-        for t0 in range(0, len(snp_rows), SNV_SB_TILE):
-            rows = snp_rows[t0:t0 + SNV_SB_TILE]
+        gmax = np.asarray(out.genome_max_gt)
+        shards = pmesh.chunk_sharder(dev)
+        for c0 in range(0, len(snp_rows), SNV_SB_TILE):
+            launched = []
+            for sdev, t0, t1 in shards(c0, min(c0 + SNV_SB_TILE,
+                                                len(snp_rows))):
+                rows = snp_rows[t0:t1]
 
-            def put(a, fill=0):
-                # a fresh host array: the copy to the device cannot race
-                # a later rewrite
-                if a.ndim == 2:
-                    o = np.full((len(rows), Dsb), fill, dtype=a.dtype)
-                    o[:, :D] = a
-                    a = o
-                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            sub = SnvPileupTile(
-                base_id=put(base[rows]), qual=put(qual[rows]),
-                is_fwd=put(fwd[rows], False), mask=put(mask[rows], False),
-                ref_gt=put(ref_gt[rows]))
-            dd = None
-            if plane_fn is not None:
-                dd = put(np.asarray(plane_fn(rows), np.float32))
-            _tally("sb", dev, len(rows), Dsb)
-            vals = snv_strand_bias_tile(
-                sub, put(np.asarray(out.genome_max_gt)[rows]),
-                put(lt[t0:t0 + len(rows)]), dd, het_vf_extension,
-                het_vf_increment)
-            sb[rows] = vals.cpu().numpy()
+                def put(a, fill=0, rows=rows, sdev=sdev):
+                    # a fresh host array: the copy to the device cannot
+                    # race a later rewrite
+                    if a.ndim == 2:
+                        o = np.full((len(rows), Dsb), fill, dtype=a.dtype)
+                        o[:, :D] = a
+                        a = o
+                    return torch.from_numpy(np.ascontiguousarray(a)).to(sdev)
+                sub = SnvPileupTile(
+                    base_id=put(base[rows]), qual=put(qual[rows]),
+                    is_fwd=put(fwd[rows], False),
+                    mask=put(mask[rows], False), ref_gt=put(ref_gt[rows]))
+                dd = None
+                if plane_fn is not None:
+                    dd = put(np.asarray(plane_fn(rows), np.float32))
+                _tally("sb", sdev, len(rows), Dsb)
+                launched.append((rows, snv_strand_bias_tile(
+                    sub, put(gmax[rows]), put(lt[t0:t1]), dd,
+                    het_vf_extension, het_vf_increment)))
+            for rows, vals in launched:
+                sb[rows] = vals.cpu().numpy()
     return out._replace(strand_bias=sb)
 
 
@@ -1128,6 +1139,39 @@ def _rna_tile(rna, put, base, qual, mask, rg, h, theta, t0, t1, pad_d):
                          het_vf_increment=inc, dep_delta=dd)
 
 
+def _genotype_rows(dev, put, base, qual, mask, ref_gt, hap, s_delta, theta,
+                   rna, hist_ok, t0, t1, pad_d):
+    """The genotype pass of rows t0:t1 on `dev` (`put` copies a host
+    array there); _genotype_chunks' body for one chunk or shard."""
+    rg = put(ref_gt[t0:t1].astype(np.int32))
+    h = None
+    if hap is not None:
+        h = put(hap[t0:t1])
+    sm = None
+    if s_delta is not None:
+        sm = put(np.asarray(s_delta[t0:t1], np.float32))
+    _tally("tile", dev, t1 - t0, base.shape[1])
+    if hist_ok:
+        hist = np.zeros((t1 - t0, _SNV_QTAB_SIZE * digt.N_BASE), np.int8)
+        from ..io.native import snv_hist_native
+        if not snv_hist_native(np.ascontiguousarray(base[t0:t1]),
+                               np.ascontiguousarray(qual[t0:t1]),
+                               np.ascontiguousarray(mask[t0:t1]),
+                               _SNV_QTAB_SIZE, hist):
+            hist[:] = 0
+            _np_snv_hist(base[t0:t1], qual[t0:t1], mask[t0:t1], hist)
+        cols = np.nonzero(hist.any(axis=0))[0].tolist()
+        return call_snv_hist_tile(put(hist), rg, h, theta, s_mis=sm,
+                                  cols=cols)
+    if rna is not None:
+        return _rna_tile(rna, put, base, qual, mask, rg, h, theta, t0, t1,
+                         pad_d)
+    sub = SnvPileupTile(
+        base_id=put(base[t0:t1]), qual=put(qual[t0:t1]),
+        is_fwd=None, mask=put(mask[t0:t1]), ref_gt=rg)
+    return call_snv_tile(sub, theta, h, dep_smis=sm)
+
+
 def _genotype_chunks(dev, base, qual, mask, ref_gt, hap, s_delta, theta,
                      rna=None):
     """Genotype pass of the torch tile functions over row chunks.
@@ -1140,48 +1184,28 @@ def _genotype_chunks(dev, base, qual, mask, ref_gt, hap, s_delta, theta,
     whole with the chunk's per-call dependent-eprob deltas (plane_fn,
     or None) and call_snv_tile adds the het-VF extension.
     """
+    from ..parallel import mesh as pmesh
     L, D = base.shape
     TL = SNV_TILE_L * 4 if dev.type == "cuda" else SNV_TILE_L
     hist_ok = D <= 127 and rna is None
     outs: dict[str, list] = {f: [] for f in _PULL}
-    for t0 in range(0, max(L, 1), TL):  # one empty chunk when L == 0
-        t1 = min(t0 + TL, L)
-
-        def put(a):
-            # blocking copy of a fresh host array: no staging buffer
-            # is reused while a launch may still read it
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        rg = put(ref_gt[t0:t1].astype(np.int32))
-        h = None
-        if hap is not None:
-            h = put(hap[t0:t1])
-        sm = None
-        if s_delta is not None:
-            sm = put(np.asarray(s_delta[t0:t1], np.float32))
-        _tally("tile", dev, t1 - t0, D)
-        if hist_ok:
-            hist = np.zeros((t1 - t0, _SNV_QTAB_SIZE * digt.N_BASE),
-                            np.int8)
-            from ..io.native import snv_hist_native
-            if not snv_hist_native(np.ascontiguousarray(base[t0:t1]),
-                                   np.ascontiguousarray(qual[t0:t1]),
-                                   np.ascontiguousarray(mask[t0:t1]),
-                                   _SNV_QTAB_SIZE, hist):
-                hist[:] = 0
-                _np_snv_hist(base[t0:t1], qual[t0:t1], mask[t0:t1], hist)
-            cols = np.nonzero(hist.any(axis=0))[0].tolist()
-            res = call_snv_hist_tile(put(hist), rg, h, theta, s_mis=sm,
-                                     cols=cols)
-        elif rna is not None:
-            res = _rna_tile(rna, put, base, qual, mask, rg, h, theta, t0, t1,
-                            L > SNV_TILE_L)
-        else:
-            sub = SnvPileupTile(
-                base_id=put(base[t0:t1]), qual=put(qual[t0:t1]),
-                is_fwd=None, mask=put(mask[t0:t1]), ref_gt=rg)
-            res = call_snv_tile(sub, theta, h, dep_smis=sm)
-        for f in _PULL:
-            outs[f].append(getattr(res, f).cpu().numpy())
+    # with an engine mesh (--mesh) each chunk's rows are split over the
+    # mesh's devices (chunk_sharder): every shard runs on its own device
+    # and its rows come back in order after all shards have launched
+    shards = pmesh.chunk_sharder(dev)
+    for c0 in range(0, max(L, 1), TL):  # one empty chunk when L == 0
+        launched = []
+        for sdev, t0, t1 in shards(c0, min(c0 + TL, L)):
+            def put(a, sdev=sdev):
+                # blocking copy of a fresh host array: no staging buffer
+                # is reused while a launch may still read it
+                return torch.from_numpy(np.ascontiguousarray(a)).to(sdev)
+            launched.append(_genotype_rows(
+                sdev, put, base, qual, mask, ref_gt, hap, s_delta, theta,
+                rna, hist_ok, t0, t1, L > SNV_TILE_L))
+        for res in launched:
+            for f in _PULL:
+                outs[f].append(getattr(res, f).cpu().numpy())
     cat = {f: np.concatenate(v) for f, v in outs.items()}
     return SnvCallResult(genome_pprob=None, poly_pprob=None,
                          strand_bias=None, **cat)

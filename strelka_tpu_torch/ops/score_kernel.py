@@ -150,7 +150,8 @@ def _functions(kernel):
 
 def launch(kernel, codes, delta, lnmis, win_t):
     """Check the operands and launch `kernel` (a KERNEL_FUNCTIONS key)
-    on CUDA tensors, on the current stream; raises on what it does not
+    on CUDA tensors, on their card (made the current device for the
+    launch) and its current stream; raises on what it does not
     take and when the launch is refused. Returns (best, off)."""
     dev = codes.device
     if dev.type != "cuda":
@@ -178,9 +179,13 @@ def launch(kernel, codes, delta, lnmis, win_t):
                          f"W={W} outside the kernel's range")
     best = torch.empty((B, R), dtype=torch.float32, device=dev)
     off = torch.empty((B, R), dtype=torch.int32, device=dev)
-    rc = fn(codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-            win_t.data_ptr(), B, R, L, W, best.data_ptr(), off.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # `dev` made current for the launch: the runtime applies the
+    # kernel's dynamic shared memory attribute to the current device,
+    # and launches on the current device's context
+    with torch.cuda.device(dev):
+        rc = fn(codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
+                win_t.data_ptr(), B, R, L, W, best.data_ptr(),
+                off.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"score_best_offsets ({kernel}) launch failed: "
                            f"CUDA error {rc}")

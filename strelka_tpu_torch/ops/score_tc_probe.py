@@ -146,10 +146,10 @@ def build(names, bind=bind_k1) -> dict:
 def launch(fn, codes, delta, lnmis, win_t):
     B, R, L = codes.shape
     best, off = sv._best_off((B, R), codes.device)
-    sv._raise_on("probe", fn(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, win_t.shape[2], best.data_ptr(),
-        off.data_ptr(), sv._stream(codes.device)))
+    sv._launch_on(
+        "probe", codes.device, fn, codes.data_ptr(), delta.data_ptr(),
+        lnmis.data_ptr(), win_t.data_ptr(), B, R, L, win_t.shape[2],
+        best.data_ptr(), off.data_ptr())
     return best, off
 
 

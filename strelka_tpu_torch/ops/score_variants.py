@@ -418,6 +418,16 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _launch_on(fn_name, dev, fn, *args):
+    """fn(*args, stream of `dev`) with `dev` made the current CUDA
+    device: the runtime applies a kernel's attributes (its dynamic
+    shared memory) to the current device, and a launch on another card
+    than the current one would be refused or land on the wrong card.
+    Raises when the launch is refused."""
+    with torch.cuda.device(dev):
+        _raise_on(fn_name, fn(*args, _stream(dev)))
+
+
 def _raise_on(fn_name, rc):
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
@@ -448,9 +458,10 @@ def _launch_packed(fn_name, fn, max_len, packed, lnmis, win_t, n_reads):
         raise ValueError(f"{fn_name}: shape B={B} R={R} L={L} W={W} "
                          f"outside the kernel's range (L <= {max_len})")
     out = torch.empty((B, R, 2), dtype=torch.float32, device=dev)
-    _raise_on(fn_name, fn(
-        packed.data_ptr(), None if lnmis is None else lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, Rp, L, W, out.data_ptr(), _stream(dev)))
+    _launch_on(
+        fn_name, dev, fn, packed.data_ptr(),
+        None if lnmis is None else lnmis.data_ptr(), win_t.data_ptr(), B, R,
+        Rp, L, W, out.data_ptr())
     return out
 
 
@@ -498,10 +509,10 @@ def _launch_standard(fn_name, fn, max_len, codes, delta, lnmis, win_t):
     B, R, L, W = _check_standard(fn_name, codes, delta, lnmis, win_t,
                                  max_len)
     best, off = _best_off((B, R), codes.device)
-    _raise_on(fn_name, fn(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, best.data_ptr(),
-        off.data_ptr(), _stream(codes.device)))
+    _launch_on(
+        fn_name, codes.device, fn, codes.data_ptr(), delta.data_ptr(),
+        lnmis.data_ptr(), win_t.data_ptr(), B, R, L, W, best.data_ptr(),
+        off.data_ptr())
     return best, off
 
 
@@ -542,10 +553,10 @@ def _launch_hap(fn_name, fn, max_len, codes, delta, lnmis, win_t, n_haps):
                                  max_len)
     W = _hap_width(win_t, n_haps)
     best, off = _best_off((B, R, n_haps), codes.device)
-    _raise_on(fn_name, fn(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, n_haps, best.data_ptr(),
-        off.data_ptr(), _stream(codes.device)))
+    _launch_on(
+        fn_name, codes.device, fn, codes.data_ptr(), delta.data_ptr(),
+        lnmis.data_ptr(), win_t.data_ptr(), B, R, L, W, n_haps,
+        best.data_ptr(), off.data_ptr())
     return best, off
 
 
@@ -699,10 +710,10 @@ def _launch_ablation(fn_name, which, codes, delta, lnmis, win_t, G, tc):
         raise ValueError(f"{fn_name}: G must be at least 1, got {G}")
     best, off = _best_off((B, R), codes.device)
     launch = lib.score_ablation_tc_launch if tc else lib.score_ablation_launch
-    _raise_on(fn_name, launch(
-        codes.data_ptr(), delta.data_ptr(), lnmis.data_ptr(),
-        win_t.data_ptr(), B, R, L, W, G, code, best.data_ptr(),
-        off.data_ptr(), _stream(codes.device)))
+    _launch_on(
+        fn_name, codes.device, launch, codes.data_ptr(), delta.data_ptr(),
+        lnmis.data_ptr(), win_t.data_ptr(), B, R, L, W, G, code,
+        best.data_ptr(), off.data_ptr())
     return best, off
 
 

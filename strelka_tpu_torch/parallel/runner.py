@@ -351,6 +351,16 @@ def add_fanout_args(p) -> None:
                         "window (pyflow retryWindow)")
 
 
+def add_mesh_arg(p) -> None:
+    """--mesh, the engine mesh of parallel/mesh.py (both CLIs)."""
+    p.add_argument("--mesh", default=None,
+                   help="shard this process's kernel launches over a "
+                        "local device mesh of --device: 'auto' (all "
+                        "devices), N, or DPxSP; on cuda the first N (or "
+                        "DP*SP) cards, which must exist; on cpu the CPU "
+                        "repeated")
+
+
 def dispatch(module: str, args, argv, body) -> int:
     """Where a run of either CLI goes. With --jobs (and no
     --process-index or --merge-only), this process is the parent: it
@@ -360,7 +370,9 @@ def dispatch(module: str, args, argv, body) -> int:
     them; a cluster's workers run on hosts of their own and check there.
     A --merge-only run only concatenates: `body(args, argv)` runs outside
     any device. Otherwise (a worker, one process, or --jobs coming to one
-    worker) `body` runs on --device."""
+    worker) `body` runs on --device, with the engine mesh of --mesh
+    installed for its duration (a worker sets its own; a spec that asks
+    for more cards than are visible prints why and returns 2)."""
     import sys
 
     from .. import device as devmod
@@ -379,7 +391,21 @@ def dispatch(module: str, args, argv, body) -> int:
     if args.merge_only:
         return body(args, argv)
     with devmod.use(args.device):
-        return body(args, argv)
+        if not args.mesh:
+            return body(args, argv)
+        from . import mesh as pmesh
+        try:
+            emesh = pmesh.engine_mesh_from_spec(args.mesh, args.device)
+        except ValueError as e:
+            print(f"{module.rsplit('.', 1)[-1]}: --mesh {args.mesh}: {e}",
+                  file=sys.stderr)
+            return 2
+        prev = pmesh.engine_mesh()
+        pmesh.set_engine_mesh(emesh)
+        try:
+            return body(args, argv)
+        finally:
+            pmesh.set_engine_mesh(prev)
 
 
 def worker_done_line(proc_idx: int, proc_cnt: int, n_segments: int) -> str:

@@ -11,7 +11,9 @@ buckets and scored in a few kernel launches:
 On a CUDA device the hand-written kernel (ops/score_kernel.py,
 csrc/score_best_offsets.cu) fuses the offset reduction; on the CPU the
 plain torch version of the same exact formulation runs. Both give the
-same bits. Shapes are fixed per bucket.
+same bits. Shapes are fixed per bucket. With an engine mesh
+(parallel/mesh.py, --mesh) every chunk goes through
+sharded_best_offsets: one launch a shard, on every mesh device.
 """
 from __future__ import annotations
 
@@ -293,22 +295,32 @@ def _score_loci_batched(
     # chunks cut the launch count with identical per-pair results
     # (pairs are independent rows)
     bchunk = B_CHUNK * 4 if on_device else B_CHUNK
+    # engine mesh (--mesh): each chunk is scored by sharded_best_offsets,
+    # its pairs split over dp (every launch padded to a dp multiple with
+    # empty pairs, as the JAX package pads) and its offsets over sp
+    from ..parallel import mesh as pmesh
+    emesh = pmesh.engine_mesh()
+    dp = emesh.shape["dp"] if emesh is not None else 1
+    kfn = sk.score_best_offsets
+    if emesh is not None:
+        kfn = pmesh.sharded_best_offsets(sk.score_best_offsets, emesh)
+    buf_b = -(-bchunk // dp) * dp  # chunk buffer padded to a dp multiple
     for (Rb, Lb, Wb), pairs in buckets.items():
         # bounded batch chunks: one [len(pairs), ...] launch would
         # materialize hundreds of MB in the plain version's one-hot
         # expansion; the chunk buffers are reused across chunks
-        codes_b = np.full((bchunk, Rb, Lb), 4, dtype=np.int8)
-        delta_b = np.zeros((bchunk, Rb, Lb), dtype=np.float32)
-        lnmis_b = np.zeros((bchunk, Rb), dtype=np.float32)
+        codes_b = np.full((buf_b, Rb, Lb), 4, dtype=np.int8)
+        delta_b = np.zeros((buf_b, Rb, Lb), dtype=np.float32)
+        lnmis_b = np.zeros((buf_b, Rb), dtype=np.float32)
         # offset-major window layout [Lb, Wb]: win_b[bi, l, w] = base at
         # window position l of offset w — the kernels' operand layout,
         # so no transpose is needed on device
-        win_b = np.full((bchunk, Lb, Wb), 4, dtype=np.int8)
+        win_b = np.full((buf_b, Lb, Wb), 4, dtype=np.int8)
         pending: list[tuple[list[tuple[int, int]], int, object]] = []
         for cs in range(0, len(pairs), bchunk):
             chunk = pairs[cs:cs + bchunk]
             n = len(chunk)
-            Bp = n
+            Bp = -(-n // dp) * dp
             codes_b[:Bp] = 4
             delta_b[:Bp] = 0.0
             lnmis_b[:Bp] = 0.0
@@ -335,9 +347,11 @@ def _score_loci_batched(
             # the chunk buffers are rewritten for the next chunk while
             # this launch may still run: each launch gets its own
             # tensors, from a blocking host-to-device copy on the
-            # device and a snapshot on the CPU
-            best, off = sk.score_best_offsets(
-                *(torch.from_numpy(a[:Bp]).to(dev) if on_device
+            # device and a snapshot on the CPU (sharded_best_offsets
+            # copies each shard to its device, returns host tensors)
+            best, off = kfn(
+                *(torch.from_numpy(a[:Bp]).to(dev)
+                  if on_device and emesh is None
                   else torch.from_numpy(a[:Bp].copy())
                   for a in (codes_b, delta_b, lnmis_b, win_b)))
             if LAUNCH_STATS is not None:

@@ -139,39 +139,48 @@ def _grid_lhoods(pu: pl.PileupRegion, rows, rg, dev, tier2=False):
 def _snv_tier1_fused(pus, ref_gt, run_fn, dev):
     """Tier1 somatic SNV call over position chunks with the whole chain
     device-resident: per chunk, both samples' frequency-grid lhoods AND
-    the joint posterior run on `dev`, the result fields collect in [L]
-    tensors there, and only those come back to the host (the [L, GRID]
-    lhood tensors never leave the device). Returns a SomaticSnvResult
-    of host numpy arrays."""
+    the joint posterior run on `dev`, the result fields stay there, and
+    only those come back to the host, at the end (the [L, GRID] lhood
+    tensors never leave the device). With an engine mesh (--mesh) each
+    chunk's rows are split over the mesh's devices (chunk_sharder), each
+    shard on its own. Returns a SomaticSnvResult of host numpy arrays."""
+    from ..parallel import mesh as pmesh
     L = pus[0].base_id.shape[0]
     tl = _tile_rows(pus, dev)
-    fields = ss.SomaticSnvResult._fields
-    out: dict = {}
-    for t0 in range(0, max(L, 1), tl):  # one empty chunk when L == 0
-        rows = slice(t0, min(t0 + tl, L))
-        rg = _put(ref_gt[rows].astype(np.int32), dev)
-        res = run_fn(*(_grid_lhoods(pu, rows, rg, dev) for pu in pus))
-        for f in fields:
-            v = getattr(res, f)
-            if f not in out:
-                out[f] = torch.empty((L,), dtype=v.dtype, device=dev)
-            out[f][rows] = v
-    return ss.SomaticSnvResult(**{f: out[f].cpu().numpy() for f in fields})
+    shards = pmesh.chunk_sharder(dev)
+    parts = []
+    for c0 in range(0, max(L, 1), tl):  # one empty chunk when L == 0
+        for sdev, t0, t1 in shards(c0, min(c0 + tl, L)):
+            rows = slice(t0, t1)
+            rg = _put(ref_gt[rows].astype(np.int32), sdev)
+            parts.append(run_fn(*(_grid_lhoods(pu, rows, rg, sdev)
+                                  for pu in pus)))
+    return _host_result(parts)
+
+
+def _host_result(parts):
+    """One SomaticSnvResult of host numpy arrays from the per-chunk (or
+    per-shard) results `parts`, in order."""
+    return ss.SomaticSnvResult(*(
+        np.concatenate([getattr(r, f).cpu().numpy() for r in parts])
+        for f in ss.SomaticSnvResult._fields))
 
 
 def _snv_tier2_rows(pus, ref_gt, rows, run_fn, dev):
     """The tier2 call on the gathered pileup rows `rows` (host index
-    array), in chunks; a SomaticSnvResult of host numpy arrays."""
+    array), in chunks, each split over the engine mesh's devices where
+    one is set; a SomaticSnvResult of host numpy arrays."""
+    from ..parallel import mesh as pmesh
     tl = _tile_rows(pus, dev)
+    shards = pmesh.chunk_sharder(dev)
     parts = []
-    for t0 in range(0, len(rows), tl):
-        sub = rows[t0:t0 + tl]
-        rg = _put(ref_gt[sub].astype(np.int32), dev)
-        res = run_fn(*(_grid_lhoods(pu, sub, rg, dev, tier2=True)
-                       for pu in pus))
-        parts.append([getattr(res, f).cpu().numpy()
-                      for f in ss.SomaticSnvResult._fields])
-    return ss.SomaticSnvResult(*(np.concatenate(c) for c in zip(*parts)))
+    for c0 in range(0, len(rows), tl):
+        for sdev, t0, t1 in shards(c0, min(c0 + tl, len(rows))):
+            sub = rows[t0:t1]
+            rg = _put(ref_gt[sub].astype(np.int32), sdev)
+            parts.append(run_fn(*(_grid_lhoods(pu, sub, rg, sdev, tier2=True)
+                                  for pu in pus)))
+    return _host_result(parts)
 
 
 def _classify_indel_reads(ref_lnp, ind_lnp, n_nonambig, ln_rbm):

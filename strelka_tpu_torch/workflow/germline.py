@@ -9,15 +9,17 @@ output fragments, and concatenates them in order into BGZF outputs
 strelkaSharedWorkflow.py:102-148).
 
 Port of strelka_tpu/workflow/germline.py, with --device {cuda,cpu} in
-place of --platform/--mesh: one or more samples (joint calling), BAM or
-CRAM input, germline EVS model files (--snv/--indel-scoring-model-file,
+place of --platform: one or more samples (joint calling), BAM or CRAM
+input, germline EVS model files (--snv/--indel-scoring-model-file,
 --disable-evs), continuous-VF chromosomes (--call-continuous-vf), RNA
 mode (--rna: the het-VF extension on the SNV tiles, RNAseq models from
 the flags or $STRELKA_TPU_MODEL_DIR), and the fan-out of the JAX package
 (--jobs, the cluster options, --process-index/--process-count with
 --merge-only, and the coordinated STRELKA_TPU_* processes of
-parallel/runner.py), and the sequence-error estimation pre-pass
-(--estimate-sequence-error: host counting, the fits on --device).
+parallel/runner.py), the sequence-error estimation pre-pass
+(--estimate-sequence-error: host counting, the fits on --device), and
+the engine mesh (--mesh auto|N|DPxSP: this process's scoring launches
+and SNV tiles sharded over local devices of --device, parallel/mesh.py).
 
 The --jobs parent and a --merge-only run touch no device: only the
 workers, each on its own segment groups, run on --device.
@@ -26,7 +28,7 @@ Usage:
   python -m strelka_tpu_torch germline \
       --reference ref.fa --align-file a.bam [--align-file b.bam ...] \
       --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu] \
-      [--jobs N|auto]
+      [--jobs N|auto] [--mesh auto|N|DPxSP]
 """
 from __future__ import annotations
 
@@ -132,6 +134,7 @@ def run_germline(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scoring kernel and the SNV tiles run "
                         "(default cuda; cuda without a GPU is an error)")
+    rn.add_mesh_arg(p)
     p.add_argument("--config", default=None,
                    help="reference-style ini file overriding caller "
                         "options (configureStrelkaGermlineWorkflow.py.ini)")

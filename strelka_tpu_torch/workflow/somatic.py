@@ -6,17 +6,19 @@ strand_grid, SomaticIndelVcfWriter.cpp). Output format mirrors the
 demo's expected results (src/demo/expectedResults/somatic.*.vcf.gz).
 
 Port of strelka_tpu/workflow/somatic.py, with --device {cuda,cpu} in
-place of --platform/--mesh: BAM or CRAM input, and the fan-out of the
-JAX package (--jobs, the cluster options, --process-index/
---process-count with --merge-only, and the coordinated STRELKA_TPU_*
-processes of parallel/runner.py). The --jobs parent and a --merge-only
-run touch no device.
+place of --platform: BAM or CRAM input, the fan-out of the JAX package
+(--jobs, the cluster options, --process-index/--process-count with
+--merge-only, and the coordinated STRELKA_TPU_* processes of
+parallel/runner.py), and the engine mesh (--mesh auto|N|DPxSP: this
+process's scoring launches and somatic SNV chunks sharded over local
+devices of --device, parallel/mesh.py). The --jobs parent and a
+--merge-only run touch no device.
 
 Usage:
   python -m strelka_tpu_torch somatic --reference ref.fa \
       --normal-align-file n.bam --tumor-align-file t.bam \
       --output-dir out [--region chrom[:beg-end]] [--device cuda|cpu] \
-      [--jobs N|auto]
+      [--jobs N|auto] [--mesh auto|N|DPxSP]
 """
 from __future__ import annotations
 
@@ -367,6 +369,7 @@ def run_somatic(argv=None) -> int:
                    help="where the scoring kernel and the somatic SNV "
                         "model run (default cuda; cuda without a GPU is "
                         "an error)")
+    rn.add_mesh_arg(p)
     p.add_argument("--output-realigned-bam", action="store_true",
                    help="write realigned.normal.bam / realigned.tumor.bam "
                         "with the post-realignment alignments (reference "

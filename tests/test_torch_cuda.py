@@ -6,8 +6,11 @@ KX-K on K1-h's among them, their before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
 against the CPU path, the germline and somatic CLIs with --device
 cuda against --device cpu, a cold --jobs 2 germline run on the card
-against a single-process one, and the error-model fits (the emulated
-FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU.
+against a single-process one, the error-model fits (the emulated
+FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
+and the engine mesh: K1 sharded over a mesh that repeats cuda:0 against
+one launch, a launch on cuda:1 against one on cuda:0 (with two cards),
+the SNV and somatic chunks split over the mesh, and --mesh on the CLI.
 They skip without a GPU. On a machine with one (which need not have
 jax):
 
@@ -1133,3 +1136,119 @@ def test_error_zoo_fit_on_card_matches_cpu(cuda, name):
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k] == pytest.approx(v, rel=FIT_RTOL, abs=0), k
+
+
+# --- the engine mesh (parallel/mesh.py) on the card -------------------------
+
+@pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2), (2, 2), (4, 1)])
+def test_sharded_k1_over_repeated_card_matches_one_launch(cuda, dp, sp):
+    """sharded_best_offsets over a mesh that repeats cuda:0: one K1 launch
+    a shard, the result bit for bit one unsharded launch's, with padding
+    windows that tie real offsets and all-N reads that tie everywhere."""
+    from strelka_tpu_torch.ops import score_kernel as sk
+    from strelka_tpu_torch.parallel import mesh as pm
+    B, R, L, W = 16, 32, 160, 192
+    codes, delta, lnmis, win = k1_inputs(np.random.default_rng(dp * 10 + sp),
+                                         B, R, L, W)
+    win[:, :, W // 2:] = 4
+    codes[:, :2] = 4
+    delta[:, :2] = 0.0
+    lnmis[:, :2] = 0.0
+    host = [torch.from_numpy(a) for a in (codes, delta, lnmis, win)]
+    want = sk.score_best_offsets(*(t.to(cuda) for t in host))
+    mesh = pm.make_mesh([cuda] * (dp * sp), dp=dp, sp=sp)
+    before = sk.LAUNCHES
+    got = pm.sharded_best_offsets(sk.score_best_offsets, mesh)(*host)
+    assert sk.LAUNCHES == before + dp * sp
+    assert torch.equal(got[0], want[0].cpu())
+    assert torch.equal(got[1], want[1].cpu())
+
+
+def test_k1_on_second_card_matches_first(cuda):
+    """A K1 launch on cuda:1, with cuda:0 the current device, equals one
+    on cuda:0 (the launch makes its own card current)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from strelka_tpu_torch.ops import score_kernel as sk
+    host = [torch.from_numpy(a) for a in k1_inputs(np.random.default_rng(2),
+                                                   8, 128, 160, 256)]
+    with torch.cuda.device(0):
+        a = sk.score_best_offsets(*(t.to("cuda:0") for t in host))
+        b = sk.score_best_offsets(*(t.to("cuda:1") for t in host))
+    assert b[0].device == torch.device("cuda", 1)
+    assert torch.equal(a[0].cpu(), b[0].cpu())
+    assert torch.equal(a[1].cpu(), b[1].cpu())
+
+
+def test_mesh_snv_and_somatic_chunks_on_repeated_card(cuda, monkeypatch):
+    """The SNV chunks (two full chunks and a partial tail) and the
+    somatic tier1 chunks with every chunk split over a mesh of cuda:0
+    four times equal the unsharded card run bit for bit."""
+    import types
+
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.parallel import mesh as pm
+    from strelka_tpu_torch.pipeline import somatic_caller as sc
+    rng = np.random.default_rng(4)
+    monkeypatch.setattr(sd, "SNV_TILE_L", 2048)
+    L, D = 2 * 4 * 2048 + 777, 40
+    ref = rng.integers(0, 4, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.2, rng.integers(0, 4, (L, D)),
+                    ref[:, None]).astype(np.int8)
+    tile = sd.SnvPileupTile(
+        base_id=base, qual=rng.integers(0, 45, (L, D)).astype(np.uint8),
+        is_fwd=rng.random((L, D)) < 0.5, mask=rng.random((L, D)) < 0.8,
+        ref_gt=ref)
+    pus = [types.SimpleNamespace(
+        base_id=base, qual=tile.qual.astype(np.int16), is_fwd=tile.is_fwd,
+        valid=tile.mask, used=rng.random((L, D)) < 0.9,
+        tier2_used=tile.mask) for _ in range(2)]
+    monkeypatch.setattr(sc, "_tile_rows", lambda pus, dev: 4096)
+
+    def run(nlh, tlh):
+        return ss.somatic_snv_call_capped(nlh, tlh)
+
+    def both():
+        return (sd.call_snv_tile_chunked(tile, device=cuda),
+                sc._snv_tier1_fused(pus, ref, run, cuda))
+    plain = both()
+    pm.set_engine_mesh(pm.make_mesh([cuda] * 4, dp=4, sp=1))
+    try:
+        meshed = both()
+    finally:
+        pm.set_engine_mesh(None)
+    for a, b in zip(plain, meshed):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x is not None:
+                assert np.asarray(x).tobytes() == np.asarray(y).tobytes(), f
+
+
+def test_germline_cli_mesh_on_card_matches_plain(cuda, tmp_path):
+    """germline --device cuda --mesh 1 and --mesh auto equal the run
+    without --mesh; --mesh N past the visible cards exits 2."""
+    from strelka_tpu_torch import synth
+    from strelka_tpu_torch.__main__ import main
+    from strelka_tpu_torch.io.bam import BamHeader
+    from strelka_tpu_torch.io.bam_writer import write_bam
+    refs, batch, _ = synth.generate(L=60_000, depth=25, snv_every=700,
+                                    indel_every=1000, seed=11)
+    fa = tmp_path / "ref.fa"
+    fa.write_text(">syn\n" + refs + "\n")
+    bam = str(tmp_path / "s.bam")
+    write_bam(bam, BamHeader(text="", ref_names=["syn"],
+                             ref_lengths=[len(refs)]), batch)
+    recs = {}
+    for tag, extra in (("plain", []), ("one", ["--mesh", "1"]),
+                       ("auto", ["--mesh", "auto"])):
+        out = str(tmp_path / tag)
+        assert main(["germline", "--reference", str(fa), "--align-file", bam,
+                     "--output-dir", out, "--device", "cuda", *extra]) == 0
+        with gzip.open(os.path.join(out, "variants.vcf.gz"), "rt") as f:
+            recs[tag] = [l for l in f if not l.startswith("#")]
+    assert recs["one"] == recs["plain"] == recs["auto"]
+    n = torch.cuda.device_count() + 1
+    assert main(["germline", "--reference", str(fa), "--align-file", bam,
+                 "--output-dir", str(tmp_path / "too_many"), "--device",
+                 "cuda", "--mesh", str(n)]) == 2

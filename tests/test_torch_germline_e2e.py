@@ -74,9 +74,26 @@ def test_synth_copy_matches_benchmarks_synth():
                                       err_msg=f)
 
 
-def test_unported_subcommands_exit_2():
-    """denovo and noise-extractor are not ported and exit 2; tools with no
-    tool prints the list and exits 2, as the JAX package's does."""
-    assert torch_main(["denovo"]) == 2
-    assert torch_main(["noise-extractor"]) == 2
-    assert torch_main(["tools"]) == 2
+def _exit_code(main, argv):
+    try:
+        return main(argv)
+    except SystemExit as e:
+        return e.code
+
+
+@pytest.mark.parametrize("argv", [["denovo"], ["noise-extractor"],
+                                  ["no-such-command"], ["tools"]],
+                         ids=["denovo", "noise-extractor", "unknown",
+                              "tools"])
+def test_unported_subcommands_exit_2(argv, capsys):
+    """Once the last two subcommands (denovo, noise-extractor) were
+    ported, no subcommand is left unported: each of them with no
+    arguments, and an unknown command, exits as strelka_tpu's main does
+    (2, from argparse or the dispatcher); tools with no tool prints the
+    list and exits 2, as the JAX package's does."""
+    from strelka_tpu.__main__ import main as jax_main
+    want = _exit_code(jax_main, argv)
+    capsys.readouterr()
+    assert _exit_code(torch_main, argv) == want == 2
+    if argv == ["tools"]:
+        assert "estimate-parameters" in capsys.readouterr().err

@@ -41,7 +41,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(p, REPO) for p in sources}
     for path in ("models/error_fit.py", "models/error_zoo.py",
                  "pipeline/allele_counts.py", "training/evs_train.py",
-                 "utils/special.py", "workflow/tools.py"):
+                 "utils/special.py", "workflow/tools.py",
+                 "workflow/denovo.py", "workflow/noise_extractor.py",
+                 "sim.py", "parallel/mesh.py"):
         assert os.path.join("strelka_tpu_torch", path) in scanned, path
 
 
@@ -60,8 +62,11 @@ def test_import_and_cli_help_load_no_jax():
         "from strelka_tpu_torch.training import evs_train\n"
         "from strelka_tpu_torch.utils import special\n"
         "from strelka_tpu_torch.workflow import tools\n"
+        "from strelka_tpu_torch.workflow import denovo, noise_extractor\n"
+        "from strelka_tpu_torch import sim\n"
+        "from strelka_tpu_torch.parallel import mesh\n"
         "assert main(['tools']) == 2\n"
-        "for cmd in ('germline', 'somatic'):\n"
+        "for cmd in ('germline', 'somatic', 'denovo', 'noise-extractor'):\n"
         "    try:\n"
         "        main([cmd, '--help'])\n"
         "    except SystemExit as e:\n"
@@ -79,6 +84,8 @@ def test_import_and_cli_help_load_no_jax():
     assert "--tumor-align-file" in r.stdout
     assert "--estimate-sequence-error" in r.stdout
     assert "--error-count-target" in r.stdout
+    assert r.stdout.count("--mesh") >= 2
+    assert "--proband-id" in r.stdout and "--min-noise-count" in r.stdout
 
 
 def test_cuda_without_gpu_raises(monkeypatch, tmp_path):
