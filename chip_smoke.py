@@ -54,22 +54,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (integer fields equal, lhood bit-equal), and RNA mode's tiles (the
    het-VF extension with per-call dependent-eprob deltas, at a tile's
    own D and in chunks padded to 32) with lhood, strand bias and the
-   integer fields bit-equal;
+   integer fields bit-equal; then KG-H (csrc/snv_hist_tile.cu, the
+   germline histogram tile) against its plain version on the card, every
+   field bit for bit (a NaN as a NaN), at D = 32, 96 and 127, int32
+   counts, rows that s_mis makes -inf or NaN, rows without calls (ties),
+   a ragged and a one-row tile, timed at the main path's chunk by CUDA
+   events and by graph replay beside the plain version, with a
+   torch.profiler trace of one call of each (kernels and device us);
 3b. somatic: the somatic SNV model on the card against the port's CPU
    path on a 200,000-row random tile (grid states bit-equal, integer
-   fields equal), and its peak bytes per row against the sizes from
-   which the port chooses its chunk heights;
+   fields equal); KS-G (csrc/somatic_grid.cu) and KS-P
+   (csrc/somatic_posterior.cu) against their plain versions on the card
+   bit for bit at its edges: KS-G at D = 32 and 96 on the native
+   pileup's int8 base and int16 qual lanes (q = 0 calls, masked lanes,
+   all-masked rows), on int32 lanes (the Python pileup's, which
+   freq_grid_lhoods casts), a ragged and a one-row tile, KS-P on
+   all -inf normal or tumour rows, -inf normal pre-strand states, tied
+   states and a one-row tile (both are timed at the main path's shape
+   in phase 6b); and the peak bytes per row of the plain versions and
+   of the kernels against the sizes from which the port chooses its
+   chunk heights;
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
    set to 0 just before and read just after (the K1-x kernels' and
-   K1-s's must read 0), K1's launches by shape and its stream ms;
+   K1-s's must read 0, KG-H must read the SNV tile tally and no plain
+   SNV model version may run on the card), K1's launches by shape and
+   its stream ms;
 5. cuda-vs-cpu: the same CLI with --device cpu on the same data; no
    record may differ in CHROM, POS, REF, ALT, FILTER or GT;
 6. somatic e2e: the somatic CLI with --device cuda (WGS mode) on a
    synthetic tumor/normal contig (default 2 Mb, normal 30x, tumor 60x,
-   150 bp reads), counters set to 0 just before and read just after,
-   K1's launches by shape and its stream ms; 90% or more of the
+   150 bp reads), counters set to 0 just before and read just after
+   (KS-G and KS-P must read the grid and posterior tallies, no plain
+   version may run on the card), K1's launches by shape and its stream
+   ms; 90% or more of the
    planted somatic SNVs must be called with FILTER PASS;
+6b. KS-G and KS-P at the main path's shape: phase 6's first two grid
+   calls (the first chunk's normal and tumour: up to MAX_ROWS rows of
+   the native pileup's int8/int16 lanes at its padded depth) and its first
+   posterior call, kept as the CLI made them, replayed through each
+   kernel and held bit for bit against its plain version (over the
+   plain chunk heights of rows_per_launch), timed and traced as KG-H;
 7. somatic cuda-vs-cpu: the same with --device cpu; no record may
    differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT;
 8. germline fan-out: phase 4's contig with --jobs 4 (one 1 Mb segment a
@@ -125,12 +150,14 @@ Phases 12-15 log each run's size, wall and stream ms by device phase.
    simulate_strelka_sites through the somatic SNV model, cuda then cpu,
    every field equal; tests/test_simulators.py's gates on the card's
    results (het rate > 0.97, FP rate < 0.01 at Q >= 30; somatic Q >= 15
-   in > 90% of SOMATIC sites and < 5% of REF and GERMLINE ones);
+   in > 90% of SOMATIC sites and < 5% of REF and GERMLINE ones); the
+   counters set to 0 just before each run and read just after (the
+   card's run: KG-H, KS-G and KS-P once a tally, no plain version);
 19. mesh: germline --mesh auto and --mesh 1 on phase 4's data and
    somatic --mesh 1 on phase 6's (every record equal to phases 4 and 6,
    the counters set to 0 just before each and read just after: K1 one
-   launch a shard); sharded_best_offsets over meshes that repeat the
-   card at MESH_SHAPES and 256,32,160,192 with padding-window ties and
+   launch a shard, the SNV model kernels once a tally);
+   sharded_best_offsets over meshes that repeat the card at MESH_SHAPES and 256,32,160,192 with padding-window ties and
    all-N reads, bit for bit one unsharded K1 launch, one launch a shard;
    the SNV and somatic chunks split over the card four times, bit for
    bit; dryrun(1); --mesh past the visible cards exits 2. The card's
@@ -183,6 +210,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+# float64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
+F64_OPS_PER_S = 34e12
 K1H_ATOL = 1e-4   # tests/test_pallas_kernel.py:107-108
 
 
@@ -216,18 +245,28 @@ class StreamTimer:
         self.torch = torch
         self.cuda = cuda
         self.spans: dict[str, list] = {}
+        self.host: dict[str, list] = {}
+        self.kept: dict[str, list] = {}
         self.patched = []
 
-    def wrap(self, mod, name: str, phase: str):
+    def wrap(self, mod, name: str, phase: str, keep: int = 0):
+        """Time every call of mod.name under `phase`; the arguments of
+        the first `keep` calls go to self.kept[phase]."""
         fn = getattr(mod, name)
         torch = self.torch
+        kept = self.kept.setdefault(phase, [])
 
         def timed(*a, **k):
+            if len(kept) < keep:
+                kept.append((a, k))
             if self.cuda:
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
                 s.record()
+                t0 = time.perf_counter()
                 out = fn(*a, **k)
+                self.host.setdefault(phase, []).append(
+                    (time.perf_counter() - t0) * 1e3)
                 e.record()
                 self.spans.setdefault(phase, []).append((s, e))
             else:
@@ -243,6 +282,19 @@ class StreamTimer:
         for mod, name, fn in reversed(self.patched):
             setattr(mod, name, fn)
         self.patched = []
+
+    def host_ms(self, phase: str) -> list[float]:
+        """Each call's host wall of `phase` (ms; on a card the host's
+        part of its span: while the stream has nothing queued, the span
+        holds this host time too), in call order."""
+        return list(self.host.get(phase, []))
+
+    def per_call_ms(self, phase: str) -> list[float]:
+        """Each call's span of `phase` (ms), in call order."""
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            return [s.elapsed_time(e) for s, e in self.spans.get(phase, [])]
+        return list(self.spans.get(phase, []))
 
     def totals_ms(self) -> dict[str, float]:
         if self.cuda:
@@ -1019,6 +1071,7 @@ def phase_snv(np, torch, dev, cuda: bool, L: int):
         }
         log(f"snv D={D}: " + json.dumps(diffs))
     phase_snv_rna(np, dev, L // 8)
+    return phase_kgh(np, torch, dev, cuda, L)
 
 
 def phase_snv_rna(np, dev, n: int):
@@ -1057,6 +1110,346 @@ def phase_snv_rna(np, dev, n: int):
             "rows": L, "snp_rows": int((want.snv_qphred != 0).sum()),
             "ln_ref_max_abs_diff": float(np.abs(
                 got.ln_ref_pprob - want.ln_ref_pprob).max())}))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit, any NaN equal to any NaN."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a[~nan], b[~nan]
+        w = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+def hold(torch, label, got: dict, want: dict) -> float:
+    """Fails unless every field of `got` equals `want`'s bit for bit (a
+    NaN as a NaN); returns the largest absolute difference of the float
+    fields' finite entries (0.0)."""
+    err = 0.0
+    for f, a in got.items():
+        b = want[f]
+        if not same_bits(torch, a, b):
+            n = int((a.cpu() != b.cpu()).sum())
+            fail(f"{label}: {f} differs from the plain version ({n} "
+                 f"entries)")
+        if a.is_floating_point():
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                err = max(err, float((a[fin].double()
+                                      - b[fin].double()).abs().max()))
+    return err
+
+
+# the runtime calls that launch a kernel, as kineto names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def profile_call(torch, fn, tries: int = 3) -> dict:
+    """One call of fn (after a warm call) under torch.profiler, read from
+    the trace's kineto events after the profiler stops: the kernel
+    launches that its host side recorded, the kernels and copies that
+    its device side holds, their summed device microseconds and the
+    most frequent names. kineto at times keeps a launch's runtime call
+    but not its kernel (H100, torch 2.11: the kernels of this repo's own
+    libraries, most often in phase 6b, while the aten kernels of the
+    plain versions stay), so the session holds 20 ms of host time on
+    each side of the call, and one whose device side holds fewer
+    kernels than launches is taken again, up to `tries` in all; where
+    every session lost some, lost_kernels says how many and device_us
+    is the call's span by CUDA events on an idle stream (device_us_from:
+    "events", else "trace")."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        events = prof.profiler.kineto_results.events()
+        ev = [(e.name(), e.duration_ns() / 1e3) for e in events
+              if e.device_type() == cuda]
+        launched = sum(e.name() in LAUNCH_CALLS for e in events
+                       if e.device_type() != cuda)
+        copies = [n for n, _ in ev if n.startswith(("Memcpy", "Memset"))]
+        lost = launched - (len(ev) - len(copies))
+        if lost <= 0:
+            break
+    if not launched:
+        fail("torch.profiler recorded no kernel launch in a call on the "
+             "card")
+    names: dict[str, int] = {}
+    for n, _ in ev:
+        names[n[:48]] = names.get(n[:48], 0) + 1
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:4]
+    row = {"launches": launched, "kernels": len(ev) - len(copies),
+           "copies": len(copies), "sessions": attempt,
+           "lost_kernels": max(lost, 0), "device_us_from": "trace",
+           "device_us": sum(us for _, us in ev), "top_names": dict(top)}
+    if lost > 0:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        row.update(device_us=s.elapsed_time(e) * 1e3,
+                   device_us_from="events")
+    return row
+
+
+def kernel_row(torch, cuda: bool, kernel, plain, nbytes, f32_ops, f64_ops,
+               iters: int, shape) -> dict:
+    """A kernel's times beside its plain version's and its bound: ms by
+    CUDA events around host calls, device_ms by graph replay, a profiler
+    trace of one call of each; bound_ms the larger of the bytes over HBM
+    and the f32 and float64 operations over their peaks. The plain
+    versions read data back to the host or copy from it, so no graph
+    captures them."""
+    row = {"shape": shape, "ms": time_ms(torch, cuda, kernel, iters),
+           "plain_ms": time_ms(torch, cuda, plain, max(1, iters // 10),
+                               warm=1)}
+    if cuda:
+        row["trace"] = profile_call(torch, kernel)
+        row["plain_trace"] = profile_call(torch, plain)
+        row["device_ms"] = graph_ms(torch, kernel)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+    row.update(bytes=int(nbytes), f32_ops=int(f32_ops),
+               f64_ops=int(f64_ops), library_ms=None)
+    row["bound_ms"], row["bound_by"] = ((tb, "bytes") if tb >= to
+                                        else (to, "operations"))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    device_share(row)
+    return row
+
+
+# float64 operations a row counted in the bounds (each exp, log and
+# division as one): KG-H's two result sets (10 adds, 10 subtractions, 10
+# exps, 10 divisions, 18 adds of the sequential sums, 2 log10) and its
+# PLs (10 divisions, 10 adds); KS-G's 9 strand logaddexps (subtraction,
+# exp, log1p, add, the f32 rounding's add); KS-P's 7 logsumexps of 441
+# (an exp and an add a term) and one of 21, and its tail. f32 operations
+# a row: KS-P's 6 x 441 x 2 adds of the joint sums and 441 + 42 of the
+# nonsomatic terms.
+KGH_F64_PER_ROW = 2 * (10 + 10 + 10 + 10 + 18 + 2) + 20
+KSG_F64_PER_ROW = 9 * 5
+KSP_F64_PER_ROW = 2 * (7 * 441 + 21) + 40
+KSP_F32_PER_ROW = 6 * 441 * 2 + 441 + 42
+
+
+def hist_case(np, rng, L, D, hist_dtype):
+    """A germline (qscore, base) histogram of a random depth-D tile with
+    q = 0 calls and rows without calls, haploid rows and dependent-eprob
+    deltas: (hist, ref_gt, is_haploid, s_mis)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.3, rng.integers(0, 4, (L, D)),
+                    np.minimum(ref, 3)[:, None]).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D)).astype(np.uint8)
+    qual[rng.random((L, D)) < 0.02] = 0
+    mask = rng.random((L, D)) < 0.8
+    mask[:L // 50] = False
+    h = np.zeros((L, 512), np.int8)
+    sd._np_snv_hist(base, qual, mask, h)
+    hap = rng.random(L) < 0.1
+    smis = np.where(rng.random((L, 4)) < 0.05,
+                    rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
+    return h.astype(hist_dtype), ref, hap, smis
+
+
+def phase_kgh(np, torch, dev, cuda: bool, L: int):
+    """KG-H (call_snv_hist_tile on the card) against its plain version
+    on the card, every _PULL field bit for bit: random tiles at D = 32,
+    96 and 127 (int8 counts, haploid rows, s_mis), int32 counts, rows
+    that s_mis makes -inf or NaN, rows without calls (all ten lhoods 0:
+    ties everywhere), a ragged and a one-row tile; timed at the main
+    path's chunk (SNV_TILE_L * 4 rows) beside the plain version as the
+    main path ran it (with the live slots). Returns the kernel's row."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    rng = np.random.default_rng(9)
+    rows = sd.SNV_TILE_L * 4 if cuda else L
+    cases = [("random", rows, 32, np.int8), ("random", L // 4, 96, np.int8),
+             ("random", L // 4, 127, np.int8), ("int32", L // 8, 96, np.int32),
+             ("ninf", 2000, 64, np.int8), ("nan", 2000, 64, np.int8),
+             ("ragged", 1031, 50, np.int8), ("one_row", 1, 40, np.int8)]
+    err, timed = 0.0, None
+    for kind, n, D, dt in cases:
+        h, ref, hap, smis = hist_case(np, rng, n, D, dt)
+        if kind in ("ninf", "nan"):
+            smis[:n // 4] = -np.inf if kind == "ninf" else np.nan
+        cols = np.nonzero(h.any(axis=0))[0].tolist()
+        t = [torch.from_numpy(a).to(dev) for a in (h, ref, hap, smis)]
+        got = sd.call_snv_hist_tile(t[0], t[1], t[2], s_mis=t[3])
+        want = sd.call_snv_hist_tile_plain(t[0], t[1], t[2], s_mis=t[3],
+                                           cols=cols)
+        err = max(err, hold(torch, f"kg-h {kind} L={n} D={D}",
+                            {f: getattr(got, f) for f in sd._PULL},
+                            {f: getattr(want, f) for f in sd._PULL}))
+        if timed is None:
+            nnz = int((h != 0).sum())
+            nbytes = (n * (512 * h.itemsize + 4 + 1 + 16 + 40 + 20 + 40 + 8)
+                      + 512 * 10 * 4 + 4 * 10 * 4 + 4 * 5 * 10 * 8)
+            timed = kernel_row(
+                torch, cuda,
+                lambda t=t: sd.call_snv_hist_tile(t[0], t[1], t[2],
+                                                  s_mis=t[3]),
+                lambda t=t, cols=cols: sd.call_snv_hist_tile_plain(
+                    t[0], t[1], t[2], s_mis=t[3], cols=cols),
+                nbytes, 2 * 10 * nnz + 8 * 10 * n, KGH_F64_PER_ROW * n,
+                1 if not cuda else 20, [n, 512, D])
+        del t
+    timed["max_abs_err"] = err
+    log("kg-h: " + json.dumps(timed))
+    return timed
+
+
+def grid_counts(torch, base, qual, mask, fwd, ref):
+    """(live bins, live h_ref slots, live h_alt slots) of a somatic tile's
+    (qscore, class) histograms, counted on the tile's device."""
+    L = base.shape[0]
+    q = qual.long().clamp(0, 127)
+    cls = ((base.long() != ref.long()[:, None]).long() << 1) | fwd.long()
+    idx = torch.where(mask, q * 4 + cls, 512)
+    h = torch.zeros((L, 513), dtype=torch.int32, device=base.device)
+    h.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    h = h[:, :512].reshape(L, 128, 4)
+    return (int((h > 0).sum()), int(((h[..., 0] + h[..., 1]) > 0).sum()),
+            int(((h[..., 2] + h[..., 3]) > 0).sum()))
+
+
+def phase_somatic_kernels(np, torch, dev, tiles):
+    """KS-G and KS-P on the card against their plain versions on the
+    card, bit for bit, at their edges: KS-G on phase 3b's tiles (int8
+    base and int16 qual, the native pileup's lanes; q = 0 calls, masked
+    lanes, all-masked rows), on the first as int32 lanes (the Python
+    pileup's, which freq_grid_lhoods casts), a ragged and a one-row
+    tile; KS-P on their lhoods, on them with all -inf normal or
+    tumour rows or -inf normal pre-strand states, on rows whose states
+    all tie, and on a one-row tile. Phase 6b times both at the main
+    path's shape."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    i32 = tuple(a.astype(np.int32) if a.dtype.kind == "i" else a
+                for a in tiles[0])
+    lh = []
+    cases = [("d32", tiles[0]), ("d96", tiles[1]), ("int32", i32),
+             ("ragged", tuple(a[:1031] for a in tiles[1])),
+             ("one_row", tuple(a[20:21] for a in tiles[1]))]
+    for kind, tile in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in tile]
+        got = ss.freq_grid_lhoods(*t)
+        hold(torch, f"ks-g {kind}", {"lhood": got},
+             {"lhood": ss.freq_grid_lhoods_plain(*t)})
+        if kind in ("d32", "d96"):
+            lh.append(got.cpu().numpy())
+        del t
+
+    n0, t0 = lh
+    k = min(2000, n0.shape[0])
+    cases = []
+    for kind in ("normal_all_ninf", "tumor_all_ninf",
+                 "normal_prestrand_ninf", "ties"):
+        n, t = n0[:k].copy(), t0[:k].copy()
+        if kind == "normal_all_ninf":
+            n[:k // 2] = -np.inf
+        elif kind == "tumor_all_ninf":
+            t[:k // 2] = -np.inf
+        elif kind == "normal_prestrand_ninf":
+            n[:k // 2, :ss.PRESTRAND_SIZE] = -np.inf
+        else:
+            n[:k // 2] = -3.0
+            t[:k // 2] = t[:k // 2, :1]
+        cases.append((kind, n, t))
+    cases.append(("one_row", n0[:1], t0[:1]))
+    for kind, n, t in cases:
+        x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (n, t)]
+        got = ss.somatic_snv_call(*x)
+        want = ss.somatic_snv_call_plain(*x)
+        fields = ss.SomaticSnvResult._fields
+        hold(torch, f"ks-p {kind}", {f: getattr(got, f) for f in fields},
+             {f: getattr(want, f) for f in fields})
+        if kind.endswith("ninf") and bool((got.qphred[:k // 2] != 0).any()):
+            fail(f"ks-p {kind}: a -inf row's qphred is not 0")
+        del x
+    log(f"ks-g, ks-p edges: {len(cases) + 5} tiles bit for bit")
+
+
+def plain_chunks(torch, fn, rows: int, *a, **kw):
+    """fn (a plain version) over row chunks of `rows` (the plain chunk
+    heights of rows_per_launch: rows are independent, so the chunks
+    change no result), each field concatenated."""
+    L = a[0].shape[0]
+    parts = [fn(*(x[i:i + rows] for x in a), **kw)
+             for i in range(0, L, rows)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+
+def phase_somatic_main_shape(np, torch, dev, cuda: bool, kept):
+    """Phase 6b: KS-G and KS-P on the inputs that phase 6's CLI gave
+    them (`kept`: StreamTimer.kept, the first two grid calls and the
+    first posterior call), each against its plain version bit for bit,
+    timed by CUDA events and graph replay beside it, one call of each
+    traced. Returns the kernels' rows (the grid's at the larger depth)."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    iters = 20 if cuda else 1
+    g_rows = []
+    for i, (a, kw) in enumerate(kept["somatic_grid_lhoods"]):
+        base, qual, mask, fwd, ref = a
+        L, D = base.shape
+        rows = ss.rows_per_launch(dev, ss.GRID_ROW_BYTES
+                                  + ss.GRID_LANE_BYTES * D)
+
+        def plain(a=a, rows=rows):
+            return plain_chunks(torch, ss.freq_grid_lhoods_plain, rows, *a)
+        err = hold(torch, f"ks-g main path call {i}",
+                   {"lhood": ss.freq_grid_lhoods(*a)}, {"lhood": plain()})
+        bins, refs, alts = grid_counts(torch, *a)
+        nbytes = (L * D * (base.element_size() + qual.element_size() + 2)
+                  + L * (ref.element_size() + 30 * 4) + 128 * 78 * 4)
+        row = kernel_row(
+            torch, cuda, lambda a=a: ss.freq_grid_lhoods(*a), plain, nbytes,
+            2 * (21 * (refs + alts) + 18 * bins), KSG_F64_PER_ROW * L,
+            iters, [L, D])
+        row.update(max_abs_err=err, dtypes=[str(base.dtype),
+                                            str(qual.dtype)],
+                   plain_rows_per_chunk=rows, live_bins=bins)
+        log(f"ks-g main path call {i}: " + json.dumps(row))
+        g_rows.append(row)
+    (a, kw), = kept["somatic_posterior"]
+    L = a[0].shape[0]
+    rows = ss.rows_per_launch(dev, ss.CALL_ROW_BYTES)
+
+    def plain(a=a, kw=kw, rows=rows):
+        return plain_chunks(torch, ss.somatic_snv_call_plain, rows, *a, **kw)
+    got, want = ss.somatic_snv_call(*a, **kw), plain()
+    fields = ss.SomaticSnvResult._fields
+    err = hold(torch, "ks-p main path", {f: getattr(got, f) for f in fields},
+               {f: getattr(want, f) for f in fields})
+    nbytes = (L * (2 * 30 * 4 + 6 * 4)
+              + 6 * 441 * 4 + 6 * 4 + 21 * 4 + 441 * 8)
+    p_row = kernel_row(
+        torch, cuda, lambda: ss.somatic_snv_call(*a, **kw), plain, nbytes,
+        KSP_F32_PER_ROW * L, KSP_F64_PER_ROW * L, iters, [L, 30])
+    p_row.update(max_abs_err=err, plain_rows_per_chunk=rows)
+    log("ks-p main path: " + json.dumps(p_row))
+    if cuda:
+        torch.cuda.empty_cache()
+    g_row = max(g_rows, key=lambda r: r["shape"][1])
+    g_row["max_abs_err"] = max(r["max_abs_err"] for r in g_rows)
+    return g_row, p_row
 
 
 def phase_somatic_snv(np, torch, dev, L: int):
@@ -1108,15 +1501,18 @@ def phase_somatic_snv(np, torch, dev, L: int):
         "somatic_rows": int((post_c["qphred"] > 0).sum()),
         "strand_bias_max_abs_diff": float(
             (post_d["strand_bias"] - post_c["strand_bias"]).abs().max())}))
+    phase_somatic_kernels(np, torch, dev, tiles)
     if dev.type == "cuda":
         somatic_row_bytes(torch, dev, ss, tiles)
 
 
 def somatic_row_bytes(torch, dev, ss, tiles):
     """Peak bytes per row that the caching allocator hands out while
-    freq_grid_lhoods and one somatic_snv_call run on the card, against
-    the per-row sizes from which the port chooses its chunk heights
-    (somatic_snv.CALL_ROW_BYTES, GRID_ROW_BYTES + GRID_LANE_BYTES * D)."""
+    the grid lhoods and one posterior run on the card, against the
+    per-row sizes from which the port chooses its chunk heights: the
+    plain versions' (somatic_snv.CALL_ROW_BYTES, GRID_ROW_BYTES +
+    GRID_LANE_BYTES * D) and the kernels' (KERNEL_CALL_ROW_BYTES,
+    KERNEL_GRID_ROW_BYTES; the tile's lanes are in place before)."""
     def peak_per_row(fn, rows):
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -1131,19 +1527,26 @@ def somatic_row_bytes(torch, dev, ss, tiles):
     for t in tiles:
         L, D = t[0].shape
         x = [torch.from_numpy(a).to(dev) for a in t]
-        got[f"grid_D{D}"] = peak_per_row(lambda: ss.freq_grid_lhoods(*x), L)
-        limit = ss.GRID_ROW_BYTES + ss.GRID_LANE_BYTES * D
-        if got[f"grid_D{D}"] > limit:
-            fail(f"freq_grid_lhoods held {got[f'grid_D{D}']:.0f} bytes a "
-                 f"row at D={D}, over the {limit} the chunking assumes")
+        for key, fn, limit in (
+                (f"grid_plain_D{D}", ss.freq_grid_lhoods_plain,
+                 ss.GRID_ROW_BYTES + ss.GRID_LANE_BYTES * D),
+                (f"grid_kernel_D{D}", ss.freq_grid_lhoods,
+                 ss.KERNEL_GRID_ROW_BYTES)):
+            got[key] = peak_per_row(lambda: fn(*x), L)  # noqa: B023
+            if got[key] > limit:
+                fail(f"{key} held {got[key]:.0f} bytes a row, over the "
+                     f"{limit} the chunking assumes")
         lh.append(ss.freq_grid_lhoods(*x))
-    got["call"] = peak_per_row(lambda: ss.somatic_snv_call(*lh),
-                               lh[0].shape[0])
-    if got["call"] > ss.CALL_ROW_BYTES:
-        fail(f"somatic_snv_call held {got['call']:.0f} bytes a row, over "
-             f"the {ss.CALL_ROW_BYTES} the chunking assumes")
+    for key, fn, limit in (
+            ("call_plain", ss.somatic_snv_call_plain, ss.CALL_ROW_BYTES),
+            ("call_kernel", ss.somatic_snv_call, ss.KERNEL_CALL_ROW_BYTES)):
+        got[key] = peak_per_row(lambda: fn(*lh), lh[0].shape[0])  # noqa: B023
+        if got[key] > limit:
+            fail(f"{key} held {got[key]:.0f} bytes a row, over the {limit} "
+                 f"the chunking assumes")
     log("somatic row bytes (measured peak): " + json.dumps(got) + " chunk "
-        f"rows now: posterior {ss.rows_per_launch(dev, ss.CALL_ROW_BYTES)}")
+        "rows now: posterior "
+        f"{ss.rows_per_launch(dev, ss.call_row_bytes(dev))}")
 
 
 def make_dataset(np, workdir: str, mb: float, seed: int = 11):
@@ -1227,18 +1630,20 @@ def info_of(rec, keys):
 
 
 def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
-                      mb, out, device):
+                      mb, out, device, kept=None):
     """The somatic CLI on `device` with the counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
     events; somatic SNV recall against the planted truth (all records,
     and the PASS records that the 0.9 gate reads). Returns the launch
-    counts of launches_during."""
+    counts of launches_during; with `kept` (a dict), the arguments of
+    the first two grid calls and the first posterior call go there."""
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
     timer = StreamTimer(torch, cuda)
+    keep = kept is not None
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
-    timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods")
-    timer.wrap(ss, "somatic_snv_call", "somatic_posterior")
+    timer.wrap(ss, "freq_grid_lhoods", "somatic_grid_lhoods", 2 * keep)
+    timer.wrap(ss, "somatic_snv_call", "somatic_posterior", keep)
     try:
         wall, _, counts = launches_during(
             lambda: run_somatic_cli(fa, nbam, tbam, out, device))
@@ -1257,6 +1662,8 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
     n_grid = tile_count(counts, "somatic", "grid", device)
     n_post = tile_count(counts, "somatic", "post", device)
     check_path_launches("the somatic path", counts, cuda)
+    check_snv_kernels("the somatic path", counts,
+                      cuda and device == "cuda", somatic=True)
     if n_grid == 0 or n_post == 0:
         fail(f"the somatic path ran no grid-lhood or posterior tile on "
              f"{device}")
@@ -1271,10 +1678,19 @@ def phase_somatic_e2e(torch, cuda: bool, fa, nbam, tbam, n_reads, som_snv,
         "k1_launches": counts["k1"], "k1h_launches": counts["k1h"],
         "kx_launches": counts["kx"],
         "grid_tile_launches": n_grid, "posterior_launches": n_post,
+        "snv_kernel_launches": counts["snv_kernels"],
+        "somatic_tallies": counts["somatic"],
+        "grid_stream_ms_per_call": timer.per_call_ms("somatic_grid_lhoods"),
+        "grid_host_ms_per_call": timer.host_ms("somatic_grid_lhoods"),
+        "posterior_stream_ms_per_call": timer.per_call_ms(
+            "somatic_posterior"),
+        "posterior_host_ms_per_call": timer.host_ms("somatic_posterior"),
         "k1_launch_shapes": counts["score"],
         "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
         "stream_ms_by_phase": phase_ms,
         "device_phase_share_of_wall": dev_ms / 1e3 / wall}))
+    if keep:
+        kept.update(timer.kept)
     return counts
 
 
@@ -1384,6 +1800,7 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     phase_ms = timer.totals_ms()
     var, gv = check_outputs(out, n_reads)
     check_path_launches("the germline path", counts, cuda)
+    check_snv_kernels("the germline path", counts, cuda and device == "cuda")
     if cuda and tile_count(counts, "snv", "tile", device) == 0:
         fail("the main path ran no SNV tile on the card")
     if not counts["score"]:
@@ -1393,6 +1810,7 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
            "variant_records": len(var), "gvcf_records": len(gv),
            "k1_launches": counts["k1"], "k1h_launches": counts["k1h"],
            "kx_launches": counts["kx"], "snv_tile_launches": counts["snv"],
+           "snv_kernel_launches": counts["snv_kernels"],
            "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
            "stream_ms_by_phase": phase_ms,
            "k1_launch_shapes": counts["score"]}
@@ -1408,12 +1826,13 @@ def keyed(counts):
 def launches_during(fn):
     """fn() with every launch counter set to 0 just before and read just
     after: (fn's result, the wall s, {"k1", "k1h", "k1h_simt", "kx",
-    "score", "snv", "somatic"} in the layout of the workers'
-    STRELKA_TPU_LAUNCH_STATS dumps)."""
+    "score", "snv", "somatic", "snv_kernels", "snv_plain"} in the layout
+    of the workers' STRELKA_TPU_LAUNCH_STATS dumps)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
+    from strelka_tpu_torch.ops import snv_kernels as snk
     from strelka_tpu_torch.pipeline import realign_batch as rb
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
@@ -1421,6 +1840,7 @@ def launches_during(fn):
     kx_zero(sv)
     sd.LAUNCH_STATS.clear()
     ss.LAUNCH_STATS.clear()
+    snk.reset()
     rb.LAUNCH_STATS = {}
     t0 = time.perf_counter()
     try:
@@ -1430,7 +1850,9 @@ def launches_during(fn):
         counts = {"k1": sk.LAUNCHES, "k1h": sk.LAUNCHES_HIGHEST,
                   "k1h_simt": sk.LAUNCHES_HIGHEST_SIMT, "kx": kx_read(sv), "score": keyed(rb.LAUNCH_STATS),
                   "snv": keyed(sd.LAUNCH_STATS),
-                  "somatic": keyed(ss.LAUNCH_STATS)}
+                  "somatic": keyed(ss.LAUNCH_STATS),
+                  "snv_kernels": dict(snk.LAUNCHES),
+                  "snv_plain": dict(snk.PLAIN_ON_CUDA)}
         rb.LAUNCH_STATS = None
     return out, wall, counts
 
@@ -1448,6 +1870,33 @@ def check_path_launches(label, counts, cuda, k1_expected=True):
              f"k1h {counts['k1h']}, k1h_simt {counts['k1h_simt']}")
     if cuda and k1_expected and counts["k1"] == 0:
         fail(f"{label} launched the k1 kernel no time")
+
+
+def tally_rows(counts, group, kind) -> int:
+    """Tile calls of `kind` on the card that had rows."""
+    return sum(v for k, v in counts[group].items()
+               if k.startswith(f"{kind},cuda,") and int(k.split(",")[2]))
+
+
+def check_snv_kernels(label, counts, cuda, somatic=False):
+    """On the card: KG-H launched once a germline SNV tile tally (a
+    non-RNA path's tiles are all histogram tiles), KS-G once a grid and
+    KS-P once a posterior tally, and no plain version ran there."""
+    if not cuda:
+        return
+    want = {"snv_hist_tile": tally_rows(counts, "snv", "tile"),
+            "somatic_grid": tally_rows(counts, "somatic", "grid"),
+            "somatic_posterior": tally_rows(counts, "somatic", "post")}
+    if counts["snv_kernels"] != want:
+        fail(f"{label}: the SNV kernels launched {counts['snv_kernels']}, "
+             f"the tallies are {want}")
+    if any(counts["snv_plain"].values()):
+        fail(f"{label}: a plain SNV model version ran on the card: "
+             f"{counts['snv_plain']}")
+    if somatic and not (want["somatic_grid"] and want["somatic_posterior"]):
+        fail(f"{label}: KS-G or KS-P was launched no time")
+    if not somatic and not want["snv_hist_tile"]:
+        fail(f"{label}: KG-H was launched no time")
 
 
 def compare_records(a_dir, b_dir, names, label) -> int:
@@ -1518,14 +1967,16 @@ def fanout_parent(args, stats_dir, timeout=900):
 def read_launch_dumps(stats_dir) -> dict:
     """The sum of every process's launch dump, and how many there are."""
     tot = {"processes": 0, "k1": 0, "k1h": 0, "k1h_simt": 0, "kx": {},
-           "score": {}, "snv": {}, "somatic": {}}
+           "score": {}, "snv": {}, "somatic": {}, "snv_kernels": {},
+           "snv_plain": {}}
     for name in sorted(os.listdir(stats_dir)):
         with open(os.path.join(stats_dir, name)) as f:
             d = json.load(f)
         tot["processes"] += 1
         for k in ("k1", "k1h", "k1h_simt"):
             tot[k] += d[k]
-        for group in ("kx", "score", "snv", "somatic"):
+        for group in ("kx", "score", "snv", "somatic", "snv_kernels",
+                      "snv_plain"):
             for k, v in d[group].items():
                 tot[group][k] = tot[group].get(k, 0) + v
     return tot
@@ -1610,6 +2061,7 @@ def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
     workers = worker_report(out, JOBS, cuda)
     counts = read_launch_dumps(stats)
     check_path_launches("germline --jobs 4", counts, cuda)
+    check_snv_kernels("germline --jobs 4", counts, cuda)
     tiles = tile_count(counts, "snv", "tile", device)
     if cuda and tiles == 0:
         fail("germline --jobs 4 ran no SNV tile on the card")
@@ -1647,6 +2099,7 @@ def phase_somatic_jobs(cuda: bool, fa, nbam, tbam, n_reads, som_snv, seg,
     workers = worker_report(out, JOBS, cuda)
     counts = read_launch_dumps(stats)
     check_path_launches("somatic --jobs 4", counts, cuda)
+    check_snv_kernels("somatic --jobs 4", counts, cuda, somatic=True)
     n_grid = tile_count(counts, "somatic", "grid", device)
     n_post = tile_count(counts, "somatic", "post", device)
     if n_grid == 0 or n_post == 0:
@@ -2248,9 +2701,9 @@ def phase_sim(np, torch, dev, cuda: bool, n_sites: int, n_strelka: int):
            "sites_somatic": len(strelka) * n_strelka,
            "draw_s": time.perf_counter() - t0}
     devices = [dev, torch.device("cpu")] if cuda else [dev]
-    res = {}
-    for d in devices:
-        t0 = time.perf_counter()
+    res, counts = {}, None
+
+    def run(d):
         out = {}
         for gt, (b, q, f, m) in germ.items():
             tile = sd.SnvPileupTile(base_id=b, qual=q, is_fwd=f, mask=m,
@@ -2276,8 +2729,18 @@ def phase_sim(np, torch, dev, cuda: bool, n_sites: int, n_strelka: int):
             r = ss.somatic_snv_call_capped(*lh)
             out[mode] = {f: getattr(r, f).cpu().numpy()
                          for f in ss.SomaticSnvResult._fields}
-        res[d.type] = out
-        row[f"{d.type}_s"] = time.perf_counter() - t0
+        return out
+
+    for d in devices:
+        # the counters set to 0 just before each run and read just after
+        res[d.type], row[f"{d.type}_s"], c = launches_during(
+            lambda: run(d))  # noqa: B023
+        if counts is None:
+            counts = c
+            check_snv_kernels("phase 18 germline", c, d.type == "cuda")
+            check_snv_kernels("phase 18 somatic", c, d.type == "cuda",
+                              somatic=True)
+            row["snv_kernel_launches"] = c["snv_kernels"]
     if cuda:
         a, b = res["cuda"], res["cpu"]
         for gt in germ:
@@ -2304,6 +2767,7 @@ def phase_sim(np, torch, dev, cuda: bool, n_sites: int, n_strelka: int):
             or q15[sim.SIM_GERMLINE] >= 0.05):
         fail(f"phase 18: somatic gates missed: {q15}")
     log("sim: " + json.dumps(row))
+    return counts
 
 
 def mesh_inputs(np, B, R, L, W):
@@ -2342,6 +2806,7 @@ def phase_mesh(np, torch, dev, cuda: bool, fa, bam, seg, out_dev, tn,
             fa, bam, out, device, ["--max-region-size", str(seg), "--mesh",
                                    spec]))
         check_path_launches(f"germline --mesh {spec}", c, cuda)
+        check_snv_kernels(f"germline --mesh {spec}", c, cuda)
         row[f"germline_mesh_{spec}"] = {
             "wall_s": wall, "k1_launches": c["k1"],
             "records_equal": compare_records(
@@ -2358,6 +2823,7 @@ def phase_mesh(np, torch, dev, cuda: bool, fa, bam, seg, out_dev, tn,
     if rc not in (0, None):
         fail(f"somatic --mesh 1 exited {rc}")
     check_path_launches("somatic --mesh 1", c, cuda)
+    check_snv_kernels("somatic --mesh 1", c, cuda, somatic=True)
     row["somatic_mesh_1"] = {
         "wall_s": wall, "k1_launches": c["k1"],
         "records_equal": compare_records(out, som_dev, SOMATIC_OUTPUTS,
@@ -2635,11 +3101,16 @@ def main(argv=None) -> int:
                        kx_kind_edge, runner_rows)
     log(f"phase 2c took {time.perf_counter() - t_kx:.1f} s")
 
-    log("== phase 3: snv tiles vs the CPU path")
-    phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000)
+    log("== phase 3: snv tiles vs the CPU path; KG-H vs its plain version")
+    t0 = time.perf_counter()
+    kgh_row = phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
-    log("== phase 3b: somatic SNV model vs the CPU path")
+    log("== phase 3b: somatic SNV model vs the CPU path; KS-G and KS-P vs "
+        "their plain versions")
+    t0 = time.perf_counter()
     phase_somatic_snv(np, torch, dev, 2000 if rehearse else 200_000)
+    log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
 
     # a fresh work directory: a --jobs run would resume from the
     # taskstates of an earlier smoke's outputs
@@ -2675,8 +3146,15 @@ def main(argv=None) -> int:
     tn = make_tn_dataset(np, workdir, tn_mb)
     fa_tn, nbam, tbam, n_tn, som_snv = tn
     som_dev = os.path.join(workdir, f"som_{dev.type}")
+    kept: dict = {}
     somatic = phase_somatic_e2e(torch, cuda, fa_tn, nbam, tbam, n_tn,
-                                som_snv, tn_mb, som_dev, dev.type)
+                                som_snv, tn_mb, som_dev, dev.type, kept)
+    log("== phase 6b: KS-G and KS-P on phase 6's first chunk vs their "
+        "plain versions")
+    t0 = time.perf_counter()
+    ksg_row, ksp_row = phase_somatic_main_shape(np, torch, dev, cuda, kept)
+    del kept
+    log(f"phase 6b took {time.perf_counter() - t0:.1f} s")
     if cuda:
         log("== phase 7: the same somatic run with --device cpu")
         som_cpu = os.path.join(workdir, "som_cpu")
@@ -2750,8 +3228,9 @@ def main(argv=None) -> int:
     log("== phase 18: the site simulators through the SNV tiles and the "
         "somatic model, cuda then cpu")
     t0 = time.perf_counter()
-    phase_sim(np, torch, dev, cuda, 2000 if rehearse else SIM_SITES,
-              200 if rehearse else SIM_STRELKA)
+    sim_counts = phase_sim(np, torch, dev, cuda,
+                           2000 if rehearse else SIM_SITES,
+                           200 if rehearse else SIM_STRELKA)
     log(f"phase 18 took {time.perf_counter() - t0:.1f} s of its "
         f"{BUDGET_S[18]} s budget")
     log(f"== phase 19: the engine mesh (--mesh) on {dev.type}")
@@ -2766,7 +3245,8 @@ def main(argv=None) -> int:
              "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
              "germline_joint": joint, "cram": cram, "germline_evs": evs,
              "germline_continuous": continuous, "germline_rna": rna,
-             "germline_error_estimation": error, **mesh_paths}
+             "germline_error_estimation": error, **mesh_paths,
+             "simulators": sim_counts}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2878,6 +3358,35 @@ def main(argv=None) -> int:
         if k.before_of:
             row["before_number_of"] = k.before_of
         kernels.append(row)
+    # the SNV models' kernels: their launches on every path, their rows
+    # from phases 3 and 3b
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    for name, source, krow in (
+            ("snv_hist_tile", "snv_hist_tile.cu", kgh_row),
+            ("somatic_grid", "somatic_grid.cu", ksg_row),
+            ("somatic_posterior", "somatic_posterior.cu", ksp_row)):
+        by = {p: c["snv_kernels"].get(name, 0) for p, c in paths.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"strelka_tpu_torch/csrc/{source}",
+            "replaces": snk.REPLACES[name],
+            "launches": sum(by.values()),
+            "launches_by_path": by,
+            "max_abs_err": krow["max_abs_err"],
+            "tolerance": "bit for bit (a NaN as a NaN)",
+            "shape": krow["shape"],
+            "ms": krow["ms"],
+            "device_ms": krow.get("device_ms"),
+            "plain_ms": krow["plain_ms"],
+            "library_ms": krow["library_ms"],
+            "bound_ms": krow["bound_ms"],
+            "bound_by": krow["bound_by"],
+            "bound_share": krow["bound_share"],
+            "device_bound_share": krow.get("device_bound_share"),
+            "trace": krow.get("trace"),
+            "plain_trace": krow.get("plain_trace"),
+        })
     if rehearse:
         log(json.dumps({"kernels": kernels}))
         log("rehearsal done (CPU): no result line")

@@ -15,18 +15,20 @@ prior products are all batched over loci.
 
 Port of strelka_tpu/models/snv_digt.py. The host parts (priors, the
 (qscore, base) contribution table, dependent-eprob deltas, the native
-CPU path) are copies. The device tiles are torch ops:
-call_snv_hist_tile, call_snv_tile and snv_strand_bias_tile. The
-histogram product and the posterior tail follow the canonical order
-that native/snvcall.cpp defines — ascending (q, base) slot, one f32
-fused multiply-add per slot as the compiled library runs it,
-sequential 10-genotype sums — as loops of torch ops over columns, so a
-CUDA run gives the CPU path's bits for the lhood. RNA mode (the het-VF
-extension), where the JAX package runs its XLA tile on the CPU, and the
-strand-bias tile follow XLA's CPU arithmetic instead: per-call values
-from host tables, XLA's log and exp polynomials and its reduction
-orders, as elementwise torch ops (the same bits on the CPU and the
-card).
+CPU path) are copies. The device tiles are call_snv_hist_tile,
+call_snv_tile and snv_strand_bias_tile. The histogram product and the
+posterior tail follow the canonical order that native/snvcall.cpp
+defines — ascending (q, base) slot, one f32 fused multiply-add per slot
+as the compiled library runs it, sequential 10-genotype sums — as loops
+of torch ops over columns (call_snv_hist_tile_plain, the CPU path), so
+a CUDA run gives the CPU path's bits for the lhood; on the card the
+histogram tile is one launch of the kernel KG-H
+(csrc/snv_hist_tile.cu), which gives the plain version's bits. RNA
+mode (the het-VF extension), where the JAX package runs its XLA tile on
+the CPU, and the strand-bias tile follow XLA's CPU arithmetic instead:
+per-call values from host tables, XLA's log and exp polynomials and its
+reduction orders, as elementwise torch ops (the same bits on the CPU
+and the card).
 """
 from __future__ import annotations
 
@@ -298,6 +300,13 @@ def _div(x, c: float):
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def _i32(x):
+    """Float tensor x as int32 with NaN as 0, as XLA's convert gives it:
+    torch's cast leaves NaN to the platform (INT_MIN on the CPU), and an
+    all -inf or NaN row of lhoods makes its phreds NaN."""
+    return torch.where(torch.isnan(x), 0.0, x).to(torch.int32)
+
+
 def _seq_sum(x):
     """Sum over the last axis in ascending order, one add at a time
     (the canonical order of native/snvcall.cpp; torch.sum reduces as a
@@ -378,8 +387,7 @@ def _result_set(lhood, ln_prior, ref_gt):
     q_max = torch.clamp_max(torch.floor(
         -10.0 * torch.log10(torch.clamp_min(comp, _F64_TINY)) + 0.5), 999)
     ln_ref = torch.log(torch.clamp_min(ref_pprob, _F64_TINY))
-    return (p, max_gt.to(torch.int32), q_ref.to(torch.int32),
-            q_max.to(torch.int32), ln_ref)
+    return p, max_gt.to(torch.int32), _i32(q_ref), _i32(q_max), ln_ref
 
 
 def _tile_tail(lhood, ref_gt, is_haploid, tabs):
@@ -410,8 +418,8 @@ def _tile_tail(lhood, ref_gt, is_haploid, tabs):
         hom_max = torch.amax(lhood[:, :digt.N_BASE], dim=-1, keepdim=True)
         lmax = torch.where(is_haploid[:, None], hom_max, lmax)
     t = (lhood - lmax) * -10.0
-    pl = torch.clamp(torch.floor(_div(t.to(torch.float64), _LN10) + 0.5),
-                     0, 999).to(torch.int32)
+    pl = _i32(torch.clamp(torch.floor(_div(t.to(torch.float64), _LN10)
+                                      + 0.5), 0, 999))
     return g_p, p_p, g_max, p_max, g_qref, g_qmax, p_qmax, pl, g_lnref
 
 
@@ -435,9 +443,33 @@ def call_snv_hist_tile(hist, ref_gt, is_haploid=None,
     histogram (hist int8/int32 [L, _SNV_QTAB_SIZE*4] on the tile's
     device, host-counted by native/snvhist.cpp). The lhood is the
     canonical-order product of native/snvcall.cpp (bit-identical to
-    the CPU path on any device); cols optionally lists the nonzero
-    slots (host ints, ascending). strand_bias is zeros:
-    call_snv_tile_chunked runs snv_strand_bias_tile on the SNP subset."""
+    the CPU path on any device). strand_bias is zeros:
+    call_snv_tile_chunked runs snv_strand_bias_tile on the SNP subset.
+
+    On CPU tensors this runs the plain version (call_snv_hist_tile_plain;
+    cols optionally lists the nonzero slots, host ints, ascending); on
+    any other device the kernel KG-H (ops/snv_kernels.snv_hist_tile,
+    csrc/snv_hist_tile.cu), which gives the plain version's bits and
+    leaves genome_pprob and poly_pprob None (no caller reads them)."""
+    if hist.device.type == "cpu":
+        return call_snv_hist_tile_plain(hist, ref_gt, is_haploid, theta,
+                                        s_mis, cols)
+    from ..ops import snv_kernels
+    tabs = _tables(theta, hist.device)
+    (lhood, g_max, p_max, g_qref, g_qmax, p_qmax, pl,
+     g_lnref) = snv_kernels.snv_hist_tile(hist, ref_gt, is_haploid, s_mis,
+                                          tabs)
+    return _result(lhood, (None, None, g_max, p_max, g_qref, g_qmax,
+                           p_qmax, pl, g_lnref))
+
+
+def call_snv_hist_tile_plain(hist, ref_gt, is_haploid=None,
+                             theta: float = 0.001, s_mis=None,
+                             cols=None) -> SnvCallResult:
+    """The plain version of call_snv_hist_tile, as torch ops on the
+    tile's device: the CPU path, and what KG-H is held to on the card."""
+    from ..ops import snv_kernels
+    snv_kernels.count_plain("snv_hist_tile", hist.device)
     tabs = _tables(theta, hist.device)
     lhood = _hist_lhood(hist, tabs["snv_qtab"], cols)
     if s_mis is not None:
@@ -450,7 +482,8 @@ def call_snv_hist_tile(hist, ref_gt, is_haploid=None,
 
 def _tile_hist(base_id, qual, mask):
     """[L, Q*4] int32 (qscore, base) counts of the used calls of a
-    tile (integer scatter-add: exact in any order)."""
+    tile (integer scatter-add: exact in any order), contiguous, as the
+    card's kernel takes them."""
     L, D = base_id.shape
     K = _SNV_QTAB_SIZE * digt.N_BASE
     b = base_id.to(torch.int64)
@@ -459,7 +492,7 @@ def _tile_hist(base_id, qual, mask):
     idx = torch.where(valid, q * digt.N_BASE + b, K)
     hist = torch.zeros((L, K + 1), dtype=torch.int32, device=b.device)
     hist.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
-    return hist[:, :K]
+    return hist[:, :K].contiguous()
 
 
 def call_snv_tile(tile: SnvPileupTile, theta: float = 0.001,
@@ -484,7 +517,11 @@ def call_snv_tile(tile: SnvPileupTile, theta: float = 0.001,
     dep_smis.
     """
     hist = _tile_hist(tile.base_id, tile.qual, tile.mask)
-    cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
+    # the slots that hold a call in some row, which the plain products
+    # visit (a read-back to the host; the card's kernel needs none)
+    cols = None
+    if hist.device.type == "cpu" or het_vf_extension > 0:
+        cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
     if het_vf_extension <= 0:
         return call_snv_hist_tile(hist, tile.ref_gt, is_haploid, theta,
                                   s_mis=dep_smis, cols=cols)

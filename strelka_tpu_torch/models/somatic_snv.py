@@ -15,9 +15,13 @@ so a pileup tile reduces to per-locus (qscore, class) histograms times
 posterior is a masked logsumexp against precomputed prior tensors.
 
 Port of strelka_tpu/models/somatic_snv.py. The state space and the
-numpy tables are copies; the two device programs, freq_grid_lhoods and
-somatic_snv_call, are torch ops on the tile's device, written so that a
-CUDA run gives the CPU run's bits:
+numpy tables are copies. The two device programs, freq_grid_lhoods and
+somatic_snv_call, have plain versions (freq_grid_lhoods_plain,
+somatic_snv_call_plain: torch ops on the tile's device, the CPU path)
+and, on the card, one kernel each, KS-G (csrc/somatic_grid.cu, a launch
+a sample) and KS-P (csrc/somatic_posterior.cu), which give the plain
+versions' bits there. The plain versions are written so that a CUDA run
+gives the CPU run's bits:
 
 - the histogram is an int32 scatter-add (exact in any order), and each
   [L,128]@[128,F] product is summed in a fixed order — the order of the
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import device as devmod
+from .snv_digt import _i32
 
 # --- state space (strelka_digt_states.hh) ---------------------------------
 HET_RES = 9
@@ -213,11 +218,36 @@ def freq_grid_lhoods(base_id, qual, mask, is_fwd, ref_gt):
     base_id/qual/mask/is_fwd: [L, D]; ref_gt: [L]. States 0..20 =
     symmetric frequency grid; 21..29 = strand states (max over fwd-only
     / rev-only noise, get_strand_ratio_lhood_spi).
+
+    On CPU tensors this runs the plain version (freq_grid_lhoods_plain);
+    on any other device the kernel KS-G (ops/snv_kernels.somatic_grid,
+    csrc/somatic_grid.cu), which gives the plain version's bits. KS-G
+    reads the native pileup's lanes (int8 base ids, int16 qscores, int32
+    ref_gt); integers of other widths (the Python pileup's and the
+    simulators' int32) are cast to those first: base ids are -1..4 and
+    qscores fit int16.
     """
     dev = base_id.device
     L, D = base_id.shape
     _tally("grid", dev, L, D)
+    if dev.type == "cpu":
+        return freq_grid_lhoods_plain(base_id, qual, mask, is_fwd, ref_gt)
     from ..convert import somatic_grid_tables
+    from ..ops import snv_kernels
+    base_id, qual, ref_gt = (base_id.to(torch.int8), qual.to(torch.int16),
+                             ref_gt.to(torch.int32))
+    return snv_kernels.somatic_grid(base_id, qual, mask, is_fwd, ref_gt,
+                                    somatic_grid_tables(dev), _LN_HALF_F32)
+
+
+def freq_grid_lhoods_plain(base_id, qual, mask, is_fwd, ref_gt):
+    """The plain version of freq_grid_lhoods, as torch ops on the tile's
+    device: the CPU path, and what KS-G is held to on the card."""
+    dev = base_id.device
+    L, D = base_id.shape
+    from ..convert import somatic_grid_tables
+    from ..ops import snv_kernels
+    snv_kernels.count_plain("somatic_grid", dev)
     tabs = somatic_grid_tables(dev)
     q_idx = torch.clamp(qual.to(torch.int64), 0, _QTAB_SIZE - 1)
     rg = ref_gt.to(torch.int64)[:, None]
@@ -335,15 +365,43 @@ class SomaticSnvResult(NamedTuple):
     nonsomatic_qphred: torch.Tensor # [L] int32
 
 
-# Peak bytes one row holds while the device programs run, rounded up:
-# somatic_snv_call keeps the [3,2,21,21] f32 sum, its float64 copy, the
-# exp and the power-of-two padded tree sum alive at once (about 81 KB);
-# freq_grid_lhoods holds the histogram and the exact-FMA temporaries
-# (about 27 KB) plus about 35 bytes per depth lane. chip_smoke.py
-# (phase 3b) measures both on the card and fails if they are exceeded.
+# Peak bytes one row holds while the plain versions run, rounded up:
+# somatic_snv_call_plain keeps the [3,2,21,21] f32 sum, its float64
+# copy, the exp and the power-of-two padded tree sum alive at once
+# (about 81 KB); freq_grid_lhoods_plain holds the histogram and the
+# exact-FMA temporaries (about 27 KB) plus about 35 bytes per depth
+# lane. chip_smoke.py (phase 3b) measures both on the card and fails if
+# they are exceeded.
 CALL_ROW_BYTES = 96 << 10
 GRID_ROW_BYTES = 32 << 10
 GRID_LANE_BYTES = 64
+# The same for the kernels KS-P and KS-G, which keep a row's work on the
+# chip: their inputs and outputs alone. KS-P reads two [30] f32 lhood
+# rows and writes five int32 fields and an f32; KS-G writes a [30] f32
+# row from an int32 ref_gt, and its depth lanes are at most 4 bytes of
+# base and of qual, a byte each of mask and strand, and the two bool
+# masks the somatic caller ANDs into the use mask.
+KERNEL_CALL_ROW_BYTES = 2 * GRID_SIZE * 4 + 6 * 4
+KERNEL_GRID_ROW_BYTES = GRID_SIZE * 4 + 4
+KERNEL_GRID_LANE_BYTES = 12
+
+
+def call_row_bytes(dev) -> int:
+    """Bytes a row of somatic_snv_call holds on `dev` (the plain
+    version's on the CPU, the kernel's elsewhere)."""
+    return (CALL_ROW_BYTES if torch.device(dev).type == "cpu"
+            else KERNEL_CALL_ROW_BYTES)
+
+
+def tile_row_bytes(dev, depth: int) -> int:
+    """Bytes a row of a tier1 chunk holds on `dev`: the posterior and a
+    sample's grid lhoods at `depth` lanes."""
+    if torch.device(dev).type == "cpu":
+        return CALL_ROW_BYTES + GRID_ROW_BYTES + GRID_LANE_BYTES * depth
+    return (KERNEL_CALL_ROW_BYTES + KERNEL_GRID_ROW_BYTES
+            + KERNEL_GRID_LANE_BYTES * depth)
+
+
 # the working-set budget on the host; a card offers half of its free
 # memory (the caching allocator's idle blocks included), divided among
 # the local workers that share it
@@ -379,7 +437,8 @@ def somatic_snv_call_capped(normal_lhood, tumor_lhood, **kw):
     memory budget (rows_per_launch), else over row chunks that do
     (results concatenated on the device; identical per-row math)."""
     L = normal_lhood.shape[0]
-    cap = rows_per_launch(normal_lhood.device, CALL_ROW_BYTES)
+    cap = rows_per_launch(normal_lhood.device,
+                          call_row_bytes(normal_lhood.device))
     if L <= cap:
         return somatic_snv_call(normal_lhood, tumor_lhood, **kw)
     parts = [somatic_snv_call(normal_lhood[i:i + cap],
@@ -395,9 +454,10 @@ _F64_TINY = float(np.finfo(np.float64).tiny)
 
 def _phred64(x):
     """min(floor(-10 * log10(max(x, tiny)) + 0.5), 999) as the JAX
-    package evaluates it in float64 (log10 = log * 1/ln 10)."""
+    package evaluates it in float64 (log10 = log * 1/ln 10), as int32
+    with NaN as 0 (XLA's convert; an all -inf row gives NaN here)."""
     lg = torch.log(torch.clamp_min(x, _F64_TINY)) * _LOG10_E
-    return torch.clamp_max(torch.floor(-10.0 * lg + 0.5), 999.0)
+    return _i32(torch.clamp_max(torch.floor(-10.0 * lg + 0.5), 999.0))
 
 
 def somatic_snv_call(normal_lhood, tumor_lhood,
@@ -407,12 +467,35 @@ def somatic_snv_call(normal_lhood, tumor_lhood,
     """Joint somatic posterior over batched loci.
 
     normal_lhood/tumor_lhood: [L, GRID_SIZE] f32 from freq_grid_lhoods,
-    on one device. The dtypes follow the JAX package's program step by
-    step (f32 where it holds f32, float64 where x64 promotes).
+    on one device. On CPU tensors this runs the plain version
+    (somatic_snv_call_plain); on any other device the kernel KS-P
+    (ops/snv_kernels.somatic_posterior, csrc/somatic_posterior.cu),
+    which gives the plain version's bits.
     """
     dev = normal_lhood.device
+    _tally("post", dev, normal_lhood.shape[0], 0)
+    args = (contam_tolerance, shared_error_rate, somatic_rate, theta,
+            sse_strand_fraction)
+    if dev.type == "cpu":
+        return somatic_snv_call_plain(normal_lhood, tumor_lhood, *args)
+    from ..ops import snv_kernels
+    pf, gp, valid_eq, off_prior, _eye = _posterior_tables(dev, *args)
+    return SomaticSnvResult(*snv_kernels.somatic_posterior(
+        normal_lhood, tumor_lhood, pf, gp, valid_eq, off_prior))
+
+
+def somatic_snv_call_plain(normal_lhood, tumor_lhood,
+                           contam_tolerance=0.15, shared_error_rate=5e-10,
+                           somatic_rate=1e-4, theta=0.001,
+                           sse_strand_fraction=0.0) -> SomaticSnvResult:
+    """The plain version of somatic_snv_call, as torch ops on the
+    lhoods' device: the CPU path, and what KS-P is held to on the card.
+    The dtypes follow the JAX package's program step by step (f32 where
+    it holds f32, float64 where x64 promotes)."""
+    from ..ops import snv_kernels
+    dev = normal_lhood.device
     L = normal_lhood.shape[0]
-    _tally("post", dev, L, 0)
+    snv_kernels.count_plain("somatic_posterior", dev)
     pf, gp, valid_eq, off_prior, eye = _posterior_tables(
         dev, contam_tolerance, shared_error_rate, somatic_rate, theta,
         sse_strand_fraction)
@@ -420,7 +503,8 @@ def somatic_snv_call(normal_lhood, tumor_lhood,
     tl = tumor_lhood[:, :PRESTRAND_SIZE]
     # [L, 3, 2, fn, ft] in f32, (pf + nl) + tl
     s = (pf[None] + nl[:, None, None, :, None]) + tl[:, None, None, None, :]
-    lse = _logsumexp64(s.reshape(L, 3, 2, -1)).to(torch.float32)
+    lse = _logsumexp64(s.reshape(L, 3, 2, PRESTRAND_SIZE ** 2)).to(
+        torch.float32)
     del s
     log_post = lse + gp[None]                                   # [L, 3, 2]
 
@@ -457,15 +541,16 @@ def somatic_snv_call(normal_lhood, tumor_lhood,
     pp_off = ((nl[:, :, None] + tl[:, None, :]).to(torch.float64)
               + off_prior[None])
     pp_off = torch.where(eye[None], float("-inf"), pp_off)
-    denom = _logaddexp64(lse_diag, _logsumexp64(pp_off.reshape(L, -1)))
+    denom = _logaddexp64(lse_diag, _logsumexp64(
+        pp_off.reshape(L, PRESTRAND_SIZE ** 2)))
     nonsom_frac = torch.exp(lse_diag - denom)
     qns = _phred64(1.0 - nonsom_frac)
 
     i32 = torch.int32
     return SomaticSnvResult(
-        qphred=q.to(i32), from_ntype_qphred=qn.to(i32),
+        qphred=q, from_ntype_qphred=qn,
         ntype=ntype.to(i32), max_gt=max_flat.to(i32),
-        strand_bias=sb, nonsomatic_qphred=qns.to(i32))
+        strand_bias=sb, nonsomatic_qphred=qns)
 
 
 @functools.lru_cache(maxsize=16)

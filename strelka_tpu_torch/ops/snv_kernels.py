@@ -1,0 +1,216 @@
+"""The SNV models' CUDA kernels: KG-H, KS-G and KS-P.
+
+Each replaces one program that the JAX package jits (XLA, no Pallas) and
+gives its plain version's bits on the card in one launch:
+
+- KG-H, snv_hist_tile (csrc/snv_hist_tile.cu): the germline SNV genotype
+  tile from a (qscore, base) histogram, models/snv_digt.call_snv_hist_tile;
+  plain version call_snv_hist_tile_plain;
+- KS-G, somatic_grid (csrc/somatic_grid.cu): one sample's somatic
+  frequency-grid lhoods, models/somatic_snv.freq_grid_lhoods; plain version
+  freq_grid_lhoods_plain;
+- KS-P, somatic_posterior (csrc/somatic_posterior.cu): the somatic joint
+  posterior, models/somatic_snv.somatic_snv_call; plain version
+  somatic_snv_call_plain.
+
+The models' public functions run the plain version on CPU tensors and the
+kernel on any other device; a wrapper here checks its operands, builds and
+binds its library (csrc/<name>.cu, _build.load) and launches on the
+tensors' card and its current stream, and raises on what it does not take
+and where the build, the load or the launch fails: nothing falls back to
+the plain version. LAUNCHES counts each kernel's launches (a call with no
+rows launches nothing and counts nothing); PLAIN_ON_CUDA counts the plain
+versions' runs on a card, which no CLI path makes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# (replaced TPU-side program, csrc source) of each kernel
+REPLACES = {
+    "snv_hist_tile": "strelka_tpu/models/snv_digt.py:506",
+    "somatic_grid": "strelka_tpu/models/somatic_snv.py:102",
+    "somatic_posterior": "strelka_tpu/models/somatic_snv.py:250",
+}
+LAUNCHES = {name: 0 for name in REPLACES}
+PLAIN_ON_CUDA = {name: 0 for name in REPLACES}
+
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "snv_hist_tile": [_vp, _i, *[_vp] * 9, _ll, *[_vp] * 8, _vp],
+    "somatic_grid": [*[_vp] * 5, _ll, _ll, *[_vp] * 6, ctypes.c_float, _vp,
+                     _vp],
+    "somatic_posterior": [*[_vp] * 6, _ll, *[_vp] * 6, _vp],
+}
+_BOUND: dict = {}
+
+
+def reset() -> None:
+    """Set every launch and plain-version counter to 0."""
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def count_plain(name: str, dev) -> None:
+    """Count a run of kernel `name`'s plain version where it is on a card."""
+    if torch.device(dev).type == "cuda":
+        PLAIN_ON_CUDA[name] += 1
+
+
+def function(name: str):
+    """Kernel `name`'s launch function, bound with ctypes; builds its
+    library (csrc/<name>.cu) first if stale. Raises where the build or
+    the load fails."""
+    if name not in _BOUND:
+        from .. import _build
+        fn = getattr(_build.load(name), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _BOUND[name] = fn
+    return _BOUND[name]
+
+
+def _check(kernel, dev, specs):
+    """Each (label, tensor, dtypes, shape) on `dev`, of one of `dtypes`,
+    of `shape` (None: any extent) and contiguous; a None tensor passes."""
+    for label, t, dtypes, shape in specs:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {label} is on {t.device}, the "
+                             f"first input on {dev}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{kernel}: {label} must be one of "
+                             f"{[str(d) for d in dtypes]}, got {t.dtype}")
+        if t.dim() != len(shape) or any(
+                s is not None and s != n for s, n in zip(shape, t.shape)):
+            raise ValueError(f"{kernel}: {label} has shape "
+                             f"{tuple(t.shape)}, wants {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {label} must be contiguous")
+
+
+def _launch(name, dev, args):
+    """Bind kernel `name` and launch it on `dev` and its current stream
+    (`dev` made current: the runtime launches on the current device's
+    context); raises where `dev` is no card or the launch fails."""
+    fn = function(name)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _aligned(name, label, t):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+_F32, _F64, _BOOL, _I32 = ((torch.float32,), (torch.float64,),
+                           (torch.bool,), (torch.int32,))
+
+
+def snv_hist_tile(hist, ref_gt, is_haploid, s_mis, tabs):
+    """KG-H: (lhood [L,10] f32, genome_max_gt, poly_max_gt, snv_qphred,
+    genome_max_gt_qphred, poly_max_gt_qphred [L] int32, phred_loghood
+    [L,10] int32, ln_ref_pprob [L] f64) of call_snv_hist_tile. hist [L,
+    512] int8 or int32 (16-byte aligned), ref_gt [L] int32 in 0..4,
+    is_haploid [L] bool or None, s_mis [L,4] f32 or None, tabs =
+    convert.device_tables on the same card."""
+    name = "snv_hist_tile"
+    dev = hist.device
+    L = hist.shape[0]
+    qtab, e0 = tabs["snv_qtab"], tabs["e0_tab"]
+    priors = [tabs[f"prior_{k}"] for k in ("genome", "poly",
+                                           "genome_haploid", "poly_haploid")]
+    _check(name, dev, [
+        ("hist", hist, (torch.int8, torch.int32), (None, 512)),
+        ("ref_gt", ref_gt, _I32, (L,)),
+        ("is_haploid", is_haploid, _BOOL, (L,)),
+        ("s_mis", s_mis, _F32, (L, 4)),
+        ("snv_qtab", qtab, _F32, (512, 10)),
+        ("e0_tab", e0, _F32, (4, 10)),
+        *[(f"prior {i}", p, _F64, (5, 10)) for i, p in enumerate(priors)]])
+    _aligned(name, "hist", hist)
+    _aligned(name, "snv_qtab", qtab)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lhood = torch.empty((L, 10), dtype=torch.float32, device=dev)
+    ints = [torch.empty(L, **i32) for _ in range(5)]
+    pl = torch.empty((L, 10), **i32)
+    ln_ref = torch.empty(L, dtype=torch.float64, device=dev)
+    if L:
+        _launch(name, dev, [
+            hist.data_ptr(), hist.element_size(), ref_gt.data_ptr(),
+            _ptr(is_haploid), _ptr(s_mis), qtab.data_ptr(), e0.data_ptr(),
+            *[p.data_ptr() for p in priors], L, lhood.data_ptr(),
+            *[t.data_ptr() for t in ints], pl.data_ptr(), ln_ref.data_ptr()])
+    g_max, p_max, g_qref, g_qmax, p_qmax = ints
+    return lhood, g_max, p_max, g_qref, g_qmax, p_qmax, pl, ln_ref
+
+
+_GRID_TABLES = ("grid_ref", "grid_alt", "grid_on_ref", "grid_on_alt",
+                "grid_off_ref", "grid_off_alt")
+
+
+def somatic_grid(base_id, qual, mask, is_fwd, ref_gt, tabs, ln_half):
+    """KS-G: [L, 30] f32 grid lhoods of freq_grid_lhoods. base_id [L, D]
+    int8, qual [L, D] int16 and ref_gt [L] int32 (the native pileup's
+    lanes), mask and is_fwd [L, D] bool, tabs = convert.somatic_grid_tables on the same card, ln_half
+    the f32 ln 0.5 that the strand states add."""
+    name = "somatic_grid"
+    dev = base_id.device
+    if base_id.dim() != 2:
+        raise ValueError(f"{name}: base_id must be [L, D], got "
+                         f"{tuple(base_id.shape)}")
+    L, D = base_id.shape
+    _check(name, dev, [
+        ("base_id", base_id, (torch.int8,), (L, D)),
+        ("qual", qual, (torch.int16,), (L, D)),
+        ("mask", mask, _BOOL, (L, D)), ("is_fwd", is_fwd, _BOOL, (L, D)),
+        ("ref_gt", ref_gt, _I32, (L,)),
+        *[(k, tabs[k], _F32, (128, 21 if k in ("grid_ref", "grid_alt")
+                              else 9)) for k in _GRID_TABLES]])
+    out = torch.empty((L, 30), dtype=torch.float32, device=dev)
+    if L:
+        _launch(name, dev, [
+            base_id.data_ptr(), qual.data_ptr(), mask.data_ptr(),
+            is_fwd.data_ptr(), ref_gt.data_ptr(), L, D,
+            *[tabs[k].data_ptr() for k in _GRID_TABLES], ln_half,
+            out.data_ptr()])
+    return out
+
+
+def somatic_posterior(normal, tumor, pf, gp, eq, off):
+    """KS-P: the six SomaticSnvResult fields (qphred, from_ntype_qphred,
+    ntype, max_gt [L] int32, strand_bias [L] f32, nonsomatic_qphred [L]
+    int32) of somatic_snv_call. normal, tumor [L, 30] f32; pf [3,2,21,21]
+    and gp [3,2] f32, eq [21] f32 and off [21,21] f64 from
+    somatic_snv._posterior_tables, on the same card."""
+    name = "somatic_posterior"
+    dev = normal.device
+    L = normal.shape[0]
+    _check(name, dev, [
+        ("normal", normal, _F32, (L, 30)), ("tumor", tumor, _F32, (L, 30)),
+        ("joint_pf", pf, _F32, (3, 2, 21, 21)), ("joint_gp", gp, _F32,
+                                                  (3, 2)),
+        ("eq", eq, _F32, (21,)), ("off", off, _F64, (21, 21))])
+    i32 = dict(dtype=torch.int32, device=dev)
+    q, qn, ntype, max_gt, qns = (torch.empty(L, **i32) for _ in range(5))
+    sb = torch.empty(L, dtype=torch.float32, device=dev)
+    if L:
+        _launch(name, dev, [
+            normal.data_ptr(), tumor.data_ptr(), pf.data_ptr(),
+            gp.data_ptr(), eq.data_ptr(), off.data_ptr(), L, q.data_ptr(),
+            qn.data_ptr(), ntype.data_ptr(), max_gt.data_ptr(),
+            sb.data_ptr(), qns.data_ptr()])
+    return q, qn, ntype, max_gt, sb, qns

@@ -53,7 +53,9 @@ LAUNCH_STATS: dict | None = None
 
 # STRELKA_TPU_LAUNCH_STATS=<dir>: every process tallies its scoring
 # launches and dumps them at exit, with the scoring kernel's launch
-# counts and the SNV and somatic tile tallies, as <dir>/launch_<pid>.json
+# counts, the SNV and somatic tile tallies and the SNV model kernels'
+# launches (and their plain versions' runs on a card), as
+# <dir>/launch_<pid>.json
 # — how the launches of --jobs workers, which run in child processes,
 # are counted
 _STATS_DIR = os.environ.get("STRELKA_TPU_LAUNCH_STATS")
@@ -63,6 +65,7 @@ def _dump_launch_stats():
     from ..models import snv_digt, somatic_snv
     from ..ops import score_kernel as sk
     from ..ops import score_variants as sv
+    from ..ops import snv_kernels as snk
 
     def keyed(d):
         return {",".join(map(str, k)): v for k, v in (d or {}).items()}
@@ -73,7 +76,9 @@ def _dump_launch_stats():
                       for k in sv.KERNELS.values()},
                "score": keyed(LAUNCH_STATS),
                "snv": keyed(snv_digt.LAUNCH_STATS),
-               "somatic": keyed(somatic_snv.LAUNCH_STATS)}
+               "somatic": keyed(somatic_snv.LAUNCH_STATS),
+               "snv_kernels": dict(snk.LAUNCHES),
+               "snv_plain": dict(snk.PLAIN_ON_CUDA)}
     os.makedirs(_STATS_DIR, exist_ok=True)
     with open(os.path.join(_STATS_DIR, f"launch_{os.getpid()}.json"),
               "w") as f:

@@ -111,8 +111,7 @@ def _tile_rows(pus, dev) -> int:
     chunk. Rows are independent: the chunk height never changes a
     result."""
     depth = max(pu.base_id.shape[1] for pu in pus)
-    return ss.rows_per_launch(dev, ss.CALL_ROW_BYTES + ss.GRID_ROW_BYTES
-                              + ss.GRID_LANE_BYTES * depth)
+    return ss.rows_per_launch(dev, ss.tile_row_bytes(dev, depth))
 
 
 def _put(a, dev):

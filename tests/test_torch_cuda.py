@@ -4,7 +4,9 @@ SIMT before-number; the K1-x variants, KX-P, KX-H, KX-I and the four
 ablations (noA, noW in both its plans, nomax, nodot) on K1's pipeline and
 KX-K on K1-h's among them, their before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
-against the CPU path, the germline and somatic CLIs with --device
+against the CPU path, the SNV model kernels (KG-H, KS-G, KS-P) against
+their plain versions bit for bit, one launch a tile (and on cuda:1
+with two cards), the germline and somatic CLIs with --device
 cuda against --device cpu, a cold --jobs 2 germline run on the card
 against a single-process one, the error-model fits (the emulated
 FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
@@ -1252,3 +1254,237 @@ def test_germline_cli_mesh_on_card_matches_plain(cuda, tmp_path):
     assert main(["germline", "--reference", str(fa), "--align-file", bam,
                  "--output-dir", str(tmp_path / "too_many"), "--device",
                  "cuda", "--mesh", str(n)]) == 2
+
+
+# --- the SNV models' kernels KG-H, KS-G and KS-P against their plain
+# versions on the card, bit for bit on every field (a NaN as a NaN)
+
+def same_bits(a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a[~nan], b[~nan]
+        w = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+def hist_tile(rng, L, D, hist_dtype=np.int8):
+    """A germline (qscore, base) histogram of a random tile of depth D,
+    with q = 0 calls, haploid rows and dependent-eprob deltas."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.3, rng.integers(0, 4, (L, D)),
+                    np.minimum(ref, 3)[:, None]).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D)).astype(np.uint8)
+    qual[rng.random((L, D)) < 0.02] = 0
+    mask = rng.random((L, D)) < 0.8
+    mask[:L // 50] = False            # rows with no call
+    h = np.zeros((L, 512), np.int8)
+    sd._np_snv_hist(base, qual, mask, h)
+    hap = rng.random(L) < 0.1
+    smis = np.where(rng.random((L, 4)) < 0.05,
+                    rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
+    return h.astype(hist_dtype), ref, hap, smis
+
+
+def kgh_against_plain(dev, hist, ref, hap, smis):
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    t = [None if a is None else torch.from_numpy(a).to(dev)
+         for a in (hist, ref, hap, smis)]
+    before = dict(snk.LAUNCHES)
+    got = sd.call_snv_hist_tile(t[0], t[1], t[2], 0.001, s_mis=t[3])
+    assert snk.LAUNCHES["snv_hist_tile"] == (before["snv_hist_tile"]
+                                             + (len(ref) > 0))
+    want = sd.call_snv_hist_tile_plain(t[0], t[1], t[2], 0.001, s_mis=t[3])
+    torch.cuda.synchronize()
+    for f in sd._PULL:
+        assert same_bits(getattr(got, f), getattr(want, f)), f
+    return got
+
+
+@pytest.mark.parametrize("D", [32, 96, 127])
+@pytest.mark.parametrize("with_hap,with_smis", [(False, False), (True, True)])
+def test_kgh_bit_identical_to_plain(cuda, D, with_hap, with_smis):
+    h, ref, hap, smis = hist_tile(np.random.default_rng(D), 3000, D)
+    kgh_against_plain(cuda, h, ref, hap if with_hap else None,
+                      smis if with_smis else None)
+
+
+def test_kgh_int32_counts_bit_identical_to_plain(cuda):
+    """The histogram that call_snv_tile counts on the card (D > 127)."""
+    h, ref, hap, smis = hist_tile(np.random.default_rng(5), 2000, 96,
+                                  np.int32)
+    h[:100] *= 3                      # counts past int8's range
+    kgh_against_plain(cuda, h, ref, hap, smis)
+
+
+@pytest.mark.parametrize("fill", ["ninf", "nan"])
+def test_kgh_ninf_and_nan_rows_bit_identical_to_plain(cuda, fill):
+    """Rows whose lhoods go -inf or NaN through s_mis: phreds and PLs 0
+    (XLA's convert), the rest as the plain version gives it."""
+    h, ref, hap, smis = hist_tile(np.random.default_rng(6), 500, 64)
+    smis[:40] = -np.inf if fill == "ninf" else np.nan
+    got = kgh_against_plain(cuda, h, ref, hap, smis)
+    assert (got.snv_qphred[:40] == 0).all()
+    assert (got.phred_loghood[:40] == 0).all()
+
+
+@pytest.mark.parametrize("L", [0, 1, 33, 1031])
+def test_kgh_ragged_and_tiny_tiles(cuda, L):
+    h, ref, hap, smis = hist_tile(np.random.default_rng(L), L, 50)
+    kgh_against_plain(cuda, h, ref, hap, smis)
+
+
+def ksg_against_plain(dev, tile):
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    t = [torch.from_numpy(a).to(dev) for a in tile]
+    before = snk.LAUNCHES["somatic_grid"]
+    got = ss.freq_grid_lhoods(*t)
+    assert snk.LAUNCHES["somatic_grid"] == before + (len(tile[4]) > 0)
+    want = ss.freq_grid_lhoods_plain(*t)
+    torch.cuda.synchronize()
+    assert same_bits(got, want)
+    return got
+
+
+@pytest.mark.parametrize("D", [32, 96, 127])
+@pytest.mark.parametrize("dtypes", ["i8,i16", "i32,i32"])
+def test_ksg_bit_identical_to_plain(cuda, D, dtypes):
+    """q = 0 calls, masked lanes, all-masked rows; the native pileup's
+    int8/int16 lanes, and the Python pileup's int32 ones, which
+    freq_grid_lhoods casts to those widths for KS-G."""
+    base, qual, mask, fwd, ref = somatic_tile(np.random.default_rng(D),
+                                              3001, D, 0.2)
+    if dtypes == "i32,i32":
+        base, qual = base.astype(np.int32), qual.astype(np.int32)
+    ksg_against_plain(cuda, (base, qual, mask, fwd, ref))
+
+
+@pytest.mark.parametrize("L", [0, 1, 9])
+def test_ksg_tiny_tiles(cuda, L):
+    ksg_against_plain(cuda, somatic_tile(np.random.default_rng(L + 1),
+                                         L, 40, 0.3))
+
+
+def ksp_against_plain(dev, n, t):
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    nt, tt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (n, t))
+    before = snk.LAUNCHES["somatic_posterior"]
+    got = ss.somatic_snv_call(nt, tt)
+    assert snk.LAUNCHES["somatic_posterior"] == before + (len(n) > 0)
+    want = ss.somatic_snv_call_plain(nt, tt)
+    torch.cuda.synchronize()
+    for f in ss.SomaticSnvResult._fields:
+        assert same_bits(getattr(got, f), getattr(want, f)), f
+    return got
+
+
+def grid_pair(dev, rng, L):
+    from strelka_tpu_torch.models import somatic_snv as ss
+    return [ss.freq_grid_lhoods_plain(*(torch.from_numpy(a).to(dev)
+                                        for a in somatic_tile(rng, L, D, f)))
+            .cpu().numpy() for D, f in ((32, 0.05), (96, 0.3))]
+
+
+def test_ksp_bit_identical_to_plain(cuda):
+    n, t = grid_pair(cuda, np.random.default_rng(11), 20_000)
+    ksp_against_plain(cuda, n, t)
+
+
+@pytest.mark.parametrize("case", ["normal_all_ninf", "tumor_all_ninf",
+                                  "normal_prestrand_ninf", "ties"])
+def test_ksp_ninf_rows_and_ties_bit_identical_to_plain(cuda, case):
+    n, t = grid_pair(cuda, np.random.default_rng(12), 600)
+    rows = slice(0, 200)
+    if case == "normal_all_ninf":
+        n[rows] = -np.inf
+    elif case == "tumor_all_ninf":
+        t[rows] = -np.inf
+    elif case == "normal_prestrand_ninf":
+        n[rows, :21] = -np.inf
+    else:      # every state equal: ties in every max, argmax and argmin
+        n[rows] = -3.0
+        t[rows] = -3.0
+        t[200:400] = t[200:400, :1]
+    got = ksp_against_plain(cuda, n, t)
+    if case.endswith("ninf"):
+        assert (got.qphred[:200] == 0).all()
+
+
+@pytest.mark.parametrize("L", [0, 1, 13])
+def test_ksp_tiny_tiles(cuda, L):
+    n, t = grid_pair(cuda, np.random.default_rng(L + 2), L)
+    ksp_against_plain(cuda, n, t)
+
+
+def test_snv_kernels_on_second_card(cuda):
+    """All three kernels on cuda:1 with cuda:0 current equal their runs
+    on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    rng = np.random.default_rng(13)
+    h, ref, hap, smis = hist_tile(rng, 1000, 64)
+    tiles = [somatic_tile(rng, 1000, 48, f) for f in (0.05, 0.3)]
+    out = {}
+    for d in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        with torch.cuda.device(0):
+            t = [torch.from_numpy(a).to(d) for a in (h, ref, hap, smis)]
+            g = sd.call_snv_hist_tile(t[0], t[1], t[2], s_mis=t[3])
+            lh = [ss.freq_grid_lhoods(*(torch.from_numpy(a).to(d)
+                                        for a in x)) for x in tiles]
+            p = ss.somatic_snv_call(*lh)
+            out[d.index] = [getattr(g, f) for f in sd._PULL] + lh + list(p)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert all(same_bits(a, b) for a, b in zip(out[0], out[1]))
+
+
+def test_snv_paths_launch_the_kernels_not_the_plain_versions(cuda):
+    """The germline chunks and the somatic tier1 chunks on the card: one
+    kernel launch a tile, grid and posterior tally, no plain version."""
+    import types
+
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.models import somatic_snv as ss
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    from strelka_tpu_torch.pipeline import somatic_caller as sc
+    rng = np.random.default_rng(14)
+    L, D = 5000, 60
+    ref = rng.integers(0, 4, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.2, rng.integers(0, 4, (L, D)),
+                    ref[:, None]).astype(np.int8)
+    tile = sd.SnvPileupTile(
+        base_id=base, qual=rng.integers(0, 45, (L, D)).astype(np.uint8),
+        is_fwd=rng.random((L, D)) < 0.5, mask=rng.random((L, D)) < 0.8,
+        ref_gt=ref)
+    pus = [types.SimpleNamespace(
+        base_id=base.astype(np.int32), qual=tile.qual.astype(np.int32),
+        is_fwd=tile.is_fwd, valid=tile.mask, used=rng.random((L, D)) < 0.9,
+        tier2_used=tile.mask) for _ in range(2)]
+    snk.reset()
+    sd.LAUNCH_STATS.clear()
+    ss.LAUNCH_STATS.clear()
+    sd.call_snv_tile_chunked(tile, device=cuda)
+    sc._snv_tier1_fused(pus, ref, ss.somatic_snv_call_capped, cuda)
+    tallies = {k: sum(v for (kind, dev, rows, _), v in stats.items()
+                      if kind == k and dev == "cuda" and rows)
+               for k, stats in (("tile", sd.LAUNCH_STATS),
+                                ("grid", ss.LAUNCH_STATS),
+                                ("post", ss.LAUNCH_STATS))}
+    assert snk.LAUNCHES == {"snv_hist_tile": tallies["tile"],
+                            "somatic_grid": tallies["grid"],
+                            "somatic_posterior": tallies["post"]}
+    assert all(tallies.values())
+    assert not any(snk.PLAIN_ON_CUDA.values())

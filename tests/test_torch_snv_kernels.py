@@ -1,0 +1,333 @@
+"""The SNV models' kernels (ops/snv_kernels: KG-H, KS-G, KS-P) and their
+plain versions, on the CPU.
+
+- Rows whose lhoods are all -inf or NaN: the port's somatic_snv_call and
+  the germline tile tail give the JAX package's integer fields (XLA's
+  convert takes a NaN phred to 0; torch's cast gave INT_MIN), on
+  all -inf normal and tumour rows, -inf normal pre-strand states and
+  finite rows, and on ten -inf, ten NaN and finite lhoods, haploid and
+  diploid.
+- Dispatch: CPU tensors reach the plain versions and no kernel, and the
+  counters stay 0.
+- The wrappers reject a wrong dtype, shape, device or a non-contiguous
+  input before they load anything.
+- No fallback: where the library cannot be built or loaded, the wrapper
+  and the public functions on a non-CPU tensor raise (meta tensors stand
+  in for a card: the load comes before the launch).
+
+The kernels themselves run in tests/test_torch_cuda.py, on the card.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import strelka_tpu  # noqa: F401  (enables x64, as the JAX caller runs)
+from strelka_tpu.models import snv_digt as jsd
+from strelka_tpu.models import somatic_snv as jss
+from strelka_tpu_torch import _build, convert
+from strelka_tpu_torch.models import snv_digt as tsd
+from strelka_tpu_torch.models import somatic_snv as tss
+from strelka_tpu_torch.ops import snv_kernels as sk
+
+SOMATIC_INT = ("qphred", "from_ntype_qphred", "ntype", "max_gt",
+               "nonsomatic_qphred")
+# _tile_tail's outputs: (genome pprob, poly pprob, genome max_gt, poly
+# max_gt, snv_qphred, genome max_gt phred, poly max_gt phred, PLs, ln ref)
+TAIL_INT = {2: "genome_max_gt", 3: "poly_max_gt", 4: "snv_qphred",
+            5: "genome_max_gt_qphred", 6: "poly_max_gt_qphred",
+            7: "phred_loghood"}
+CPU = torch.device("cpu")
+
+
+def lhood_rows(rng, L):
+    """[L, 30] f32 grid lhoods of a plausible spread."""
+    return (-rng.gamma(2.0, 20.0, (L, 30))).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["normal_all_ninf", "tumor_all_ninf",
+                                  "normal_prestrand_ninf", "finite"])
+def test_somatic_call_on_ninf_rows_matches_jax(case):
+    rng = np.random.default_rng(len(case))
+    n, t = lhood_rows(rng, 12), lhood_rows(rng, 12)
+    rows = slice(0, 6)         # the case's rows; the rest stay finite
+    if case == "normal_all_ninf":
+        n[rows] = -np.inf
+    elif case == "tumor_all_ninf":
+        t[rows] = -np.inf
+    elif case == "normal_prestrand_ninf":
+        n[rows, :tss.PRESTRAND_SIZE] = -np.inf
+    want = jss.somatic_snv_call(jnp.asarray(n), jnp.asarray(t))
+    got = tss.somatic_snv_call(torch.from_numpy(n), torch.from_numpy(t))
+    for f in SOMATIC_INT:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    np.testing.assert_array_equal(got.strand_bias.numpy(),
+                                  np.asarray(want.strand_bias))
+    if case != "finite":
+        for f in ("qphred", "from_ntype_qphred", "nonsomatic_qphred"):
+            assert (getattr(got, f)[rows] == 0).all(), f
+
+
+@pytest.mark.parametrize("haploid", [False, True])
+@pytest.mark.parametrize("case", ["ninf", "nan", "finite"])
+def test_tile_tail_on_ninf_and_nan_rows_matches_jax(case, haploid):
+    rng = np.random.default_rng(3)
+    L = 10
+    lh = (-rng.gamma(2.0, 15.0, (L, 10))).astype(np.float32)
+    if case != "finite":
+        lh[:5] = -np.inf if case == "ninf" else np.nan
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    hap = (rng.random(L) < 0.5) if haploid else None
+    want = jsd._tile_tail(jnp.asarray(lh), jnp.asarray(ref),
+                          None if hap is None else jnp.asarray(hap),
+                          jsd.make_ln_priors(0.001))
+    got = tsd._tile_tail(torch.from_numpy(lh), torch.from_numpy(ref),
+                         None if hap is None else torch.from_numpy(hap),
+                         convert.device_tables(0.001, CPU))
+    for i, f in TAIL_INT.items():
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]),
+                                      err_msg=f)
+    if case != "finite":
+        for i in (4, 5, 6, 7):
+            assert (got[i][:5] == 0).all(), TAIL_INT[i]
+
+
+def hist_inputs(rng, L, dtype=np.int8):
+    hist = rng.integers(0, 6, (L, 512)).astype(dtype)
+    hist[:, rng.random(512) < 0.6] = 0
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    hap = rng.random(L) < 0.2
+    smis = np.where(rng.random((L, 4)) < 0.1,
+                    rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
+    return [torch.from_numpy(a) for a in (hist, ref, hap, smis)]
+
+
+def grid_inputs(rng, L, D):
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.8, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 4, (L, D))).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D)).astype(np.int16)
+    mask = rng.random((L, D)) < 0.85
+    fwd = rng.random((L, D)) < 0.5
+    return [torch.from_numpy(a) for a in (base, qual, mask, fwd, ref)]
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """Binding any kernel fails the test; the counters start at 0."""
+    def refuse(name):
+        raise AssertionError(f"kernel {name} bound on the CPU path")
+    monkeypatch.setattr(sk, "function", refuse)
+    sk.reset()
+    yield
+    assert not any(sk.LAUNCHES.values())
+    assert not any(sk.PLAIN_ON_CUDA.values())
+
+
+def test_cpu_tensors_reach_the_plain_versions(no_kernel):
+    rng = np.random.default_rng(5)
+    hist, ref, hap, smis = hist_inputs(rng, 40)
+    got = tsd.call_snv_hist_tile(hist, ref, hap, 0.001, s_mis=smis)
+    want = tsd.call_snv_hist_tile_plain(hist, ref, hap, 0.001, s_mis=smis)
+    for f in tsd._PULL:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    tiles = [grid_inputs(rng, 30, 24) for _ in range(2)]
+    g = [tss.freq_grid_lhoods(*x) for x in tiles]
+    for lh, x in zip(g, tiles):
+        assert torch.equal(lh, tss.freq_grid_lhoods_plain(*x))
+    got = tss.somatic_snv_call(*g)
+    want = tss.somatic_snv_call_plain(*g)
+    for f in tss.SomaticSnvResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def hist_call(hist, ref, hap, smis):
+    return sk.snv_hist_tile(hist, ref, hap, smis,
+                            convert.device_tables(0.001, CPU))
+
+
+def grid_call(base, qual, mask, fwd, ref):
+    from strelka_tpu_torch.convert import somatic_grid_tables
+    return sk.somatic_grid(base, qual, mask, fwd, ref,
+                           somatic_grid_tables(CPU), tss._LN_HALF_F32)
+
+
+def post_call(n, t):
+    pf, gp, eq, off, _ = tss._posterior_tables(CPU, 0.15, 5e-10, 1e-4,
+                                               0.001, 0.0)
+    return sk.somatic_posterior(n, t, pf, gp, eq, off)
+
+
+def _bad_inputs():
+    """(label, call) pairs that each wrapper must reject."""
+    rng = np.random.default_rng(7)
+    hist, ref, hap, smis = hist_inputs(rng, 16)
+    base, qual, mask, fwd, gref = grid_inputs(rng, 16, 24)
+    n = torch.from_numpy(lhood_rows(rng, 16))
+    t = torch.from_numpy(lhood_rows(rng, 16))
+    meta = torch.device("meta")
+    return [
+        ("hist_dtype", lambda: hist_call(hist.to(torch.int16), ref, hap,
+                                         smis)),
+        ("hist_shape", lambda: hist_call(hist[:, :256].contiguous(), ref,
+                                         hap, smis)),
+        ("hist_strided", lambda: hist_call(hist.t().contiguous().t(), ref,
+                                           hap, smis)),
+        ("ref_dtype", lambda: hist_call(hist, ref.long(), hap, smis)),
+        ("ref_rows", lambda: hist_call(hist, ref[:8], hap, smis)),
+        ("hap_dtype", lambda: hist_call(hist, ref, hap.to(torch.uint8),
+                                        smis)),
+        ("smis_device", lambda: hist_call(hist, ref, hap, smis.to(meta))),
+        ("smis_dtype", lambda: hist_call(hist, ref, hap, smis.double())),
+        ("grid_mask_dtype", lambda: grid_call(base, qual, mask.to(torch.int8),
+                                              fwd, gref)),
+        ("grid_qual_float", lambda: grid_call(base, qual.float(), mask, fwd,
+                                              gref)),
+        ("grid_base_int32", lambda: grid_call(base.int(), qual, mask, fwd,
+                                              gref)),
+        ("grid_qual_int32", lambda: grid_call(base, qual.int(), mask, fwd,
+                                              gref)),
+        ("grid_ref_int64", lambda: grid_call(base, qual, mask, fwd,
+                                             gref.long())),
+        ("grid_strided", lambda: grid_call(base[:, ::2], qual[:, ::2],
+                                           mask[:, ::2], fwd[:, ::2], gref)),
+        ("grid_shape", lambda: grid_call(base, qual[:, :12].contiguous(),
+                                         mask, fwd, gref)),
+        ("grid_rank", lambda: grid_call(base[0], qual[0], mask[0], fwd[0],
+                                        gref[:1])),
+        ("grid_device", lambda: grid_call(base, qual, mask.to(meta), fwd,
+                                          gref)),
+        ("post_dtype", lambda: post_call(n.double(), t)),
+        ("post_shape", lambda: post_call(n[:, :21].contiguous(),
+                                         t[:, :21].contiguous())),
+        ("post_rows", lambda: post_call(n, t[:8])),
+        ("post_strided", lambda: post_call(n, t.t().contiguous().t())),
+        ("post_device", lambda: post_call(n, t.to(meta))),
+    ]
+
+
+@pytest.mark.parametrize("case", [c for c, _ in _bad_inputs()])
+def test_wrappers_reject_what_the_kernels_do_not_take(case, no_kernel):
+    call = dict(_bad_inputs())[case]
+    with pytest.raises(ValueError):
+        call()
+
+
+@pytest.mark.parametrize("which", ["hist", "grid", "post"])
+def test_wrappers_refuse_cpu_tensors(which, monkeypatch):
+    """A wrapper given CPU tensors (which the public functions never
+    hand it) binds its kernel and then refuses the device."""
+    monkeypatch.setattr(sk, "function", lambda name: None)
+    rng = np.random.default_rng(8)
+    call = {"hist": lambda: hist_call(*hist_inputs(rng, 4)),
+            "grid": lambda: grid_call(*grid_inputs(rng, 4, 8)),
+            "post": lambda: post_call(
+                torch.from_numpy(lhood_rows(rng, 4)),
+                torch.from_numpy(lhood_rows(rng, 4)))}[which]
+    sk.reset()
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+    assert not any(sk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32,
+                                   torch.int64])
+def test_grid_lanes_reach_the_kernel_in_the_pileups_widths(dtype,
+                                                          monkeypatch):
+    """freq_grid_lhoods takes integer lanes of any width, as the plain
+    version does; on a card KS-G gets the native pileup's widths (int8
+    base, int16 qual, int32 ref_gt; meta tensors stand in for the
+    card)."""
+    seen = {}
+
+    def kernel(base, qual, mask, fwd, ref, tabs, ln_half):
+        seen.update(base=base.dtype, qual=qual.dtype, ref=ref.dtype)
+        return torch.empty((base.shape[0], 30), device=base.device)
+    monkeypatch.setattr(sk, "somatic_grid", kernel)
+    meta = torch.device("meta")
+    base, qual, mask, fwd, ref = grid_inputs(np.random.default_rng(12), 8, 16)
+    out = tss.freq_grid_lhoods(base.to(dtype).to(meta),
+                               qual.to(dtype).to(meta), mask.to(meta),
+                               fwd.to(meta), ref.to(dtype).to(meta))
+    assert out.shape == (8, 30)
+    assert seen == dict(base=torch.int8, qual=torch.int16, ref=torch.int32)
+
+
+@pytest.fixture
+def broken_loader(monkeypatch):
+    def fail(name):
+        raise RuntimeError(f"cannot build lib{name}.so")
+    monkeypatch.setattr(_build, "load", fail)
+    monkeypatch.setattr(sk, "_BOUND", {})
+    sk.reset()
+
+
+@pytest.mark.parametrize("name", sorted(sk.REPLACES))
+def test_load_step_raises_without_the_library(name, broken_loader):
+    with pytest.raises(RuntimeError, match=f"lib{name}.so"):
+        sk.function(name)
+
+
+@pytest.mark.parametrize("which", ["hist", "grid", "post"])
+def test_no_fallback_to_the_plain_version(which, broken_loader):
+    """The public functions on a non-CPU tensor go to the kernel alone:
+    where it cannot be loaded they raise, and never return the plain
+    version's result."""
+    meta = torch.device("meta")
+    rng = np.random.default_rng(9)
+    if which == "hist":
+        hist, ref, hap, smis = (x.to(meta) for x in hist_inputs(rng, 8))
+        args, fn = (hist, ref, hap, 0.001, smis), tsd.call_snv_hist_tile
+    elif which == "grid":
+        args = [a.to(meta) for a in grid_inputs(rng, 8, 16)]
+        fn = tss.freq_grid_lhoods
+    else:
+        args = [torch.from_numpy(lhood_rows(rng, 8)).to(meta)
+                for _ in range(2)]
+        fn = tss.somatic_snv_call
+    with pytest.raises(RuntimeError, match="cannot build"):
+        fn(*args)
+    assert not any(sk.LAUNCHES.values())
+    assert not any(sk.PLAIN_ON_CUDA.values())
+
+
+def test_empty_tiles_launch_nothing(monkeypatch):
+    """L = 0 on the kernel route: empty outputs of the right shapes and
+    no launch (the wrappers check and bind nothing further)."""
+    monkeypatch.setattr(sk, "function", lambda name: None)
+    sk.reset()
+    rng = np.random.default_rng(10)
+    out = hist_call(*hist_inputs(rng, 0))
+    assert [tuple(t.shape) for t in out] == [(0, 10)] + [(0,)] * 5 + \
+        [(0, 10), (0,)]
+    assert grid_call(*grid_inputs(rng, 0, 8)).shape == (0, 30)
+    e = torch.zeros((0, 30))
+    assert all(t.shape == (0,) for t in post_call(e, e))
+    assert not any(sk.LAUNCHES.values())
+
+
+def test_kernel_row_bytes_on_a_card_are_inputs_and_outputs():
+    """The card's chunks are sized by the kernels' bytes a row; the CPU
+    keeps the plain versions' working set."""
+    assert tss.call_row_bytes("cpu") == tss.CALL_ROW_BYTES
+    assert tss.call_row_bytes("cuda") == 2 * 30 * 4 + 6 * 4
+    assert tss.tile_row_bytes("cpu", 64) == (
+        tss.CALL_ROW_BYTES + tss.GRID_ROW_BYTES + tss.GRID_LANE_BYTES * 64)
+    assert tss.tile_row_bytes("cuda", 64) == (
+        tss.KERNEL_CALL_ROW_BYTES + tss.KERNEL_GRID_ROW_BYTES
+        + tss.KERNEL_GRID_LANE_BYTES * 64)
+
+
+def test_plain_versions_take_zero_rows():
+    """The plain versions on an empty tile give empty fields (the posterior
+    names its 441 terms: a -1 reshape of zero rows is refused)."""
+    rng = np.random.default_rng(11)
+    e = torch.zeros((0, 30))
+    r = tss.somatic_snv_call_plain(e, e)
+    assert all(getattr(r, f).shape == (0,) for f in r._fields)
+    assert tss.freq_grid_lhoods_plain(*grid_inputs(rng, 0, 8)).shape == (0, 30)
+    hist, ref, hap, smis = hist_inputs(rng, 0)
+    g = tsd.call_snv_hist_tile_plain(hist, ref, hap, s_mis=smis)
+    assert g.lhood.shape == (0, 10) and g.phred_loghood.shape == (0, 10)
