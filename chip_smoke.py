@@ -71,7 +71,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    freq_grid_lhoods casts), a ragged and a one-row tile, KS-P on
    all -inf normal or tumour rows, -inf normal pre-strand states, tied
    states and a one-row tile (both are timed at the main path's shape
-   in phase 6b); and the peak bytes per row of the plain versions and
+   in phase 6b); KS-G on tiles at the qualities runs give (every call at
+   32, binned Illumina qualities, all 128 slots live) at D = 64 and 200
+   and KS-P on their lhoods with NaN and +inf rows, 20,000 rows each;
+   and the peak bytes per row of the plain versions and
    of the kernels against the sizes from which the port chooses its
    chunk heights;
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
@@ -95,6 +98,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    posterior call, kept as the CLI made them, replayed through each
    kernel and held bit for bit against its plain version (over the
    plain chunk heights of rows_per_launch), timed and traced as KG-H;
+   with the live qscore slots a row (mean, max), KS-G's library route
+   (ksg_library_route) as library_ms, each kernel's registers and spills
+   (nvcc -Xptxas -v), KS-P's terms (rows without NaN or +inf lhoods, the
+   share of terms whose exp is +0 on the card, the sweep's threshold) and
+   its float64 floor from the SASS (ksp_fp64_floor);
 7. somatic cuda-vs-cpu: the same with --device cpu; no record may
    differ in CHROM, POS, REF, ALT, FILTER, QSS/QSI or NT;
 8. germline fan-out: phase 4's contig with --jobs 4 (one 1 Mb segment a
@@ -1316,8 +1324,9 @@ def phase_kgh(np, torch, dev, cuda: bool, L: int):
 
 
 def grid_counts(torch, base, qual, mask, fwd, ref):
-    """(live bins, live h_ref slots, live h_alt slots) of a somatic tile's
-    (qscore, class) histograms, counted on the tile's device."""
+    """(live bins, live h_ref slots, live h_alt slots, live qscore slots
+    a row: mean and max) of a somatic tile's (qscore, class) histograms,
+    counted on the tile's device."""
     L = base.shape[0]
     q = qual.long().clamp(0, 127)
     cls = ((base.long() != ref.long()[:, None]).long() << 1) | fwd.long()
@@ -1325,8 +1334,71 @@ def grid_counts(torch, base, qual, mask, fwd, ref):
     h = torch.zeros((L, 513), dtype=torch.int32, device=base.device)
     h.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
     h = h[:, :512].reshape(L, 128, 4)
+    slots = (h.sum(dim=2) > 0).sum(dim=1).double()
     return (int((h > 0).sum()), int(((h[..., 0] + h[..., 1]) > 0).sum()),
-            int(((h[..., 2] + h[..., 3]) > 0).sum()))
+            int(((h[..., 2] + h[..., 3]) > 0).sum()),
+            {"mean": float(slots.mean()), "max": int(slots.max())})
+
+
+SPARSE_KINDS = ("single", "binned", "dense")
+
+
+def sparse_somatic_tile(np, rng, L, D, kind):
+    """A somatic pileup tile (int8 base, int16 qual) at the base qualities
+    that runs give, with q = 0 calls (2%), masked lanes and all-masked
+    rows (3-5): "single", every call at 32 (synth.py's reads: 1-2 live
+    qscore slots a row); "binned", the binned Illumina qualities 2, 12,
+    23, 37; "dense", qualities 0-127 and a few past 127, all 128 slots
+    live in each row where D >= 128 (tests/test_torch_cuda.sparse_tile)."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.8, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 4, (L, D))).astype(np.int8)
+    if kind == "single":
+        qual = np.full((L, D), 32)
+    elif kind == "binned":
+        qual = rng.choice((2, 12, 23, 37), (L, D))
+    else:
+        qual = rng.integers(0, 128, (L, D))
+        qual[rng.random((L, D)) < 0.01] = 200
+    qual = np.where(rng.random((L, D)) < 0.02, 0, qual)
+    mask = rng.random((L, D)) < 0.9
+    if kind == "dense" and D >= 128:
+        qual[:, :128] = rng.permuted(np.tile(np.arange(128), (L, 1)), axis=1)
+        mask[:, :128] = True
+    mask[3:6] = False
+    return (base, qual.astype(np.int16), mask, rng.random((L, D)) < 0.5,
+            ref)
+
+
+def phase_sparse_tiles(np, torch, dev, L: int):
+    """Phase 3b's tiles at the qualities runs give: KS-G on the single,
+    binned and dense tiles at D = 64 and 200 (1-2, 5 and 128 live slots
+    a row), KS-P on their lhoods with NaN and +inf rows, each bit for bit
+    against its plain version on the card."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    rng = np.random.default_rng(15)
+    lh = {}
+    for kind in SPARSE_KINDS:
+        for D in (64, 200):
+            t = [torch.from_numpy(a).to(dev)
+                 for a in sparse_somatic_tile(np, rng, L, D, kind)]
+            got = ss.freq_grid_lhoods(*t)
+            hold(torch, f"ks-g {kind} D={D}", {"lhood": got},
+                 {"lhood": ss.freq_grid_lhoods_plain(*t)})
+            lh[kind, D] = got
+            del t
+    fields = ss.SomaticSnvResult._fields
+    for a, b in ((("single", 64), ("binned", 64)),
+                 (("binned", 64), ("dense", 200)),
+                 (("single", 200), ("dense", 64))):
+        n, t = lh[a].clone(), lh[b].clone()
+        n[10:12, 4] = float("nan")
+        t[12:14, 7] = float("inf")
+        got, want = ss.somatic_snv_call(n, t), ss.somatic_snv_call_plain(n, t)
+        hold(torch, f"ks-p {a} x {b}", {f: getattr(got, f) for f in fields},
+             {f: getattr(want, f) for f in fields})
+    log(f"ks-g, ks-p sparse and dense tiles: 6 + 3 tiles of {L} rows bit "
+        f"for bit")
 
 
 def phase_somatic_kernels(np, torch, dev, tiles):
@@ -1416,7 +1488,7 @@ def phase_somatic_main_shape(np, torch, dev, cuda: bool, kept):
             return plain_chunks(torch, ss.freq_grid_lhoods_plain, rows, *a)
         err = hold(torch, f"ks-g main path call {i}",
                    {"lhood": ss.freq_grid_lhoods(*a)}, {"lhood": plain()})
-        bins, refs, alts = grid_counts(torch, *a)
+        bins, refs, alts, slots = grid_counts(torch, *a)
         nbytes = (L * D * (base.element_size() + qual.element_size() + 2)
                   + L * (ref.element_size() + 30 * 4) + 128 * 78 * 4)
         row = kernel_row(
@@ -1425,7 +1497,12 @@ def phase_somatic_main_shape(np, torch, dev, cuda: bool, kept):
             iters, [L, D])
         row.update(max_abs_err=err, dtypes=[str(base.dtype),
                                             str(qual.dtype)],
-                   plain_rows_per_chunk=rows, live_bins=bins)
+                   plain_rows_per_chunk=rows, live_bins=bins,
+                   live_slots_a_row=slots)
+        lib = ksg_library_route(torch, *a)
+        row["library_ms"] = time_ms(torch, cuda, lib, iters)
+        row["library_max_abs_diff"] = float(
+            (lib() - ss.freq_grid_lhoods(*a)).abs().nan_to_num(0.0).max())
         log(f"ks-g main path call {i}: " + json.dumps(row))
         g_rows.append(row)
     (a, kw), = kept["somatic_posterior"]
@@ -1443,13 +1520,215 @@ def phase_somatic_main_shape(np, torch, dev, cuda: bool, kept):
     p_row = kernel_row(
         torch, cuda, lambda: ss.somatic_snv_call(*a, **kw), plain, nbytes,
         KSP_F32_PER_ROW * L, KSP_F64_PER_ROW * L, iters, [L, 30])
-    p_row.update(max_abs_err=err, plain_rows_per_chunk=rows)
+    p_row.update(max_abs_err=err, plain_rows_per_chunk=rows,
+                 **ksp_term_shares(torch, *a, **kw))
+    g_row = max(g_rows, key=lambda r: r["shape"][1])
+    if cuda:
+        report = ptxas_report()
+        g_row["registers"] = report["somatic_grid"]
+        p_row["registers"] = report["somatic_posterior"]
+        p_row.update(ksp_fp64_floor(torch, report["fp64_per_call"], L,
+                                    p_row["clean_row_share"]))
     log("ks-p main path: " + json.dumps(p_row))
     if cuda:
         torch.cuda.empty_cache()
-    g_row = max(g_rows, key=lambda r: r["shape"][1])
     g_row["max_abs_err"] = max(r["max_abs_err"] for r in g_rows)
     return g_row, p_row
+
+
+def ksg_library_route(torch, base, qual, mask, fwd, ref):
+    """KS-G's function by library calls, its yardstick (not bit for bit:
+    cuBLAS sums in its own order): an f32 scatter_add_ histogram, one f32
+    torch.matmul of the six class histograms against the tables stacked
+    [768, 39] (TF32 off), the q = 0 -inf entries, then the strand states'
+    f32 logaddexp and ln 0.5. The stacked tables are built before the
+    timer."""
+    from strelka_tpu_torch.convert import somatic_grid_tables
+    from strelka_tpu_torch.models import somatic_snv as ss
+    dev = base.device
+    g = somatic_grid_tables(dev)
+    z21 = torch.zeros((128, 21), dtype=torch.float32, device=dev)
+    z9 = torch.zeros((128, 9), dtype=torch.float32, device=dev)
+    w = torch.cat([
+        torch.cat([g["grid_ref"], z9, z9], 1),                       # ref
+        torch.cat([g["grid_alt"], z9, z9], 1),                       # alt
+        torch.cat([z21, g["grid_on_ref"], g["grid_off_ref"]], 1),    # rf
+        torch.cat([z21, g["grid_on_alt"], g["grid_off_alt"]], 1),    # af
+        torch.cat([z21, g["grid_off_ref"], g["grid_on_ref"]], 1),    # rr
+        torch.cat([z21, g["grid_off_alt"], g["grid_on_alt"]], 1)])   # ar
+    L = base.shape[0]
+    ninf = float("-inf")
+
+    def call():
+        q = qual.long().clamp(0, 127)
+        cls = ((base.long() != ref.long()[:, None]).long() << 1) | fwd.long()
+        idx = torch.where(mask, q * 4 + cls, 512)
+        h = torch.zeros((L, 513), dtype=torch.float32, device=dev)
+        h.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+        h = h[:, :512].view(L, 128, 4)
+        x = torch.cat([h[..., 0] + h[..., 1], h[..., 2] + h[..., 3],
+                       h[..., 1], h[..., 3], h[..., 0], h[..., 2]], 1)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            y = torch.matmul(x, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        h0 = h[:, 0]
+        lh = y[:, :21].clone()
+        lh[:, 0].masked_fill_((h0[:, 0] + h0[:, 1]) > 0, ninf)
+        lh[:, 1].masked_fill_((h0[:, 2] + h0[:, 3]) > 0, ninf)
+        lf = y[:, 21:30].masked_fill((h0[:, 0] > 0)[:, None], ninf)
+        lr = y[:, 30:].masked_fill((h0[:, 1] > 0)[:, None], ninf)
+        return torch.cat([lh, torch.logaddexp(lf, lr) + ss._LN_HALF_F32], 1)
+    return call
+
+
+def ksp_term_shares(torch, normal, tumor, **kw):
+    """KS-P's terms on these rows: the share of rows whose 42 lhoods are
+    all below +inf (KS-P takes only the terms whose prior is not -inf
+    there), the terms a list holds, and, over the first 16,384 rows, the
+    share of the 7 x 441 terms whose float64 exp(v - max) is exactly +0
+    on the card, of all and of the listed ones; exp_zero_below is the
+    largest x at which the card's exp(double) gives +0, by a sweep of
+    -760..-700 at steps of 1e-4."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    args = tuple(kw.get(k, d) for k, d in (
+        ("contam_tolerance", 0.15), ("shared_error_rate", 5e-10),
+        ("somatic_rate", 1e-4), ("theta", 0.001),
+        ("sse_strand_fraction", 0.0)))
+    pf, _gp, _eq, off, eye = ss._posterior_tables(normal.device, *args)
+    F = ss.PRESTRAND_SIZE
+    nl, tl = normal[:, :F], tumor[:, :F]
+    clean = (nl < float("inf")).all(1) & (tl < float("inf")).all(1)
+    pf = pf.reshape(6, F * F)
+    listed = torch.cat([pf != float("-inf"),
+                        (~eye & (off != float("-inf"))).reshape(1, -1)])
+    r = min(16_384, nl.shape[0])
+    fn = torch.arange(F * F, device=nl.device) // F
+    ft = torch.arange(F * F, device=nl.device) % F
+    v = torch.cat([((pf[None] + nl[:r, None, fn]) + tl[:r, None, ft])
+                   .double(),
+                   torch.where(eye.reshape(1, 1, -1), float("-inf"),
+                               (nl[:r, None, fn] + tl[:r, None, ft]).double()
+                               + off.reshape(1, 1, -1))], 1)
+    mx = v.amax(dim=2, keepdim=True)
+    zero = torch.exp(v - torch.where(torch.isfinite(mx), mx, 0.0)) == 0
+    x = torch.arange(-760.0, -700.0, 1e-4, dtype=torch.float64,
+                     device=nl.device)
+    return {"clean_row_share": float(clean.double().mean()),
+            "listed_terms": [int(n) for n in listed.sum(1)],
+            "exp_zero_share": float(zero.double().mean()),
+            "exp_zero_share_listed": float(
+                zero[:, listed].double().mean()),
+            "exp_zero_below": float(x[torch.exp(x) == 0].max())}
+
+
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+# one call of each float64 function KS-P takes, for the SASS count
+FP64_PROBE = """
+extern "C" __global__ void p_exp(const double* x, double* y)
+{ y[threadIdx.x] = exp(x[threadIdx.x]); }
+extern "C" __global__ void p_log(const double* x, double* y)
+{ y[threadIdx.x] = log(x[threadIdx.x]); }
+extern "C" __global__ void p_log1p(const double* x, double* y)
+{ y[threadIdx.x] = log1p(x[threadIdx.x]); }
+extern "C" __global__ void p_div(const double* x, double* y)
+{ y[threadIdx.x] = x[threadIdx.x] / x[threadIdx.x + 32]; }
+"""
+
+
+def ptxas_report() -> dict:
+    """KS-G's and KS-P's registers and spills (nvcc -Xptxas -v on their
+    sources, the build's flags) and the FP64 SASS instructions (D* ops,
+    by cuobjdump) of one call of exp, log, log1p and a division, from a
+    probe built the same way: three nvcc at once."""
+    import re
+    from strelka_tpu_torch import _build
+    out = os.path.join(HERE, "build", "smoke", "ptxas")
+    os.makedirs(out, exist_ok=True)
+    probe = os.path.join(out, "fp64_probe.cu")
+    with open(probe, "w") as f:
+        f.write(FP64_PROBE)
+    srcs = {"somatic_grid": os.path.join(_build.CSRC, "somatic_grid.cu"),
+            "somatic_posterior": os.path.join(_build.CSRC,
+                                              "somatic_posterior.cu"),
+            "fp64_probe": probe}
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",
+                                                       "-Xcompiler",
+                                                       "-fPIC")]
+    procs = {k: subprocess.Popen(
+        [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         os.path.join(out, f"{k}.cubin"), src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for k, src in srcs.items()}
+    report = {}
+    for k, p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"nvcc -Xptxas -v {k}: {text}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        report[k] = {"registers": max(regs), "spill_store_bytes": max(
+            spills, default=0)}
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass",
+                        os.path.join(out, "fp64_probe.cubin")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"cuobjdump: {r.stderr}")
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : p_(\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if fn and m and m.group(1) in FP64_OPS:
+            counts[fn] += 1
+    report["fp64_per_call"] = counts
+    log("ptxas and SASS: " + json.dumps(report))
+    return report
+
+
+# float64 adds a row-warp of KS-P besides its calls of exp, log, log1p and
+# the division: each list's tree (6 + 4 + 2 + 1 in the lanes, 5 shuffle
+# steps), the diagonal's 5 steps, the 8 shift adds, and the tail's 16
+# (the six-term sum, nonsom, total, the errors, the logaddexp, a phred's
+# multiply and add)
+KSP_ADDS_PER_ROW = 7 * 18 + 5 + 8 + 16
+
+
+def ksp_fp64_floor(torch, per_call, rows, clean_share) -> dict:
+    """KS-P's float64 floor on this card: FP64 warp instructions a row
+    (each D* SASS instruction of a call of exp, log, log1p and the
+    division, times its warp rounds a row: a list's exps in rounds of 32
+    on a row without NaN or +inf, 14 rounds a list elsewhere; the
+    diagonal's and the tail's 3 exps; 2 logs, a log1p, a division; one
+    subtraction an exp round; KSP_ADDS_PER_ROW adds), each issuing on 32
+    of an SM's 64 FP64 lanes, over the SMs at the card's largest SM
+    clock. The D* ops outside these calls are left out, so it is a floor."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    pf, _gp, _eq, off, eye = ss._posterior_tables(torch.device("cpu"), 0.15,
+                                                  5e-10, 1e-4, 0.001, 0.0)
+    listed = [int((pf.reshape(6, -1)[g] != float("-inf")).sum())
+              for g in range(6)]
+    listed.append(int((~eye & (off != float("-inf"))).sum()))
+    clean_rounds = sum(-(-n // 32) for n in listed)
+    exp_rounds = (clean_share * clean_rounds + (1 - clean_share) * 7 * 14
+                  + 3)
+    per_row = (exp_rounds * (per_call["exp"] + 1) + 2 * per_call["log"]
+               + per_call["log1p"] + per_call["div"] + KSP_ADDS_PER_ROW)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    floor_ms = rows * per_row * 32 / (sms * 64 * mhz * 1e6) * 1e3
+    return {"sass_fp64_per_row_warp": per_row, "sms": sms,
+            "clock_max_sm_mhz": mhz, "sass_fp64_floor_ms": floor_ms}
 
 
 def phase_somatic_snv(np, torch, dev, L: int):
@@ -1502,6 +1781,7 @@ def phase_somatic_snv(np, torch, dev, L: int):
         "strand_bias_max_abs_diff": float(
             (post_d["strand_bias"] - post_c["strand_bias"]).abs().max())}))
     phase_somatic_kernels(np, torch, dev, tiles)
+    phase_sparse_tiles(np, torch, dev, min(L, 20_000))
     if dev.type == "cuda":
         somatic_row_bytes(torch, dev, ss, tiles)
 
@@ -3386,6 +3666,10 @@ def main(argv=None) -> int:
             "device_bound_share": krow.get("device_bound_share"),
             "trace": krow.get("trace"),
             "plain_trace": krow.get("plain_trace"),
+            **{k: krow[k] for k in (
+                "registers", "live_slots_a_row", "library_max_abs_diff",
+                "sass_fp64_floor_ms", "clean_row_share", "exp_zero_share",
+                "exp_zero_share_listed") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

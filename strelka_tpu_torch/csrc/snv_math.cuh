@@ -1,7 +1,7 @@
-// Device helpers of the SNV model kernels (snv_hist_tile.cu,
-// somatic_grid.cu, somatic_posterior.cu): the elementwise semantics of the
-// torch ops that their plain versions run, so that a kernel gives the plain
-// version's bits on the card.
+// Helpers of the SNV model kernels (snv_hist_tile.cu, somatic_grid.cu,
+// somatic_posterior.cu): the elementwise semantics of the torch ops that
+// their plain versions run, so that a kernel gives the plain version's
+// bits on the card, and the size of a grid of resident blocks.
 //
 // - Every product that meets a sum is written __fmul_rn/__dmul_rn (and
 //   every intended fused multiply-add __fmaf_rn): nvcc contracts a*b + c
@@ -18,10 +18,36 @@
 //   before their casts).
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cmath>
 #include <cstdint>
 
 namespace snv {
+
+// Blocks of `threads` for a grid over `want` blocks' work: as many as the
+// card holds at once where that is fewer (kernel's blocks walk the rest).
+// Kept per device after its first query, so that no query falls inside a
+// graph capture.
+template <typename Kernel>
+long long resident_blocks(Kernel kernel, int threads, long long want) {
+    static long long cap[64];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+        return want;
+    if (cap[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+                != cudaSuccess
+            || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                             threads, 0)
+                != cudaSuccess
+            || per_sm < 1)
+            return want;
+        cap[dev] = static_cast<long long>(sms) * per_sm;
+    }
+    return want < cap[dev] ? want : cap[dev];
+}
 
 constexpr double kF64Tiny = 2.2250738585072014e-308;   // finfo(f64).tiny
 

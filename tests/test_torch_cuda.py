@@ -431,6 +431,38 @@ def somatic_tile(rng, L, D, alt_frac):
     return base, qual, mask, rng.random((L, D)) < 0.5, ref
 
 
+SPARSE_KINDS = ("single", "binned", "dense")
+BINNED_QUALS = (2, 12, 23, 37)
+
+
+def sparse_tile(rng, L, D, kind):
+    """A somatic pileup tile (int8 base, int16 qual, the native pileup's
+    lanes) at the base qualities that runs give, with q = 0 calls (2%),
+    masked lanes and all-masked rows (3-5): "single", every call at 32
+    (synth.py's reads, so 1-2 live qscore slots a row); "binned", the
+    binned Illumina qualities 2, 12, 23, 37; "dense", qualities 0-127
+    and a few past 127 (clamped), every one of the 128 slots live in
+    each row where D >= 128."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.8, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 4, (L, D))).astype(np.int8)
+    if kind == "single":
+        qual = np.full((L, D), 32)
+    elif kind == "binned":
+        qual = rng.choice(BINNED_QUALS, (L, D))
+    else:
+        qual = rng.integers(0, 128, (L, D))
+        qual[rng.random((L, D)) < 0.01] = 200
+    qual = np.where(rng.random((L, D)) < 0.02, 0, qual)
+    mask = rng.random((L, D)) < 0.9
+    if kind == "dense" and D >= 128:
+        qual[:, :128] = rng.permuted(np.tile(np.arange(128), (L, 1)), axis=1)
+        mask[:, :128] = True
+    mask[3:6] = False
+    return (base, qual.astype(np.int16), mask, rng.random((L, D)) < 0.5,
+            ref)
+
+
 def test_somatic_snv_on_card_matches_cpu_path(cuda):
     from strelka_tpu_torch.models import somatic_snv as ss
     rng = np.random.default_rng(3)
@@ -1374,6 +1406,16 @@ def test_ksg_tiny_tiles(cuda, L):
                                          L, 40, 0.3))
 
 
+@pytest.mark.parametrize("D", [32, 64, 96, 127, 200])
+@pytest.mark.parametrize("kind", SPARSE_KINDS)
+def test_ksg_sparse_and_dense_tiles_bit_identical_to_plain(cuda, kind, D):
+    """The CLI's one base quality (every call in one or two histogram
+    bins), binned qualities and all 128 slots live: KS-G walks a row's
+    live slots only."""
+    ksg_against_plain(cuda, sparse_tile(np.random.default_rng(D), 2001, D,
+                                        kind))
+
+
 def ksp_against_plain(dev, n, t):
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import snv_kernels as snk
@@ -1419,6 +1461,22 @@ def test_ksp_ninf_rows_and_ties_bit_identical_to_plain(cuda, case):
     got = ksp_against_plain(cuda, n, t)
     if case.endswith("ninf"):
         assert (got.qphred[:200] == 0).all()
+
+
+@pytest.mark.parametrize("kinds", [("single", "binned"),
+                                   ("binned", "dense"), ("single", "dense")])
+def test_ksp_on_sparse_and_dense_lhoods_bit_identical_to_plain(cuda, kinds):
+    """The posterior of the sparse and dense tiles' lhoods (normal,
+    tumour), with rows of NaN and +inf lhoods, which take every term."""
+    from strelka_tpu_torch.models import somatic_snv as ss
+    rng = np.random.default_rng(len(kinds[0]) + 7 * len(kinds[1]))
+    n, t = (ss.freq_grid_lhoods_plain(*(torch.from_numpy(a).to(cuda)
+                                        for a in sparse_tile(rng, 3000, D,
+                                                             k)))
+            .cpu().numpy() for k, D in zip(kinds, (64, 128)))
+    n[10:12, 4] = np.nan
+    t[12:14, 7] = np.inf
+    ksp_against_plain(cuda, n, t)
 
 
 @pytest.mark.parametrize("L", [0, 1, 13])
