@@ -55,12 +55,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    het-VF extension with per-call dependent-eprob deltas, at a tile's
    own D and in chunks padded to 32) with lhood, strand bias and the
    integer fields bit-equal; then KG-H (csrc/snv_hist_tile.cu, the
-   germline histogram tile) against its plain version on the card, every
-   field bit for bit (a NaN as a NaN), at D = 32, 96 and 127, int32
-   counts, rows that s_mis makes -inf or NaN, rows without calls (ties),
-   a ragged and a one-row tile, timed at the main path's chunk by CUDA
-   events and by graph replay beside the plain version, with a
-   torch.profiler trace of one call of each (kernels and device us);
+   germline genotype tile) in both its entries, the dense one
+   (call_snv_hist_tile) on each tile's histogram and the lanes one
+   (call_snv_lanes_tile) on its int16 or uint8 lanes, against their plain
+   versions on the card, every field bit for bit (a NaN as a NaN), at D
+   = 32, 96 and 127, int32 counts, rows that s_mis makes -inf or NaN,
+   rows without calls (ties), a ragged and a one-row tile, rows with 1,
+   4 and all 512 live slots, and lanes at D = 160 and 300; the dense
+   entry timed at the main path's chunk height by CUDA events and by
+   graph replay beside the plain version, the library route
+   (kgh_library_route: one f32 matmul of the histogram and s_mis against
+   the tables, within the f32 summation bound) and, with --parent-csrc,
+   the parent's KG-H (bit for bit, in turns), with a torch.profiler
+   trace of one call of each (kernels and device us);
 3b. somatic: the somatic SNV model on the card against the port's CPU
    path on a 200,000-row random tile (grid states bit-equal, integer
    fields equal); KS-G (csrc/somatic_grid.cu) and KS-P
@@ -81,8 +88,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
    set to 0 just before and read just after (the K1-x kernels' and
    K1-s's must read 0, KG-H must read the SNV tile tally and no plain
-   SNV model version may run on the card), K1's launches by shape and
-   its stream ms;
+   SNV model version may run on the card, every genotype tile through
+   KG-H's lanes entry and no (qscore, base) histogram counted on the
+   host), K1's launches by shape and its stream ms, the SNV tiles'
+   stream and host ms;
+4b. KG-H's lanes entry on phase 4's first genotype chunk as the CLI
+   made it (int8 base, int16 qual, bool mask), held bit for bit against
+   its plain version and the dense entry on the chunk's histogram, timed
+   and traced as in phase 3, with the library route, the live slots a
+   row, the kernels' registers and, with --parent-csrc, the parent's
+   KG-H on the chunk's int8 histogram (the parent CLI's) in turns;
 5. cuda-vs-cpu: the same CLI with --device cpu on the same data; no
    record may differ in CHROM, POS, REF, ALT, FILTER or GT;
 6. somatic e2e: the somatic CLI with --device cuda (WGS mode) on a
@@ -1032,7 +1047,7 @@ def phase_k1h(np, torch, dev, cuda: bool, shapes, iters: int):
     return rows, max_err
 
 
-def phase_snv(np, torch, dev, cuda: bool, L: int):
+def phase_snv(np, torch, dev, cuda: bool, L: int, parent=None):
     """Tile functions on `dev` against the port's CPU path."""
     from strelka_tpu_torch.models import snv_digt as sd
     rng = np.random.default_rng(7)
@@ -1079,7 +1094,7 @@ def phase_snv(np, torch, dev, cuda: bool, L: int):
         }
         log(f"snv D={D}: " + json.dumps(diffs))
     phase_snv_rna(np, dev, L // 8)
-    return phase_kgh(np, torch, dev, cuda, L)
+    return phase_kgh(np, torch, dev, cuda, L, parent)
 
 
 def phase_snv_rna(np, dev, n: int):
@@ -1257,70 +1272,322 @@ KSP_F64_PER_ROW = 2 * (7 * 441 + 21) + 40
 KSP_F32_PER_ROW = 6 * 441 * 2 + 441 + 42
 
 
-def hist_case(np, rng, L, D, hist_dtype):
-    """A germline (qscore, base) histogram of a random depth-D tile with
-    q = 0 calls and rows without calls, haploid rows and dependent-eprob
-    deltas: (hist, ref_gt, is_haploid, s_mis)."""
-    from strelka_tpu_torch.models import snv_digt as sd
+# the outputs of ops/snv_kernels.snv_hist_tile, in its order
+KGH_FIELDS = ("lhood", "genome_max_gt", "poly_max_gt", "snv_qphred",
+              "genome_max_gt_qphred", "poly_max_gt_qphred", "phred_loghood",
+              "ln_ref_pprob")
+
+
+def kgh_lanes(np, rng, L, D, kind="random", qual_dtype="int16"):
+    """A germline tile's lanes and row inputs: (base, qual, mask, ref_gt,
+    is_haploid, s_mis). kind "random": 45 qualities with q = 0 calls,
+    bases -1..4, 20% masked lanes and all-masked rows; 1 or 4: every
+    row's calls in 1 or 4 (qscore, base) slots (one or two qualities,
+    ref and alt: the CLI's reads have one base quality); 512: every slot
+    once a row (D = 512)."""
     ref = rng.integers(0, 5, L).astype(np.int32)
-    base = np.where(rng.random((L, D)) < 0.3, rng.integers(0, 4, (L, D)),
-                    np.minimum(ref, 3)[:, None]).astype(np.int8)
-    qual = rng.integers(0, 45, (L, D)).astype(np.uint8)
-    qual[rng.random((L, D)) < 0.02] = 0
-    mask = rng.random((L, D)) < 0.8
-    mask[:L // 50] = False
-    h = np.zeros((L, 512), np.int8)
-    sd._np_snv_hist(base, qual, mask, h)
+    refb = np.minimum(ref, 3)[:, None]
+    mask = np.ones((L, D), bool)
+    if kind == "random":
+        base = np.where(rng.random((L, D)) < 0.3,
+                        rng.integers(-1, 5, (L, D)), refb).astype(np.int8)
+        qual = rng.integers(0, 45, (L, D))
+        qual[rng.random((L, D)) < 0.02] = 0
+        mask = rng.random((L, D)) < 0.8
+        mask[:L // 50] = False
+    elif kind in (1, 4):
+        nq = 1 if kind == 1 else 2
+        pick = rng.integers(0, kind, (L, D))
+        pick[:, :kind] = np.arange(kind)
+        qual = np.array([32, 37])[pick % nq]
+        base = ((refb + pick // nq) % 4).astype(np.int8)
+    else:
+        slot = np.argsort(rng.random((L, D)), axis=1) % 512
+        qual, base = slot // 4, (slot % 4).astype(np.int8)
     hap = rng.random(L) < 0.1
     smis = np.where(rng.random((L, 4)) < 0.05,
                     rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
-    return h.astype(hist_dtype), ref, hap, smis
+    return base, qual.astype(qual_dtype), mask, ref, hap, smis
 
 
-def phase_kgh(np, torch, dev, cuda: bool, L: int):
-    """KG-H (call_snv_hist_tile on the card) against its plain version
-    on the card, every _PULL field bit for bit: random tiles at D = 32,
-    96 and 127 (int8 counts, haploid rows, s_mis), int32 counts, rows
-    that s_mis makes -inf or NaN, rows without calls (all ten lhoods 0:
-    ties everywhere), a ragged and a one-row tile; timed at the main
-    path's chunk (SNV_TILE_L * 4 rows) beside the plain version as the
-    main path ran it (with the live slots). Returns the kernel's row."""
+def kgh_bytes(n, lane_bytes=0, hist_bytes=0) -> int:
+    """KG-H's bytes: each row's counts (a histogram's or D lanes'),
+    ref_gt, is_haploid and s_mis read once, its 108 bytes of outputs
+    written once, the tables read once."""
+    return (n * (lane_bytes + hist_bytes + 4 + 1 + 16 + 40 + 20 + 40 + 8)
+            + 512 * 10 * 4 + 4 * 10 * 4 + 4 * 5 * 10 * 8)
+
+
+def kgh_library_route(torch, hist, s_mis, tabs):
+    """KG-H's lhood by one library call, its yardstick (not bit for bit:
+    cuBLAS sums in its own order): one f32 torch.matmul of [L, 516] =
+    [hist | s_mis] against [516, 10] = [qtab ; e0], TF32 off, operands
+    built before the timer. Returns (call, bound): bound is the f32
+    summation bound 2 * 516 * 2^-24 * (|X| @ |W|) on its difference
+    from the kernel's lhood in any order."""
+    x = torch.cat([hist.float(), s_mis], 1)
+    w = torch.cat([tabs["snv_qtab"], tabs["e0_tab"]], 0)
+
+    def call():
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(x, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    bound = 2 * 516 * 2.0 ** -24 * (x.abs().double() @ w.abs().double())
+    return call, bound
+
+
+def kgh_library(torch, cuda, iters, hist, s_mis, tabs, lhood) -> dict:
+    """library_ms of kgh_library_route, and its difference from the
+    kernel's lhood held to the route's summation bound."""
+    lib, bound = kgh_library_route(torch, hist, s_mis, tabs)
+    diff = (lib().double() - lhood.double()).abs()
+    if not bool((diff <= bound).all()):
+        fail("kg-h library route: the matmul is outside the f32 summation "
+             "bound of the kernel's lhood")
+    return {"library_ms": time_ms(torch, cuda, lib, iters),
+            "library_max_abs_diff": float(diff.max()),
+            "library_tolerance": "2 * 516 * 2^-24 * (|X| @ |W|) a cell"}
+
+
+def hold_kgh(torch, label, got, want) -> float:
+    from strelka_tpu_torch.models import snv_digt as sd
+    return hold(torch, label, {f: getattr(got, f) for f in sd._PULL},
+                {f: getattr(want, f) for f in sd._PULL})
+
+
+def parent_kgh(torch, parent_csrc):
+    """The parent commit's KG-H: its csrc/snv_hist_tile.cu (unpacked from
+    `git archive <parent> strelka_tpu_torch/csrc` into `parent_csrc`),
+    built with the port's nvcc flags into build/parent/; returns
+    call(hist, ref_gt, is_haploid, s_mis, tabs) -> the eight outputs of
+    ops/snv_kernels.snv_hist_tile (KGH_FIELDS), launched on the current
+    stream and counted nowhere. The parent's entry has the dense entry's
+    C signature."""
+    import ctypes
+    from strelka_tpu_torch import _build
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    out = os.path.join(HERE, "build", "parent")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libsnv_hist_tile.so")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                        os.path.join(parent_csrc, "snv_hist_tile.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"nvcc of the parent's KG-H failed:\n{r.stdout}{r.stderr}")
+    fn = ctypes.CDLL(lib).snv_hist_tile_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = snk._ARGTYPES["snv_hist_tile"]
+
+    def call(hist, ref_gt, is_haploid, s_mis, tabs):
+        dev = hist.device
+        L = hist.shape[0]
+        i32 = dict(dtype=torch.int32, device=dev)
+        outs = [torch.empty((L, 10), dtype=torch.float32, device=dev),
+                *[torch.empty(L, **i32) for _ in range(5)],
+                torch.empty((L, 10), **i32),
+                torch.empty(L, dtype=torch.float64, device=dev)]
+        rc = fn(hist.data_ptr(), hist.element_size(), ref_gt.data_ptr(),
+                None if is_haploid is None else is_haploid.data_ptr(),
+                None if s_mis is None else s_mis.data_ptr(),
+                tabs["snv_qtab"].data_ptr(), tabs["e0_tab"].data_ptr(),
+                *[tabs[f"prior_{k}"].data_ptr() for k in snk._PRIORS], L,
+                *[t.data_ptr() for t in outs],
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            fail(f"the parent's KG-H launch failed: CUDA error {rc}")
+        return outs
+    return call
+
+
+def turns_ms(torch, parent, change) -> dict:
+    """Device ms of the parent's kernel and this tree's, each by graph_ms
+    in turns parent, change, change, parent on one card: the means of
+    each one's two turns, and every turn."""
+    t = [graph_ms(torch, f) for f in (parent, change, change, parent)]
+    return {"prev_device_ms": (t[0] + t[3]) / 2,
+            "device_ms_turns": (t[1] + t[2]) / 2, "turns_ms": t}
+
+
+def phase_kgh(np, torch, dev, cuda: bool, L: int, parent=None):
+    """KG-H's two entries on the card against their plain versions on the
+    card, every _PULL field bit for bit (a NaN as a NaN): the dense entry
+    (call_snv_hist_tile) on each tile's histogram, the lanes entry
+    (call_snv_lanes_tile) on its lanes (int16 qual; uint8 on two
+    tiles). Random tiles at D = 32, 96 and 127, int32 counts, rows that
+    s_mis makes -inf or NaN, rows without calls (ties), a ragged and a
+    one-row tile; rows with 1, 4 and all 512 live slots; lanes at D =
+    160 and 300 (dense: int32 counts). The dense entry is timed at the
+    main path's chunk height (SNV_TILE_L * 4 rows of the random D = 32
+    tile) beside its plain version as the main path ran it (with the
+    live slots), the library route and, with `parent` (parent_kgh), the
+    parent's kernel in turns; the lanes entry on the same tile's lanes
+    (device ms and bound). Returns the dense entry's row."""
+    from strelka_tpu_torch import convert
     from strelka_tpu_torch.models import snv_digt as sd
     rng = np.random.default_rng(9)
     rows = sd.SNV_TILE_L * 4 if cuda else L
-    cases = [("random", rows, 32, np.int8), ("random", L // 4, 96, np.int8),
-             ("random", L // 4, 127, np.int8), ("int32", L // 8, 96, np.int32),
-             ("ninf", 2000, 64, np.int8), ("nan", 2000, 64, np.int8),
-             ("ragged", 1031, 50, np.int8), ("one_row", 1, 40, np.int8)]
+    u8 = np.uint8
+    cases = [("random", rows, 32, np.int8, "random", np.int16),
+             ("random", L // 4, 96, np.int8, "random", u8),
+             ("random", L // 4, 127, np.int8, "random", np.int16),
+             ("int32", L // 8, 96, np.int32, "random", np.int16),
+             ("ninf", 2000, 64, np.int8, "random", np.int16),
+             ("nan", 2000, 64, np.int8, "random", np.int16),
+             ("ragged", 1031, 50, np.int8, "random", np.int16),
+             ("one_row", 1, 40, np.int8, "random", np.int16),
+             ("live1", L // 8, 64, np.int8, 1, np.int16),
+             ("live4", L // 8, 64, np.int8, 4, u8),
+             ("live512", 20000 if cuda else L // 8, 512, np.int32, 512,
+              np.int16),
+             ("deep", L // 8, 160, np.int32, "random", np.int16),
+             ("deep", L // 16, 300, np.int32, "random", u8)]
+    tabs = convert.device_tables(0.001, dev)
+    iters = 1 if not cuda else 20
     err, timed = 0.0, None
-    for kind, n, D, dt in cases:
-        h, ref, hap, smis = hist_case(np, rng, n, D, dt)
-        if kind in ("ninf", "nan"):
-            smis[:n // 4] = -np.inf if kind == "ninf" else np.nan
-        cols = np.nonzero(h.any(axis=0))[0].tolist()
-        t = [torch.from_numpy(a).to(dev) for a in (h, ref, hap, smis)]
-        got = sd.call_snv_hist_tile(t[0], t[1], t[2], s_mis=t[3])
-        want = sd.call_snv_hist_tile_plain(t[0], t[1], t[2], s_mis=t[3],
+    for label, n, D, dt, kind, qt in cases:
+        lanes = kgh_lanes(np, rng, n, D, kind, qt)
+        if label in ("ninf", "nan"):
+            lanes[5][:n // 4] = -np.inf if label == "ninf" else np.nan
+        t = [torch.from_numpy(a).to(dev) for a in lanes]
+        h = sd._tile_hist(*t[:3]).to(torch.int8 if dt == np.int8
+                                     else torch.int32)
+        cols = torch.nonzero(h.any(dim=0))[:, 0].tolist()
+        tag = f"kg-h {label} L={n} D={D}"
+        got = sd.call_snv_hist_tile(h, *t[3:5], s_mis=t[5])
+        want = sd.call_snv_hist_tile_plain(h, *t[3:5], s_mis=t[5],
                                            cols=cols)
-        err = max(err, hold(torch, f"kg-h {kind} L={n} D={D}",
-                            {f: getattr(got, f) for f in sd._PULL},
-                            {f: getattr(want, f) for f in sd._PULL}))
+        err = max(err, hold_kgh(torch, f"{tag} dense", got, want))
+        err = max(err, hold_kgh(
+            torch, f"{tag} lanes", sd.call_snv_lanes_tile(*t[:5], s_mis=t[5]),
+            sd.call_snv_lanes_tile_plain(*t[:5], s_mis=t[5])))
+        if parent is not None and cuda:
+            hold(torch, f"{tag} parent",
+                 dict(zip(KGH_FIELDS, parent(h, t[3], t[4], t[5], tabs))),
+                 {f: getattr(got, f) for f in KGH_FIELDS})
         if timed is None:
-            nnz = int((h != 0).sum())
-            nbytes = (n * (512 * h.itemsize + 4 + 1 + 16 + 40 + 20 + 40 + 8)
-                      + 512 * 10 * 4 + 4 * 10 * 4 + 4 * 5 * 10 * 8)
             timed = kernel_row(
                 torch, cuda,
-                lambda t=t: sd.call_snv_hist_tile(t[0], t[1], t[2],
-                                                  s_mis=t[3]),
-                lambda t=t, cols=cols: sd.call_snv_hist_tile_plain(
-                    t[0], t[1], t[2], s_mis=t[3], cols=cols),
-                nbytes, 2 * 10 * nnz + 8 * 10 * n, KGH_F64_PER_ROW * n,
-                1 if not cuda else 20, [n, 512, D])
+                lambda h=h, t=t: sd.call_snv_hist_tile(h, *t[3:5],
+                                                       s_mis=t[5]),
+                lambda h=h, t=t, cols=cols: sd.call_snv_hist_tile_plain(
+                    h, *t[3:5], s_mis=t[5], cols=cols),
+                kgh_bytes(n, hist_bytes=512 * h.element_size()),
+                2 * 10 * int((h != 0).sum()) + 8 * 10 * n,
+                KGH_F64_PER_ROW * n, iters, [n, 512, D])
+            timed.update(kgh_library(torch, cuda, iters, h, t[5], tabs,
+                                     got.lhood))
+            lane_b = sum(a.element_size() for a in t[:3]) * D
+            lb, lby = bound_ms(kgh_bytes(n, lane_bytes=lane_b), 0, 1.0)
+            timed["lanes_entry"] = {"bound_ms": lb, "bound_by": lby}
+            if cuda:
+                timed["lanes_entry"]["device_ms"] = graph_ms(
+                    torch, lambda t=t: sd.call_snv_lanes_tile(*t[:5],
+                                                              s_mis=t[5]))
+                timed["lanes_entry"]["device_bound_share"] = (
+                    lb / timed["lanes_entry"]["device_ms"])
+                if parent is not None:
+                    timed.update(turns_ms(
+                        torch, lambda h=h, t=t: parent(h, t[3], t[4], t[5],
+                                                       tabs),
+                        lambda h=h, t=t: sd.call_snv_hist_tile(
+                            h, *t[3:5], s_mis=t[5])))
+                    device_share(timed)
+            timed["live_slots_a_row"] = live_slots(torch, h)
         del t
     timed["max_abs_err"] = err
+    timed["cases"] = len(cases)
     log("kg-h: " + json.dumps(timed))
     return timed
+
+
+def phase_kgh_main_shape(np, torch, dev, cuda: bool, kept, parent=None):
+    """Phase 4b: KG-H's lanes entry on the first genotype chunk that
+    phase 4's CLI gave it (`kept`: StreamTimer.kept, the first call of
+    call_snv_lanes_tile: the pileup's int8 base, int16 qual and bool
+    mask lanes with ref_gt, is_haploid and s_mis, as the CLI made them),
+    held bit for bit against its plain version, timed by CUDA events and
+    graph replay beside it, one call of each traced, with the library
+    route; the dense entry on the chunk's int8 histogram (what the
+    parent's CLI counted on the host and sent up) bit for bit against
+    it, and, with `parent`, the parent's KG-H on that histogram in turns
+    against the lanes entry. Returns the lanes entry's row."""
+    from strelka_tpu_torch import convert
+    from strelka_tpu_torch.models import snv_digt as sd
+    calls = kept.get("snv_genotype_tiles", [])
+    if not calls and cuda:
+        fail("phase 4 made no call of KG-H's lanes entry")
+    if not calls:   # the CPU's CLI counts natively: a chunk like the CLI's
+        calls = [cli_like_chunk(np, torch, dev, 4096, 64)]
+    (a, kw), = calls
+    base, qual, mask, ref, hap, theta = a
+    smis = kw.get("s_mis")
+    L, D = base.shape
+    iters = 20 if cuda else 1
+    tabs = convert.device_tables(theta, dev)
+
+    def lanes():
+        return sd.call_snv_lanes_tile(*a, **kw)
+
+    def plain():
+        return sd.call_snv_lanes_tile_plain(*a, **kw)
+    got = lanes()
+    err = hold_kgh(torch, "kg-h lanes main path", got, plain())
+    h = sd._tile_hist(base, qual, mask).to(torch.int8)
+    err = max(err, hold_kgh(torch, "kg-h dense main path",
+                            sd.call_snv_hist_tile(h, ref, hap, theta,
+                                                  s_mis=smis), got))
+    lane_b = D * (base.element_size() + qual.element_size()
+                  + mask.element_size())
+    row = kernel_row(torch, cuda, lanes, plain,
+                     kgh_bytes(L, lane_bytes=lane_b),
+                     2 * 10 * int((h != 0).sum()) + 8 * 10 * L,
+                     KGH_F64_PER_ROW * L, iters, [L, D])
+    row.update(max_abs_err=err, dtypes=[str(base.dtype), str(qual.dtype),
+                                        str(mask.dtype)],
+               live_slots_a_row=live_slots(torch, h),
+               **kgh_library(torch, cuda, iters, h,
+                             torch.zeros((L, 4), device=dev)
+                             if smis is None else smis, tabs, got.lhood))
+    if cuda:
+        def dense():
+            return sd.call_snv_hist_tile(h, ref, hap, theta, s_mis=smis)
+        row["dense_entry"] = {"device_ms": graph_ms(torch, dense)}
+        row["dense_entry"]["bound_ms"], _ = bound_ms(
+            kgh_bytes(L, hist_bytes=512), 0, 1.0)
+        if parent is not None:
+            hold(torch, "kg-h parent main path",
+                 dict(zip(KGH_FIELDS, parent(h, ref, hap, smis, tabs))),
+                 {f: getattr(got, f) for f in KGH_FIELDS})
+            row.update(turns_ms(torch, lambda: parent(h, ref, hap, smis,
+                                                      tabs), lanes))
+            device_share(row)
+        report = ptxas_report()
+        row["registers"] = report["snv_hist_tile"]
+    log("kg-h main path: " + json.dumps(row))
+    return row
+
+
+def cli_like_chunk(np, torch, dev, L, D):
+    """(args, kwargs) of a call_snv_lanes_tile like the germline CLI's:
+    every call at one base quality (32), 10% of them alt, half the lanes
+    masked, no haploid rows, zero s_mis."""
+    rng = np.random.default_rng(5)
+    ref = rng.integers(0, 4, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.1, rng.integers(0, 4, (L, D)),
+                    ref[:, None]).astype(np.int8)
+    t = [torch.from_numpy(a).to(dev) for a in (
+        base, np.full((L, D), 32, np.int16), rng.random((L, D)) < 0.5, ref,
+        np.zeros((L, 4), np.float32))]
+    return (t[0], t[1], t[2], t[3], None, 0.001), {"s_mis": t[4]}
+
+
+def live_slots(torch, hist) -> dict:
+    """The live (qscore, base) slots a row of a histogram: mean, max."""
+    n = (hist != 0).sum(dim=1).double()
+    return {"mean": float(n.mean()), "max": int(n.max())}
 
 
 def grid_counts(torch, base, qual, mask, fwd, ref):
@@ -1638,11 +1905,17 @@ extern "C" __global__ void p_div(const double* x, double* y)
 """
 
 
+_PTXAS: dict = {}
+
+
 def ptxas_report() -> dict:
-    """KS-G's and KS-P's registers and spills (nvcc -Xptxas -v on their
-    sources, the build's flags) and the FP64 SASS instructions (D* ops,
-    by cuobjdump) of one call of exp, log, log1p and a division, from a
-    probe built the same way: three nvcc at once."""
+    """KG-H's, KS-G's and KS-P's registers and spills (nvcc -Xptxas -v on
+    their sources, the build's flags; KG-H's the most of its four
+    kernels) and the FP64 SASS instructions (D* ops, by cuobjdump) of one
+    call of exp, log, log1p and a division, from a probe built the same
+    way: four nvcc at once, the first call only."""
+    if _PTXAS:
+        return _PTXAS
     import re
     from strelka_tpu_torch import _build
     out = os.path.join(HERE, "build", "smoke", "ptxas")
@@ -1650,7 +1923,8 @@ def ptxas_report() -> dict:
     probe = os.path.join(out, "fp64_probe.cu")
     with open(probe, "w") as f:
         f.write(FP64_PROBE)
-    srcs = {"somatic_grid": os.path.join(_build.CSRC, "somatic_grid.cu"),
+    srcs = {"snv_hist_tile": os.path.join(_build.CSRC, "snv_hist_tile.cu"),
+            "somatic_grid": os.path.join(_build.CSRC, "somatic_grid.cu"),
             "somatic_posterior": os.path.join(_build.CSRC,
                                               "somatic_posterior.cu"),
             "fp64_probe": probe}
@@ -1670,7 +1944,7 @@ def ptxas_report() -> dict:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
                                              text)]
         report[k] = {"registers": max(regs), "spill_store_bytes": max(
-            spills, default=0)}
+            spills, default=0), "registers_each": regs}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     r = subprocess.run([cuobjdump, "-sass",
                         os.path.join(out, "fp64_probe.cubin")],
@@ -1690,6 +1964,7 @@ def ptxas_report() -> dict:
             counts[fn] += 1
     report["fp64_per_call"] = counts
     log("ptxas and SASS: " + json.dumps(report))
+    _PTXAS.update(report)
     return report
 
 
@@ -2059,10 +2334,13 @@ def compare_runs(a_dir, b_dir):
 
 
 def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
-              extra=()):
+              extra=(), kept=None):
     """The CLI on `device` with the launch counters set to 0 just before
     and read just after; stream time of each device phase by CUDA
-    events. Returns (the launch counts of launches_during, the wall s)."""
+    events, and the SNV tiles' host time. With `kept` (a dict), the
+    arguments of the first KG-H lanes-entry call go to
+    kept["snv_genotype_tiles"]. Returns (the launch counts of
+    launches_during, the wall s)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
     if cuda:
@@ -2071,6 +2349,8 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     timer = StreamTimer(torch, cuda)
     timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
     timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
+    timer.wrap(sd, "call_snv_lanes_tile", "snv_genotype_tiles",
+               keep=1 if kept is not None else 0)
     timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
     try:
         wall, _, counts = launches_during(
@@ -2078,6 +2358,9 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     finally:
         timer.restore()
     phase_ms = timer.totals_ms()
+    if kept is not None:
+        kept.update(timer.kept)
+    tile_host = timer.host_ms("snv_genotype_tiles")
     var, gv = check_outputs(out, n_reads)
     check_path_launches("the germline path", counts, cuda)
     check_snv_kernels("the germline path", counts, cuda and device == "cuda")
@@ -2093,6 +2376,8 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
            "snv_kernel_launches": counts["snv_kernels"],
            "k1_stream_ms": phase_ms.get("k1_score_best_offsets", 0.0),
            "stream_ms_by_phase": phase_ms,
+           "snv_tiles_host_ms": sum(tile_host),
+           "snv_tiles_host_ms_per_call": tile_host,
            "k1_launch_shapes": counts["score"]}
     log("e2e: " + json.dumps(e2e))
     return counts, wall
@@ -2107,7 +2392,9 @@ def launches_during(fn):
     """fn() with every launch counter set to 0 just before and read just
     after: (fn's result, the wall s, {"k1", "k1h", "k1h_simt", "kx",
     "score", "snv", "somatic", "snv_kernels", "snv_plain"} in the layout
-    of the workers' STRELKA_TPU_LAUNCH_STATS dumps)."""
+    of the workers' STRELKA_TPU_LAUNCH_STATS dumps, and "host_hist": the
+    (qscore, base) histograms counted on the host meanwhile, which the
+    dumps do not hold)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
@@ -2118,21 +2405,35 @@ def launches_during(fn):
     sk.LAUNCHES_HIGHEST = 0
     sk.LAUNCHES_HIGHEST_SIMT = 0
     kx_zero(sv)
+    from strelka_tpu_torch.io import native
     sd.LAUNCH_STATS.clear()
     ss.LAUNCH_STATS.clear()
     snk.reset()
     rb.LAUNCH_STATS = {}
+    # the host's (qscore, base) histograms, which a card path counts on
+    # the card instead
+    host_hist = [0]
+    patched = [(native, "snv_hist_native"), (sd, "_np_snv_hist")]
+    saved = [getattr(m, n) for m, n in patched]
+    for (m, n), f in zip(patched, saved):
+        def counted(*a, f=f, **k):
+            host_hist[0] += 1
+            return f(*a, **k)
+        setattr(m, n, counted)
     t0 = time.perf_counter()
     try:
         out = fn()
     finally:
         wall = time.perf_counter() - t0
+        for (m, n), f in zip(patched, saved):
+            setattr(m, n, f)
         counts = {"k1": sk.LAUNCHES, "k1h": sk.LAUNCHES_HIGHEST,
                   "k1h_simt": sk.LAUNCHES_HIGHEST_SIMT, "kx": kx_read(sv), "score": keyed(rb.LAUNCH_STATS),
                   "snv": keyed(sd.LAUNCH_STATS),
                   "somatic": keyed(ss.LAUNCH_STATS),
                   "snv_kernels": dict(snk.LAUNCHES),
-                  "snv_plain": dict(snk.PLAIN_ON_CUDA)}
+                  "snv_plain": dict(snk.PLAIN_ON_CUDA),
+                  "host_hist": host_hist[0]}
         rb.LAUNCH_STATS = None
     return out, wall, counts
 
@@ -2159,12 +2460,15 @@ def tally_rows(counts, group, kind) -> int:
 
 
 def check_snv_kernels(label, counts, cuda, somatic=False):
-    """On the card: KG-H launched once a germline SNV tile tally (a
-    non-RNA path's tiles are all histogram tiles), KS-G once a grid and
-    KS-P once a posterior tally, and no plain version ran there."""
+    """On the card: KG-H launched once a germline SNV tile tally, each
+    through its lanes entry (every non-RNA path's genotype tiles go up
+    as lanes, at any D, and the dense entry runs on none), KS-G once a
+    grid and KS-P once a posterior tally, no plain version, and, where
+    the run was in this process, no histogram counted on the host."""
     if not cuda:
         return
-    want = {"snv_hist_tile": tally_rows(counts, "snv", "tile"),
+    tiles = tally_rows(counts, "snv", "tile")
+    want = {"snv_hist_tile": 0, "snv_lanes_tile": tiles,
             "somatic_grid": tally_rows(counts, "somatic", "grid"),
             "somatic_posterior": tally_rows(counts, "somatic", "post")}
     if counts["snv_kernels"] != want:
@@ -2173,9 +2477,12 @@ def check_snv_kernels(label, counts, cuda, somatic=False):
     if any(counts["snv_plain"].values()):
         fail(f"{label}: a plain SNV model version ran on the card: "
              f"{counts['snv_plain']}")
+    if counts.get("host_hist"):
+        fail(f"{label}: {counts['host_hist']} SNV histograms were counted "
+             f"on the host")
     if somatic and not (want["somatic_grid"] and want["somatic_posterior"]):
         fail(f"{label}: KS-G or KS-P was launched no time")
-    if not somatic and not want["snv_hist_tile"]:
+    if not somatic and not tiles:
         fail(f"{label}: KG-H was launched no time")
 
 
@@ -2617,6 +2924,7 @@ def phase_mode(torch, cuda: bool, label, fa, bam, n_reads, mb, workdir,
         timer = StreamTimer(torch, device == "cuda")
         timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
         timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
+        timer.wrap(sd, "call_snv_lanes_tile", "snv_genotype_tiles")
         timer.wrap(sd, "call_snv_tile", "snv_call_tiles")
         timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
         try:
@@ -3269,6 +3577,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only the engine mesh over every visible card "
                          "(two or more); no result line")
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="a parent commit's strelka_tpu_torch/csrc (from "
+                         "git archive): its KG-H is built and timed beside "
+                         "this tree's in phases 3 and 4b")
     opts = ap.parse_args(argv)
     rehearse = opts.rehearse
 
@@ -3383,7 +3695,11 @@ def main(argv=None) -> int:
 
     log("== phase 3: snv tiles vs the CPU path; KG-H vs its plain version")
     t0 = time.perf_counter()
-    kgh_row = phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000)
+    parent = None
+    if opts.parent_csrc and cuda:
+        parent = parent_kgh(torch, os.path.abspath(opts.parent_csrc))
+    kgh_row = phase_snv(np, torch, dev, cuda, 2000 if rehearse else 200_000,
+                        parent)
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3b: somatic SNV model vs the CPU path; KS-G and KS-P vs "
@@ -3401,9 +3717,16 @@ def main(argv=None) -> int:
     out_dev = os.path.join(workdir, f"out_{dev.type}")
     # one segment a worker in phase 8: the CLI's default 1 Mb on the card
     seg = int(mb * 1_000_000) // JOBS
+    kept = {}
     germline, wall_dev = phase_e2e(torch, cuda, fa, bam, n_reads, mb,
                                    out_dev, dev.type,
-                                   ["--max-region-size", str(seg)])
+                                   ["--max-region-size", str(seg)], kept)
+    log("== phase 4b: KG-H's lanes entry on phase 4's first chunk vs its "
+        "plain version")
+    t0 = time.perf_counter()
+    lanes_row = phase_kgh_main_shape(np, torch, dev, cuda, kept, parent)
+    del kept
+    log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
     # k1 again at the main path's most frequent launch shape
     shapes = germline["score"]
     top = tuple(map(int, max(shapes, key=shapes.get).split(",")))
@@ -3643,6 +3966,7 @@ def main(argv=None) -> int:
     from strelka_tpu_torch.ops import snv_kernels as snk
     for name, source, krow in (
             ("snv_hist_tile", "snv_hist_tile.cu", kgh_row),
+            ("snv_lanes_tile", "snv_hist_tile.cu", lanes_row),
             ("somatic_grid", "somatic_grid.cu", ksg_row),
             ("somatic_posterior", "somatic_posterior.cu", ksp_row)):
         by = {p: c["snv_kernels"].get(name, 0) for p, c in paths.items()}
@@ -3669,7 +3993,9 @@ def main(argv=None) -> int:
             **{k: krow[k] for k in (
                 "registers", "live_slots_a_row", "library_max_abs_diff",
                 "sass_fp64_floor_ms", "clean_row_share", "exp_zero_share",
-                "exp_zero_share_listed") if k in krow},
+                "exp_zero_share_listed", "prev_device_ms",
+                "device_ms_turns", "turns_ms", "lanes_entry",
+                "dense_entry") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

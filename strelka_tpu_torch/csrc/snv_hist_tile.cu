@@ -1,15 +1,23 @@
-// KG-H: the germline SNV genotype tile from a (qscore, base) histogram, on
-// Hopper (sm_90a).
+// KG-H: the germline SNV genotype tile, on Hopper (sm_90a). Two entries,
+// one function:
 //
-// Replaces strelka_tpu/models/snv_digt.py:506 call_snv_hist_tile, a jitted
-// XLA program (no Pallas), whose plain version in the port is
-// models/snv_digt.call_snv_hist_tile_plain: hundreds of launches a tile,
-// one exactly emulated f32 FMA per live slot of 512, then the float64
-// posterior tail. This kernel gives that version's bits in one launch. Per
-// row of hist [L, 512] (int8 or int32 counts):
+// - the dense entry, snv_hist_tile_launch, replaces
+//   strelka_tpu/models/snv_digt.py:506 call_snv_hist_tile, a jitted XLA
+//   program (no Pallas): a tile given as its (qscore, base) histogram
+//   hist [L, 512], int8 or int32 counts;
+// - the lanes entry, snv_lanes_tile_launch, replaces the non-RNA pass of
+//   strelka_tpu/models/snv_digt.py:536 call_snv_tile: a tile given as the
+//   pileup's lanes base [L, D] int8, qual [L, D] int16 (the native
+//   pileup's width) or uint8, mask [L, D] bool, whose histogram it counts
+//   itself (q = clamp(qual, 0, 127); a call counts where mask and
+//   0 <= base < 4, bin q * 4 + base).
 //
-//   lhood[g] = fma(count_k, qtab[k, g], lhood[g]) for k = 0..511 ascending
-//              (a zero count adds exactly nothing: the table is finite)
+// Their plain version in the port is models/snv_digt.call_snv_hist_tile_
+// plain (after _tile_hist for the lanes): one exactly emulated f32 FMA a
+// live slot, then the float64 posterior tail. Both entries give its bits
+// in one launch. Per row:
+//
+//   lhood[g] = fma(count_k, qtab[k, g], lhood[g]) over k ascending
 //   lhood[g] += sum_b s_mis[b] * e0[b, g]   (b ascending, then one add)
 //
 // then the genomic and the polymorphic result sets (float64 posterior with
@@ -17,18 +25,60 @@
 // phreds, ln of the ref posterior) and the ten PLs, whose f32 (lhood -
 // lmax) * -10 is divided by ln 10 in float64.
 //
-// Bound on the H100: the histogram is read once (512 bytes a row as int8)
-// and 240 bytes a row are written, against 5,120 f32 FMAs and some 60
-// float64 operations a row, so the card could do it at its HBM rate.
+// The skip: a slot whose count is 0 adds exactly nothing, fma(0, q, lh) ==
+// lh, because qtab holds no non-finite entry (0 * inf would be NaN) and
+// lh starts at +0 and never becomes -0 (a sum that cancels rounds to +0);
+// tests/test_torch_kgh_schedule.py checks the table at the CLIs' thetas.
+// So a row walks only its live slots: 1-4 on a germline CLI row (all
+// reads at one base quality), at most D.
 //
-// Design: a block takes R rows and 10 R threads; the rows' histograms (one
-// contiguous piece of memory) and the [512, 10] table are staged in shared
-// memory with 16-byte loads, each thread runs one genotype's chain of 512
-// __fmaf_rn in registers, and one thread a row runs the tail. The rows of
-// the staged histogram are padded by 16 bytes, so the threads of one warp,
-// which read the same slot of 3 or 4 rows, hit different banks. int8
-// counts take 32 rows a block, int32 counts 8, which keeps the static
-// shared memory under 48 KB.
+// Bound on the H100: the bytes. The dense entry reads 512 bytes a row
+// (int8), the lanes entry 4 bytes a lane at int16 qual (256 a row at the
+// CLI's D = 64), and both write 108 bytes a row; their operations are 20
+// f32 a live slot and some 140 float64 a row.
+//
+// Design: a warp walks one row at a time, eight warps a block, a grid of
+// as many blocks as the card holds at once, each warp walking rows; each
+// block stages qtab (20 KB), e0 and the four float64 prior tables in
+// shared memory once.
+// - The dense entry: lane l loads slots 16 l .. 16 l + 15 of the row (one
+//   16-byte load for int8, four for int32, the next row's prefetched into
+//   registers), takes the mask of its nonzero counts, and an exclusive
+//   warp prefix of the masks' popcounts (shuffles) places its (slot,
+//   count) pairs in the warp's live list in shared memory, in ascending
+//   slot order.
+// - The lanes entry: the lanes stride over the row's calls and add them
+//   into the warp's 512-bin int32 histogram in shared memory with shared
+//   atomics (integer counts: exact in any order, at any D); a ballot a
+//   32-slot word gives the row's 512-bit live mask, walked in ascending
+//   order (__ffs), the words without a live slot skipped.
+// - The walk: lane l < 30 runs genotype g = l % 10's chain over the live
+//   slots (lanes 10-29 repeat lanes 0-9's chains at no cost: a warp
+//   issues one instruction for all of them). A row's ref_gt, is_haploid
+//   and s_mis are loaded before its walk, so that their latency hides
+//   behind it.
+// - The tail, three rows of a warp at once: a row's lhoods wait in the
+//   warp's batch in shared memory until three of its rows have walked,
+//   then row r's tail runs on lanes 10 r + g, the genomic and the
+//   polymorphic result sets side by side and then the PLs, and lanes 0-8
+//   take the three rows' nine phreds, lanes 9-11 their ln of the ref
+//   posterior. A group's max and first argmax are a __reduce_max_sync
+//   over order-preserving keys (64-bit for the float64 posteriors, in two
+//   rounds; -0 as +0, a NaN above all) and a ballot (the lowest lane wins
+//   a tie, torch's first index); each 10-wide sum gathers the group's
+//   values through the warp's scratch in shared memory and adds them in
+//   ascending g.
+// What holds it above its bound on the H100 is the tail: a row's chain
+// of FP64 library calls (exp, divisions, log10, log), keys, reductions
+// and shared-memory sums issues at a low rate for want of independent
+// work, and the three-row batch shares each instruction among three
+// rows. Neither more resident warps (launch bounds of 5 and 6 blocks an
+// SM) nor data held in L2 moved it (chip_smoke.py, PERF.md §6).
+// Tensor cores do not apply: a row has a handful of live slots against
+// 10 columns, and the sum's order is fixed to the bit.
+// The arithmetic follows csrc/snv_math.cuh's rules (__fmul_rn, __dmul_rn
+// and __fmaf_rn where nvcc would contract; default flags; NaN to 0 before
+// an int cast).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -39,9 +89,12 @@
 namespace {
 
 constexpr int kSlots = 512;      // _SNV_QTAB_SIZE * 4
+constexpr int kQ = 128;          // _SNV_QTAB_SIZE
 constexpr int kGt = 10;          // genotypes
 constexpr int kBases = 4;
-constexpr int kRowPad = 16;      // bytes after each staged row
+constexpr int kPrior = 5 * kGt;  // a [5, 10] prior table
+constexpr int kWarps = 8;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr double kLn10 = 2.302585092994046;   // math.log(10.0)
 
 struct Out {
@@ -61,6 +114,30 @@ struct Tables {
     const double* prior[4];   // genome, poly, genome_haploid, poly_haploid
 };
 
+struct Row {             // a row's inputs beside its counts
+    const int* ref_gt;
+    const uint8_t* hap;
+    const float* s_mis;
+};
+
+// the tables in shared memory, staged once a block
+struct __align__(16) Staged {
+    float qtab[kSlots * kGt];
+    float e0[kBases * kGt];
+    double prior[4][kPrior];
+};
+
+__device__ void stage(Staged& s, const Tables& t) {
+    const uint4* q4 = reinterpret_cast<const uint4*>(t.qtab);
+    for (int i = threadIdx.x; i < kSlots * kGt / 4; i += blockDim.x)
+        reinterpret_cast<uint4*>(s.qtab)[i] = q4[i];
+    for (int i = threadIdx.x; i < kBases * kGt; i += blockDim.x)
+        s.e0[i] = t.e0[i];
+    for (int i = threadIdx.x; i < 4 * kPrior; i += blockDim.x)
+        s.prior[i / kPrior][i % kPrior] = t.prior[i / kPrior][i % kPrior];
+    __syncthreads();
+}
+
 // -10 log10(max(x, tiny)) + 0.5, floored, at most 999 (as torch runs it)
 __device__ __forceinline__ double phred10(double x) {
     const double lg = log10(snv::clamp_min(x, snv::kF64Tiny));
@@ -68,116 +145,404 @@ __device__ __forceinline__ double phred10(double x) {
                           999.0);
 }
 
-// _result_set: posterior, first argmax, ref and max-genotype phreds, ln ref
-__device__ void result_set(const float* lh, const double* prior, int refc,
-                           int* max_gt, int* q_ref, int* q_max,
-                           double* ln_ref) {
-    double pp[kGt], p[kGt];
-    double mx = -INFINITY;
-    for (int g = 0; g < kGt; ++g) {
-        pp[g] = __dadd_rn(static_cast<double>(lh[g]), prior[g]);
-        mx = snv::nan_max(mx, pp[g]);
-    }
-    for (int g = 0; g < kGt; ++g) p[g] = exp(__dsub_rn(pp[g], mx));
-    double s = p[0];
-    for (int g = 1; g < kGt; ++g) s = __dadd_rn(s, p[g]);
-    for (int g = 0; g < kGt; ++g) p[g] = p[g] / s;
-    const int am = snv::arg_max(pp, kGt);
-    double total = p[0];
-    for (int g = 1; g < kGt; ++g) total = __dadd_rn(total, p[g]);
-    const double comp = snv::clamp_min(__dsub_rn(total, p[am]), 0.0);
-    *max_gt = am;
-    *q_ref = snv::to_i32(phred10(p[refc]));
-    *q_max = snv::to_i32(phred10(comp));
-    if (ln_ref) *ln_ref = log(snv::clamp_min(p[refc], snv::kF64Tiny));
+// order-preserving keys: unsigned order of the values, -0 as +0, a NaN
+// above all (a real value's key is never 0)
+__device__ __forceinline__ unsigned long long key64(double v) {
+    if (snv::is_nan(v)) return ~0ull;
+    const unsigned long long b = __double_as_longlong(v == 0.0 ? 0.0 : v);
+    return (b >> 63) ? ~b : (b | (1ull << 63));
+}
+__device__ __forceinline__ unsigned key32(float v) {
+    if (snv::is_nan(v)) return kAll;
+    const unsigned b = __float_as_uint(v == 0.0f ? 0.0f : v);
+    return (b >> 31) ? ~b : (b | 0x80000000u);
 }
 
-__device__ void tile_tail(const float* lh, int ref, bool hap,
-                          const Tables& t, long long row, const Out& o) {
+// a group's 10-wide sum in ascending g (_seq_sum): lane base + g holds
+// x_g; the values meet in the warp's scratch x[32] in shared memory
+__device__ __forceinline__ double seq_sum10(double v, int base, double* x,
+                                            int lane) {
+    x[lane] = v;
+    __syncwarp();
+    double s = x[base];
+#pragma unroll
+    for (int g = 1; g < kGt; ++g) s = __dadd_rn(s, x[(base + g) & 31]);
+    __syncwarp();     // the scratch is rewritten
+    return s;
+}
+
+// a row's inputs beside its counts, loaded before its walk so that their
+// latency hides behind it
+struct RowVals {
+    float sm[kBases];
+    int ref;
+    bool hap;
+};
+
+__device__ __forceinline__ RowVals load_row(const Row& in, long long row) {
+    RowVals v;
+    v.ref = in.ref_gt[row];
+    v.hap = in.hap && in.hap[row];
+#pragma unroll
+    for (int b = 0; b < kBases; ++b)
+        v.sm[b] = in.s_mis ? in.s_mis[row * kBases + b] : 0.0f;
+    return v;
+}
+
+// the s_mis term (_add_smis): genotype g's lhood plus the 4-term sum, b
+// ascending, added once
+__device__ __forceinline__ float add_smis(const Staged& s, float lh,
+                                          const RowVals& v, const Row& in,
+                                          int g) {
+    if (!in.s_mis) return lh;
+    float m = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kBases; ++b)
+        m = __fadd_rn(m, __fmul_rn(v.sm[b], s.e0[b * kGt + g]));
+    return __fadd_rn(lh, m);
+}
+
+// A group's max and first argmax over its lanes (gmask) where `inside`,
+// by the keys' order: the lowest lane of the top key (base where none).
+__device__ __forceinline__ int first_max_lane(unsigned gmask, bool inside,
+                                              unsigned hi, unsigned lo,
+                                              int base) {
+    hi = inside ? hi : 0u;
+    lo = inside ? lo : 0u;
+    const unsigned top_hi = __reduce_max_sync(gmask, hi);
+    const unsigned top_lo = __reduce_max_sync(gmask, hi == top_hi ? lo : 0u);
+    const unsigned win = __ballot_sync(
+        kAll, inside && hi == top_hi && lo == top_lo) & gmask;
+    return win ? __ffs(win) - 1 : base;
+}
+
+// The rows of a warp whose lhoods wait for the tail: up to kBatch rows,
+// row first + i * step in lh[i] (written by lanes 0-9).
+constexpr int kBatch = 3;
+struct Batch {
+    float (*lh)[kGt];
+    int* ref;          // [kBatch]
+    uint8_t* hap;      // [kBatch]
+    double* x;         // [32], the sums' scratch
+    long long first;
+    int n;
+};
+
+// The tail (_tile_tail) of a batch, a row to each 10 lanes: lane 10 r + g
+// holds row r's genotype g (lanes 30-31 and the groups past the batch's
+// rows repeat its last row and store nothing).
+__device__ void batch_tail(const Staged& s, const Batch& b, long long step,
+                           const Out& o, int lane) {
+    const int r = min(lane / kGt, b.n - 1), g = lane % kGt;
+    const bool live = lane / kGt < b.n;
+    const int base = (lane / kGt) * kGt;
+    const unsigned gmask = lane >= 3 * kGt ? 0xc0000000u : 0x3ffu << base;
+    const long long row = b.first + r * step;
+    const float lh = b.lh[r][g];
     // ref_gt outside 0..4 is outside the function (the plain version's
     // table lookup raises); clamped here to stay inside the tables
-    ref = min(max(ref, 0), kBases);
+    const int ref = min(max(b.ref[r], 0), kBases);
     const int refc = min(ref, kBases - 1);
-    const double* gp = t.prior[hap ? 2 : 0] + ref * kGt;
-    const double* pp = t.prior[hap ? 3 : 1] + ref * kGt;
-    int q_unused;
-    result_set(lh, gp, refc, o.g_max + row, o.snv_q + row, o.g_qmax + row,
-               o.ln_ref + row);
-    result_set(lh, pp, refc, o.p_max + row, &q_unused, o.p_qmax + row,
-               nullptr);
-    // PLs: haploid rows normalise against the hom-only max
-    float lmax = -INFINITY;
-    for (int g = 0; g < (hap ? kBases : kGt); ++g)
-        lmax = snv::nan_max(lmax, lh[g]);
-    for (int g = 0; g < kGt; ++g) {
-        const float d = __fmul_rn(__fsub_rn(lh[g], lmax), -10.0f);
-        double v = floor(__dadd_rn(static_cast<double>(d) / kLn10, 0.5));
-        v = snv::is_nan(v) ? v : fmin(fmax(v, 0.0), 999.0);
-        o.pl[row * kGt + g] = snv::to_i32(v);
-    }
-}
+    const bool hap = b.hap[r];
 
-template <typename T, int R>
-__global__ void __launch_bounds__(R * kGt)
-snv_hist_tile_kernel(const T* __restrict__ hist,
-                     const int* __restrict__ ref_gt,
-                     const uint8_t* __restrict__ hap,
-                     const float* __restrict__ s_mis, Tables t,
-                     long long L, Out o) {
-    constexpr int kRowBytes = kSlots * static_cast<int>(sizeof(T)) + kRowPad;
-    constexpr int kPieces = kSlots * static_cast<int>(sizeof(T)) / 16;
-    __shared__ __align__(16) unsigned char h_s[R * kRowBytes];
-    __shared__ __align__(16) float q_s[kSlots * kGt];
-    __shared__ float lh_s[R * kGt];
-
-    const int tid = threadIdx.x;
-    const long long row0 = static_cast<long long>(blockIdx.x) * R;
-    const int nrows = static_cast<int>(min(static_cast<long long>(R),
-                                           L - row0));
-    const uint4* q4 = reinterpret_cast<const uint4*>(t.qtab);
-    for (int i = tid; i < kSlots * kGt / 4; i += blockDim.x)
-        reinterpret_cast<uint4*>(q_s)[i] = q4[i];
-    const uint4* h4 = reinterpret_cast<const uint4*>(hist + row0 * kSlots);
-    for (int i = tid; i < nrows * kPieces; i += blockDim.x) {
-        const int r = i / kPieces, piece = i % kPieces;
-        *reinterpret_cast<uint4*>(h_s + r * kRowBytes + piece * 16) = h4[i];
-    }
-    __syncthreads();
-
-    const int r = tid / kGt, g = tid % kGt;
-    if (r < nrows) {
-        const T* h = reinterpret_cast<const T*>(h_s + r * kRowBytes);
-        float lh = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < kSlots; ++k)
-            lh = __fmaf_rn(static_cast<float>(h[k]), q_s[k * kGt + g], lh);
-        if (s_mis) {
-            const float* s = s_mis + (row0 + r) * kBases;
-            float m = 0.0f;
-            for (int b = 0; b < kBases; ++b)
-                m = __fadd_rn(m, __fmul_rn(s[b], t.e0[b * kGt + g]));
-            lh = __fadd_rn(lh, m);
+    // the genomic and the polymorphic result sets (_result_set)
+    double pref = 0.0, comp_g = 0.0, comp_p = 0.0;
+    int am_g = 0, am_p = 0;
+#pragma unroll
+    for (int set = 0; set < 2; ++set) {
+        const double pp = __dadd_rn(
+            static_cast<double>(lh),
+            s.prior[(hap ? 2 : 0) + set][ref * kGt + g]);
+        const unsigned long long k = key64(pp);
+        const int win = first_max_lane(gmask, true,
+                                       static_cast<unsigned>(k >> 32),
+                                       static_cast<unsigned>(k), base);
+        const double mx = __shfl_sync(kAll, pp, win);
+        const double e = exp(__dsub_rn(pp, mx));
+        const double p = e / seq_sum10(e, base, b.x, lane);
+        const double total = seq_sum10(p, base, b.x, lane);
+        const double pmax = __shfl_sync(kAll, p, win);
+        const double pr = __shfl_sync(kAll, p, base + refc);
+        const double comp = snv::clamp_min(__dsub_rn(total, pmax), 0.0);
+        if (set == 0) {
+            pref = pr;
+            comp_g = comp;
+            am_g = win - base;
+        } else {
+            comp_p = comp;
+            am_p = win - base;
         }
-        lh_s[r * kGt + g] = lh;
-        o.lhood[(row0 + r) * kGt + g] = lh;
     }
-    __syncthreads();
-    if (tid < nrows) {
-        const long long row = row0 + tid;
-        tile_tail(lh_s + tid * kGt, ref_gt[row], hap && hap[row], t, row, o);
+    if (live && g == 0) {
+        o.g_max[row] = am_g;
+        o.p_max[row] = am_p;
+    }
+
+    // PLs: f32 (lh - lmax) * -10 over ln 10 in float64; haploid rows
+    // normalise against the hom-only max
+    const int win = first_max_lane(gmask, !hap || g < kBases, key32(lh), 0u,
+                                   base);
+    const float lmax = __shfl_sync(kAll, lh, win);
+    const float d = __fmul_rn(__fsub_rn(lh, lmax), -10.0f);
+    double v = floor(__dadd_rn(static_cast<double>(d) / kLn10, 0.5));
+    v = snv::is_nan(v) ? v : fmin(fmax(v, 0.0), 999.0);
+    if (live) o.pl[row * kGt + g] = snv::to_i32(v);
+
+    // the phreds and ln of the ref posterior on the lanes that own them:
+    // lane 3 i + j, j = 0, 1, 2: row i's snv_qphred, genome_max_gt_qphred,
+    // poly_max_gt_qphred; lane 9 + i: row i's ln_ref_pprob
+    const int i = lane < 3 * kBatch ? lane / 3 : min(lane - 3 * kBatch,
+                                                     kBatch - 1);
+    const int j = lane % 3;
+    const double x_ref = __shfl_sync(kAll, pref, i * kGt);
+    const double x_g = __shfl_sync(kAll, comp_g, i * kGt);
+    const double x_p = __shfl_sync(kAll, comp_p, i * kGt);
+    const long long row_i = b.first + i * step;
+    if (lane < 3 * b.n) {
+        const int q = snv::to_i32(phred10(j == 0 ? x_ref
+                                          : (j == 1 ? x_g : x_p)));
+        int* out = j == 0 ? o.snv_q : (j == 1 ? o.g_qmax : o.p_qmax);
+        out[row_i] = q;
+    } else if (lane >= 3 * kBatch && lane < 3 * kBatch + b.n) {
+        o.ln_ref[row_i] = log(snv::clamp_min(x_ref, snv::kF64Tiny));
     }
 }
 
-template <typename T, int R>
-int launch(const void* hist, const void* ref_gt, const void* hap,
-           const void* s_mis, const Tables& t, long long L, const Out& o,
-           void* stream) {
-    const long long blocks = (L + R - 1) / R;
-    snv_hist_tile_kernel<T, R><<<static_cast<unsigned>(blocks), R * kGt, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(hist), static_cast<const int*>(ref_gt),
-        static_cast<const uint8_t*>(hap), static_cast<const float*>(s_mis),
-        t, L, o);
+// row i of the warp's batch: its lhoods (lanes 0-9: genotype g = lane),
+// ref_gt and is_haploid; the lhoods are stored as they come
+__device__ __forceinline__ void stage_row(Batch& b, int i, float lh,
+                                          const RowVals& v, long long row,
+                                          const Out& o, int lane) {
+    if (lane < kGt) {
+        o.lhood[row * kGt + lane] = lh;
+        b.lh[i][lane] = lh;
+    }
+    if (lane == 0) {
+        b.ref[i] = v.ref;
+        b.hap[i] = v.hap;
+    }
+}
+
+// the dense entry's 16 counts of a lane: slots 16 l .. 16 l + 15
+template <typename T> struct Counts;
+
+template <> struct Counts<int8_t> {
+    uint4 v;
+    __device__ void load(const int8_t* row, int lane) {
+        v = __ldg(reinterpret_cast<const uint4*>(row) + lane);
+    }
+    // bit i for a nonzero count at slot 16 l + i
+    __device__ unsigned mask() const {
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            // 0x01 a nonzero byte, gathered to bits 24-27 (no carries)
+            const unsigned nz = __vcmpne4(w[j], 0u) & 0x01010101u;
+            m |= ((nz * 0x01020408u) >> 24) << (4 * j);
+        }
+        return m;
+    }
+    __device__ float at(int i) const {
+        const unsigned w = i < 8 ? (i < 4 ? v.x : v.y)
+                                 : (i < 12 ? v.z : v.w);
+        return static_cast<float>(
+            static_cast<int8_t>(w >> (8 * (i & 3))));
+    }
+};
+
+template <> struct Counts<int32_t> {
+    uint4 v[4];
+    __device__ void load(const int32_t* row, int lane) {
+        const uint4* p = reinterpret_cast<const uint4*>(row) + 4 * lane;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldg(p + j);
+    }
+    __device__ unsigned mask() const {
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            m |= (v[j].x != 0u ? 1u : 0u) << (4 * j)
+               | (v[j].y != 0u ? 2u : 0u) << (4 * j)
+               | (v[j].z != 0u ? 4u : 0u) << (4 * j)
+               | (v[j].w != 0u ? 8u : 0u) << (4 * j);
+        return m;
+    }
+    __device__ float at(int i) const {
+        const uint4 q = i < 8 ? (i < 4 ? v[0] : v[1])
+                              : (i < 12 ? v[2] : v[3]);
+        const unsigned w = (i & 2) ? ((i & 1) ? q.w : q.z)
+                                   : ((i & 1) ? q.y : q.x);
+        return static_cast<float>(static_cast<int>(w));
+    }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+snv_hist_tile_kernel(const T* __restrict__ hist, Row in, Tables t,
+                     long long L, Out o) {
+    __shared__ Staged s;
+    __shared__ __align__(16) float cnt_s[kWarps][kSlots];
+    __shared__ uint16_t slot_s[kWarps][kSlots];
+    __shared__ float lh_s[kWarps][kBatch][kGt];
+    __shared__ int ref_s[kWarps][kBatch];
+    __shared__ uint8_t hap_s[kWarps][kBatch];
+    stage(s, t);
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane % kGt;
+    float* cnt = cnt_s[w];
+    uint16_t* slot = slot_s[w];
+    // the tail's scratch: the list's space, free between a batch's walks
+    Batch batch{lh_s[w], ref_s[w], hap_s[w], reinterpret_cast<double*>(cnt),
+                0, 0};
+    const long long step = static_cast<long long>(gridDim.x) * kWarps;
+    long long row = static_cast<long long>(blockIdx.x) * kWarps + w;
+    Counts<T> c;
+    if (row < L) c.load(hist + row * kSlots, lane);
+    while (row < L) {    // a batch: up to kBatch of the warp's rows
+        batch.first = row;
+        for (batch.n = 0; batch.n < kBatch && row < L; ++batch.n) {
+            const Counts<T> cur = c;
+            if (row + step < L) c.load(hist + (row + step) * kSlots, lane);
+            const RowVals v = load_row(in, row);
+            // the live list: this lane's pairs after the lower lanes'
+            unsigned m = cur.mask();
+            const int n = __popc(m);
+            int incl = n;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const int y = __shfl_up_sync(kAll, incl, d);
+                if (lane >= d) incl += y;
+            }
+            const int live = __shfl_sync(kAll, incl, 31);
+            for (int pos = incl - n; m; ++pos) {
+                const int i = __ffs(m) - 1;
+                m &= m - 1;
+                slot[pos] = static_cast<uint16_t>(16 * lane + i);
+                cnt[pos] = cur.at(i);
+            }
+            __syncwarp();
+            float lh = 0.0f;
+#pragma unroll 4
+            for (int i = 0; i < live; ++i)
+                lh = __fmaf_rn(cnt[i], s.qtab[slot[i] * kGt + g], lh);
+            __syncwarp();    // the list is rewritten
+            stage_row(batch, batch.n, add_smis(s, lh, v, in, g), v, row, o,
+                      lane);
+            row += step;
+        }
+        __syncwarp();
+        batch_tail(s, batch, step, o, lane);
+        __syncwarp();
+    }
+}
+
+// the lanes entry: the warp's histogram counted from the row's calls
+template <typename Q>
+__global__ void __launch_bounds__(kWarps * 32)
+snv_lanes_tile_kernel(const int8_t* __restrict__ base,
+                      const Q* __restrict__ qual,
+                      const uint8_t* __restrict__ mask, long long D, Row in,
+                      Tables t, long long L, Out o) {
+    __shared__ Staged s;
+    __shared__ __align__(16) int h_s[kWarps][kSlots];
+    __shared__ float lh_s[kWarps][kBatch][kGt];
+    __shared__ int ref_s[kWarps][kBatch];
+    __shared__ uint8_t hap_s[kWarps][kBatch];
+    __shared__ double x_s[kWarps][32];
+    stage(s, t);
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane % kGt;
+    int* h = h_s[w];
+    Batch batch{lh_s[w], ref_s[w], hap_s[w], x_s[w], 0, 0};
+    int4* h4 = reinterpret_cast<int4*>(h);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h4[4 * lane + j] = make_int4(0, 0, 0, 0);
+    __syncwarp();
+    const long long step = static_cast<long long>(gridDim.x) * kWarps;
+    long long row = static_cast<long long>(blockIdx.x) * kWarps + w;
+    while (row < L) {    // a batch: up to kBatch of the warp's rows
+        batch.first = row;
+        for (batch.n = 0; batch.n < kBatch && row < L; ++batch.n) {
+            const RowVals v = load_row(in, row);
+            // a call's three loads at once, then its count
+            for (long long d = lane; d < D; d += 32) {
+                const long long i = row * D + d;
+                const bool m = mask[i];
+                const int b = base[i];
+                const int q = qual[i];
+                if (m && b >= 0 && b < kBases)
+                    atomicAdd(&h[(q < 0 ? 0 : (q > kQ - 1 ? kQ - 1 : q))
+                                 * kBases + b], 1);
+            }
+            __syncwarp();
+            // the row's live slots: bit l of word x for slot 32 x + l, word
+            // x kept by lane x; the words that hold a live slot
+            unsigned word = 0;
+#pragma unroll
+            for (int x = 0; x < kSlots / 32; ++x) {
+                const unsigned b = __ballot_sync(kAll, h[32 * x + lane] != 0);
+                word = lane == x ? b : word;
+            }
+            unsigned words = __ballot_sync(kAll, word != 0);
+            float lh = 0.0f;
+            while (words) {
+                const int x = __ffs(words) - 1;
+                words &= words - 1;
+                unsigned bits = __shfl_sync(kAll, word, x);
+                while (bits) {
+                    const int k = 32 * x + __ffs(bits) - 1;
+                    bits &= bits - 1;
+                    lh = __fmaf_rn(static_cast<float>(h[k]),
+                                   s.qtab[k * kGt + g], lh);
+                }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int j = 0; j < 4; ++j)    // clear the bins for the next row
+                h4[4 * lane + j] = make_int4(0, 0, 0, 0);
+            __syncwarp();
+            stage_row(batch, batch.n, add_smis(s, lh, v, in, g), v, row, o,
+                      lane);
+            row += step;
+        }
+        __syncwarp();
+        batch_tail(s, batch, step, o, lane);
+        __syncwarp();
+    }
+}
+
+Tables tables(const void* qtab, const void* e0, const void* prior_genome,
+              const void* prior_poly, const void* prior_genome_haploid,
+              const void* prior_poly_haploid) {
+    return Tables{static_cast<const float*>(qtab),
+                  static_cast<const float*>(e0),
+                  {static_cast<const double*>(prior_genome),
+                   static_cast<const double*>(prior_poly),
+                   static_cast<const double*>(prior_genome_haploid),
+                   static_cast<const double*>(prior_poly_haploid)}};
+}
+
+Out outputs(void* lhood, void* g_max, void* p_max, void* snv_q,
+            void* g_qmax, void* p_qmax, void* pl, void* ln_ref) {
+    return Out{static_cast<float*>(lhood), static_cast<int*>(g_max),
+               static_cast<int*>(p_max), static_cast<int*>(snv_q),
+               static_cast<int*>(g_qmax), static_cast<int*>(p_qmax),
+               static_cast<int*>(pl), static_cast<double*>(ln_ref)};
+}
+
+Row row_inputs(const void* ref_gt, const void* hap, const void* s_mis) {
+    return Row{static_cast<const int*>(ref_gt),
+               static_cast<const uint8_t*>(hap),
+               static_cast<const float*>(s_mis)};
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, long long L, void* stream, Args... args) {
+    const long long blocks = snv::resident_blocks(
+        kernel, kWarps * 32, (L + kWarps - 1) / kWarps);
+    kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+             static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,14 +550,15 @@ int launch(const void* hist, const void* ref_gt, const void* hap,
 
 extern "C" {
 
-// hist [L, 512] int8 (hist_bytes 1) or int32 (hist_bytes 4), 16-byte
-// aligned; ref_gt [L] int32 in 0..4; hap [L] bool or null; s_mis [L, 4] f32
-// or null; qtab [512, 10] f32 (16-byte aligned), e0 [4, 10] f32, the four
-// [5, 10] float64 ln prior tables (genome, poly, genome_haploid,
-// poly_haploid); all contiguous on one device, L >= 1. Out: lhood [L, 10]
-// f32, genome_max_gt, poly_max_gt, snv_qphred, genome_max_gt_qphred,
-// poly_max_gt_qphred [L] int32, phred_loghood [L, 10] int32, ln_ref_pprob
-// [L] float64. Launches on `stream`; returns cudaGetLastError().
+// The dense entry. hist [L, 512] int8 (hist_bytes 1) or int32 (hist_bytes
+// 4), 16-byte aligned; ref_gt [L] int32 in 0..4; hap [L] bool or null;
+// s_mis [L, 4] f32 or null; qtab [512, 10] f32 (16-byte aligned), e0 [4,
+// 10] f32, the four [5, 10] float64 ln prior tables (genome, poly,
+// genome_haploid, poly_haploid); all contiguous on one device, L >= 1.
+// Out: lhood [L, 10] f32, genome_max_gt, poly_max_gt, snv_qphred,
+// genome_max_gt_qphred, poly_max_gt_qphred [L] int32, phred_loghood [L,
+// 10] int32, ln_ref_pprob [L] float64. Launches on `stream`; returns
+// cudaGetLastError().
 int snv_hist_tile_launch(const void* hist, int hist_bytes,
                          const void* ref_gt, const void* hap,
                          const void* s_mis, const void* qtab,
@@ -203,20 +569,46 @@ int snv_hist_tile_launch(const void* hist, int hist_bytes,
                          void* lhood, void* g_max, void* p_max, void* snv_q,
                          void* g_qmax, void* p_qmax, void* pl, void* ln_ref,
                          void* stream) {
-    const Tables t{static_cast<const float*>(qtab),
-                   static_cast<const float*>(e0),
-                   {static_cast<const double*>(prior_genome),
-                    static_cast<const double*>(prior_poly),
-                    static_cast<const double*>(prior_genome_haploid),
-                    static_cast<const double*>(prior_poly_haploid)}};
-    const Out o{static_cast<float*>(lhood), static_cast<int*>(g_max),
-                static_cast<int*>(p_max), static_cast<int*>(snv_q),
-                static_cast<int*>(g_qmax), static_cast<int*>(p_qmax),
-                static_cast<int*>(pl), static_cast<double*>(ln_ref)};
+    const Tables t = tables(qtab, e0, prior_genome, prior_poly,
+                            prior_genome_haploid, prior_poly_haploid);
+    const Out o = outputs(lhood, g_max, p_max, snv_q, g_qmax, p_qmax, pl,
+                          ln_ref);
+    const Row in = row_inputs(ref_gt, hap, s_mis);
     if (hist_bytes == 1)
-        return launch<int8_t, 32>(hist, ref_gt, hap, s_mis, t, L, o, stream);
+        return launch(snv_hist_tile_kernel<int8_t>, L, stream,
+                      static_cast<const int8_t*>(hist), in, t, L, o);
     if (hist_bytes == 4)
-        return launch<int32_t, 8>(hist, ref_gt, hap, s_mis, t, L, o, stream);
+        return launch(snv_hist_tile_kernel<int32_t>, L, stream,
+                      static_cast<const int32_t*>(hist), in, t, L, o);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The lanes entry. base [L, D] int8, qual [L, D] uint8 (qual_bytes 1) or
+// int16 (qual_bytes 2), mask [L, D] bool, D >= 0; the rest as the dense
+// entry's.
+int snv_lanes_tile_launch(const void* base, const void* qual, int qual_bytes,
+                          const void* mask, long long D, const void* ref_gt,
+                          const void* hap, const void* s_mis,
+                          const void* qtab, const void* e0,
+                          const void* prior_genome, const void* prior_poly,
+                          const void* prior_genome_haploid,
+                          const void* prior_poly_haploid, long long L,
+                          void* lhood, void* g_max, void* p_max,
+                          void* snv_q, void* g_qmax, void* p_qmax, void* pl,
+                          void* ln_ref, void* stream) {
+    const Tables t = tables(qtab, e0, prior_genome, prior_poly,
+                            prior_genome_haploid, prior_poly_haploid);
+    const Out o = outputs(lhood, g_max, p_max, snv_q, g_qmax, p_qmax, pl,
+                          ln_ref);
+    const Row in = row_inputs(ref_gt, hap, s_mis);
+    const int8_t* b = static_cast<const int8_t*>(base);
+    const uint8_t* m = static_cast<const uint8_t*>(mask);
+    if (qual_bytes == 1)
+        return launch(snv_lanes_tile_kernel<uint8_t>, L, stream, b,
+                      static_cast<const uint8_t*>(qual), m, D, in, t, L, o);
+    if (qual_bytes == 2)
+        return launch(snv_lanes_tile_kernel<int16_t>, L, stream, b,
+                      static_cast<const int16_t*>(qual), m, D, in, t, L, o);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

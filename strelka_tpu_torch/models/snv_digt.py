@@ -22,8 +22,11 @@ defines — ascending (q, base) slot, one f32 fused multiply-add per slot
 as the compiled library runs it, sequential 10-genotype sums — as loops
 of torch ops over columns (call_snv_hist_tile_plain, the CPU path), so
 a CUDA run gives the CPU path's bits for the lhood; on the card the
-histogram tile is one launch of the kernel KG-H
-(csrc/snv_hist_tile.cu), which gives the plain version's bits. RNA
+genotype tile is one launch of the kernel KG-H
+(csrc/snv_hist_tile.cu), which gives the plain version's bits: its
+lanes entry (call_snv_lanes_tile) counts the histogram from the
+pileup's lanes on the card, its dense entry (call_snv_hist_tile) takes
+a histogram counted elsewhere. RNA
 mode (the het-VF extension), where the JAX package runs its XLA tile on
 the CPU, and the strand-bias tile follow XLA's CPU arithmetic instead:
 per-call values from host tables, XLA's log and exp polynomials and its
@@ -470,6 +473,10 @@ def call_snv_hist_tile_plain(hist, ref_gt, is_haploid=None,
     tile's device: the CPU path, and what KG-H is held to on the card."""
     from ..ops import snv_kernels
     snv_kernels.count_plain("snv_hist_tile", hist.device)
+    return _hist_tile_plain(hist, ref_gt, is_haploid, theta, s_mis, cols)
+
+
+def _hist_tile_plain(hist, ref_gt, is_haploid, theta, s_mis, cols):
     tabs = _tables(theta, hist.device)
     lhood = _hist_lhood(hist, tabs["snv_qtab"], cols)
     if s_mis is not None:
@@ -480,10 +487,64 @@ def call_snv_hist_tile_plain(hist, ref_gt, is_haploid=None,
     return _result(lhood, _tile_tail(lhood, ref_gt, is_haploid, tabs))
 
 
+def call_snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid=None,
+                        theta: float = 0.001, s_mis=None) -> SnvCallResult:
+    """call_snv_tile's non-RNA pass from the tile's lanes (base_id,
+    qual, mask [L, D] of any integer widths and D; ref_gt [L] int32):
+    call_snv_hist_tile of _tile_hist's histogram, without the histogram
+    ever leaving the kernel on the card.
+
+    On CPU tensors this runs the plain version
+    (call_snv_lanes_tile_plain); on any other device KG-H's lanes entry
+    (ops/snv_kernels.snv_lanes_tile), which counts the histogram itself,
+    gives the plain version's bits and leaves genome_pprob and
+    poly_pprob None. It takes the native pileup's lanes (int8 base,
+    int16 or uint8 qual, bool mask); other widths are cast first, with
+    the histogram's rules kept (qual clamped to 0..127, a base outside
+    0..3 made -1)."""
+    if base_id.device.type == "cpu":
+        return call_snv_lanes_tile_plain(base_id, qual, mask, ref_gt,
+                                         is_haploid, theta, s_mis)
+    from ..ops import snv_kernels
+    tabs = _tables(theta, base_id.device)
+    (lhood, g_max, p_max, g_qref, g_qmax, p_qmax, pl,
+     g_lnref) = snv_kernels.snv_lanes_tile(
+        *_kernel_lanes(base_id, qual, mask), ref_gt, is_haploid, s_mis, tabs)
+    return _result(lhood, (None, None, g_max, p_max, g_qref, g_qmax,
+                           p_qmax, pl, g_lnref))
+
+
+def _kernel_lanes(base_id, qual, mask):
+    """The lanes in the widths KG-H's lanes entry takes (int8 base, int16
+    or uint8 qual, bool mask), contiguous, counting as _tile_hist counts
+    them: a base outside 0..3 becomes -1, a qual cast to int16 is
+    clamped to 0..127 first."""
+    if base_id.dtype != torch.int8:
+        base_id = torch.where((base_id >= 0) & (base_id < digt.N_BASE),
+                              base_id, -1).to(torch.int8)
+    if qual.dtype not in (torch.int16, torch.uint8):
+        qual = torch.clamp(qual, 0, _SNV_QTAB_SIZE - 1).to(torch.int16)
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    return base_id.contiguous(), qual.contiguous(), mask.contiguous()
+
+
+def call_snv_lanes_tile_plain(base_id, qual, mask, ref_gt, is_haploid=None,
+                              theta: float = 0.001,
+                              s_mis=None) -> SnvCallResult:
+    """The plain version of call_snv_lanes_tile: _tile_hist's histogram,
+    then call_snv_hist_tile_plain's arithmetic over its live slots."""
+    from ..ops import snv_kernels
+    snv_kernels.count_plain("snv_lanes_tile", base_id.device)
+    hist = _tile_hist(base_id, qual, mask)
+    cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
+    return _hist_tile_plain(hist, ref_gt, is_haploid, theta, s_mis, cols)
+
+
 def _tile_hist(base_id, qual, mask):
     """[L, Q*4] int32 (qscore, base) counts of the used calls of a
-    tile (integer scatter-add: exact in any order), contiguous, as the
-    card's kernel takes them."""
+    tile (integer scatter-add: exact in any order), contiguous: the
+    histogram that KG-H's lanes entry counts in shared memory."""
     L, D = base_id.shape
     K = _SNV_QTAB_SIZE * digt.N_BASE
     b = base_id.to(torch.int64)
@@ -515,13 +576,19 @@ def call_snv_tile(tile: SnvPileupTile, theta: float = 0.001,
     and the mismatch-term deltas then follow XLA's CPU dot order
     (_xla_hist_lhood), and dep_delta ([L, D] per-call deltas) replaces
     dep_smis.
+
+    Outside RNA mode a tile on a card goes to call_snv_lanes_tile (KG-H
+    counts its histogram); on the CPU the histogram is counted here and
+    goes to call_snv_hist_tile.
     """
+    if het_vf_extension <= 0 and tile.base_id.device.type != "cpu":
+        return call_snv_lanes_tile(tile.base_id, tile.qual, tile.mask,
+                                   tile.ref_gt, is_haploid, theta,
+                                   s_mis=dep_smis)
     hist = _tile_hist(tile.base_id, tile.qual, tile.mask)
     # the slots that hold a call in some row, which the plain products
-    # visit (a read-back to the host; the card's kernel needs none)
-    cols = None
-    if hist.device.type == "cpu" or het_vf_extension > 0:
-        cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
+    # visit (a read-back to the host)
+    cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
     if het_vf_extension <= 0:
         return call_snv_hist_tile(hist, tile.ref_gt, is_haploid, theta,
                                   s_mis=dep_smis, cols=cols)
@@ -1188,6 +1255,11 @@ def _genotype_rows(dev, put, base, qual, mask, ref_gt, hap, s_delta, theta,
     if s_delta is not None:
         sm = put(np.asarray(s_delta[t0:t1], np.float32))
     _tally("tile", dev, t1 - t0, base.shape[1])
+    if rna is None and dev.type != "cpu":
+        # the card counts the histogram from the lanes (KG-H's lanes
+        # entry): 4 bytes a lane go up at int16 qual
+        return call_snv_lanes_tile(put(base[t0:t1]), put(qual[t0:t1]),
+                                   put(mask[t0:t1]), rg, h, theta, s_mis=sm)
     if hist_ok:
         hist = np.zeros((t1 - t0, _SNV_QTAB_SIZE * digt.N_BASE), np.int8)
         from ..io.native import snv_hist_native
@@ -1213,10 +1285,12 @@ def _genotype_chunks(dev, base, qual, mask, ref_gt, hap, s_delta, theta,
                      rna=None):
     """Genotype pass of the torch tile functions over row chunks.
 
-    D <= 127: the (qscore, base) histogram is counted on the host
-    (native/snvhist.cpp, int8 cells cannot overflow) and only the
-    histogram goes to the device (call_snv_hist_tile); deeper tiles go
-    up whole and are counted there (call_snv_tile). rna =
+    On a card the tiles go up as lanes and KG-H counts their histogram
+    (call_snv_lanes_tile). On the CPU (the engine mesh's shards) with
+    D <= 127 the (qscore, base) histogram is counted on the host
+    (native/snvhist.cpp, int8 cells cannot overflow) and goes to
+    call_snv_hist_tile with its live slots; deeper tiles go to
+    call_snv_tile, which counts them. rna =
     (het_vf_extension, het_vf_increment, plane_fn): the tiles go up
     whole with the chunk's per-call dependent-eprob deltas (plane_fn,
     or None) and call_snv_tile adds the het-VF extension.

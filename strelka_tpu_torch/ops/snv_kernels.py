@@ -1,11 +1,24 @@
-"""The SNV models' CUDA kernels: KG-H, KS-G and KS-P.
+"""The SNV models' CUDA kernels: KG-H (two entries), KS-G and KS-P.
 
 Each replaces one program that the JAX package jits (XLA, no Pallas) and
 gives its plain version's bits on the card in one launch:
 
-- KG-H, snv_hist_tile (csrc/snv_hist_tile.cu): the germline SNV genotype
-  tile from a (qscore, base) histogram, models/snv_digt.call_snv_hist_tile;
-  plain version call_snv_hist_tile_plain;
+- KG-H (csrc/snv_hist_tile.cu), the germline SNV genotype tile, in two
+  entries of one source:
+  - snv_hist_tile, the dense entry: the tile from its (qscore, base)
+    histogram [L, 512] (int8 or int32 counts; 512 or 2,048 bytes a row),
+    models/snv_digt.call_snv_hist_tile; plain version
+    call_snv_hist_tile_plain;
+  - snv_lanes_tile, the lanes entry: the tile from the pileup's lanes,
+    base [L, D] int8, qual [L, D] int16 (the native pileup's width) or
+    uint8 and mask [L, D] bool (4 bytes a lane at int16 qual), whose
+    histogram it counts in shared memory,
+    models/snv_digt.call_snv_lanes_tile, the card's germline genotype
+    pass; plain version call_snv_lanes_tile_plain (_tile_hist, then
+    call_snv_hist_tile_plain's arithmetic).
+  Both walk a row's live slots only (a zero count adds exactly nothing:
+  the table is finite) and spread the float64 tail over the warp's lanes;
+  both are bounded by their bytes on the H100;
 - KS-G, somatic_grid (csrc/somatic_grid.cu): one sample's somatic
   frequency-grid lhoods, models/somatic_snv.freq_grid_lhoods; plain version
   freq_grid_lhoods_plain;
@@ -15,12 +28,13 @@ gives its plain version's bits on the card in one launch:
 
 The models' public functions run the plain version on CPU tensors and the
 kernel on any other device; a wrapper here checks its operands, builds and
-binds its library (csrc/<name>.cu, _build.load) and launches on the
+binds its library (csrc/<source>.cu, _build.load) and launches on the
 tensors' card and its current stream, and raises on what it does not take
 and where the build, the load or the launch fails: nothing falls back to
-the plain version. LAUNCHES counts each kernel's launches (a call with no
-rows launches nothing and counts nothing); PLAIN_ON_CUDA counts the plain
-versions' runs on a card, which no CLI path makes.
+the plain version. LAUNCHES counts each entry's launches under its own
+name (a call with no rows launches nothing and counts nothing);
+PLAIN_ON_CUDA counts the plain versions' runs on a card, which no CLI path
+makes.
 """
 from __future__ import annotations
 
@@ -31,15 +45,20 @@ import torch
 # (replaced TPU-side program, csrc source) of each kernel
 REPLACES = {
     "snv_hist_tile": "strelka_tpu/models/snv_digt.py:506",
+    "snv_lanes_tile": "strelka_tpu/models/snv_digt.py:536",
     "somatic_grid": "strelka_tpu/models/somatic_snv.py:102",
     "somatic_posterior": "strelka_tpu/models/somatic_snv.py:250",
 }
+# the csrc source of an entry not named after its own
+SOURCES = {"snv_lanes_tile": "snv_hist_tile"}
 LAUNCHES = {name: 0 for name in REPLACES}
 PLAIN_ON_CUDA = {name: 0 for name in REPLACES}
 
 _vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "snv_hist_tile": [_vp, _i, *[_vp] * 9, _ll, *[_vp] * 8, _vp],
+    "snv_lanes_tile": [_vp, _vp, _i, _vp, _ll, *[_vp] * 9, _ll, *[_vp] * 8,
+                       _vp],
     "somatic_grid": [*[_vp] * 5, _ll, _ll, *[_vp] * 6, ctypes.c_float, _vp,
                      _vp],
     "somatic_posterior": [*[_vp] * 6, _ll, *[_vp] * 6, _vp],
@@ -60,13 +79,18 @@ def count_plain(name: str, dev) -> None:
         PLAIN_ON_CUDA[name] += 1
 
 
+def source(name: str) -> str:
+    """The csrc source (without .cu) that holds entry `name`."""
+    return SOURCES.get(name, name)
+
+
 def function(name: str):
-    """Kernel `name`'s launch function, bound with ctypes; builds its
-    library (csrc/<name>.cu) first if stale. Raises where the build or
+    """Entry `name`'s launch function, bound with ctypes; builds its
+    library (csrc/<source>.cu) first if stale. Raises where the build or
     the load fails."""
     if name not in _BOUND:
         from .. import _build
-        fn = getattr(_build.load(name), f"{name}_launch")
+        fn = getattr(_build.load(source(name)), f"{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
         _BOUND[name] = fn
@@ -120,29 +144,26 @@ _F32, _F64, _BOOL, _I32 = ((torch.float32,), (torch.float64,),
                            (torch.bool,), (torch.int32,))
 
 
-def snv_hist_tile(hist, ref_gt, is_haploid, s_mis, tabs):
-    """KG-H: (lhood [L,10] f32, genome_max_gt, poly_max_gt, snv_qphred,
-    genome_max_gt_qphred, poly_max_gt_qphred [L] int32, phred_loghood
-    [L,10] int32, ln_ref_pprob [L] f64) of call_snv_hist_tile. hist [L,
-    512] int8 or int32 (16-byte aligned), ref_gt [L] int32 in 0..4,
-    is_haploid [L] bool or None, s_mis [L,4] f32 or None, tabs =
-    convert.device_tables on the same card."""
-    name = "snv_hist_tile"
-    dev = hist.device
-    L = hist.shape[0]
-    qtab, e0 = tabs["snv_qtab"], tabs["e0_tab"]
-    priors = [tabs[f"prior_{k}"] for k in ("genome", "poly",
-                                           "genome_haploid", "poly_haploid")]
-    _check(name, dev, [
-        ("hist", hist, (torch.int8, torch.int32), (None, 512)),
-        ("ref_gt", ref_gt, _I32, (L,)),
-        ("is_haploid", is_haploid, _BOOL, (L,)),
-        ("s_mis", s_mis, _F32, (L, 4)),
-        ("snv_qtab", qtab, _F32, (512, 10)),
-        ("e0_tab", e0, _F32, (4, 10)),
-        *[(f"prior {i}", p, _F64, (5, 10)) for i, p in enumerate(priors)]])
-    _aligned(name, "hist", hist)
-    _aligned(name, "snv_qtab", qtab)
+_PRIORS = ("genome", "poly", "genome_haploid", "poly_haploid")
+
+
+def _tile_specs(L, ref_gt, is_haploid, s_mis, tabs):
+    """The operand checks that KG-H's two entries share."""
+    return [("ref_gt", ref_gt, _I32, (L,)),
+            ("is_haploid", is_haploid, _BOOL, (L,)),
+            ("s_mis", s_mis, _F32, (L, 4)),
+            ("snv_qtab", tabs["snv_qtab"], _F32, (512, 10)),
+            ("e0_tab", tabs["e0_tab"], _F32, (4, 10)),
+            *[(f"prior_{k}", tabs[f"prior_{k}"], _F64, (5, 10))
+              for k in _PRIORS]]
+
+
+def _tile_launch(name, dev, L, head, ref_gt, is_haploid, s_mis, tabs):
+    """Allocate KG-H's outputs and launch entry `name` with its own
+    leading arguments `head`; returns (lhood, genome_max_gt, poly_max_gt,
+    snv_qphred, genome_max_gt_qphred, poly_max_gt_qphred, phred_loghood,
+    ln_ref_pprob)."""
+    _aligned(name, "snv_qtab", tabs["snv_qtab"])
     i32 = dict(dtype=torch.int32, device=dev)
     lhood = torch.empty((L, 10), dtype=torch.float32, device=dev)
     ints = [torch.empty(L, **i32) for _ in range(5)]
@@ -150,12 +171,55 @@ def snv_hist_tile(hist, ref_gt, is_haploid, s_mis, tabs):
     ln_ref = torch.empty(L, dtype=torch.float64, device=dev)
     if L:
         _launch(name, dev, [
-            hist.data_ptr(), hist.element_size(), ref_gt.data_ptr(),
-            _ptr(is_haploid), _ptr(s_mis), qtab.data_ptr(), e0.data_ptr(),
-            *[p.data_ptr() for p in priors], L, lhood.data_ptr(),
-            *[t.data_ptr() for t in ints], pl.data_ptr(), ln_ref.data_ptr()])
+            *head, ref_gt.data_ptr(), _ptr(is_haploid), _ptr(s_mis),
+            tabs["snv_qtab"].data_ptr(), tabs["e0_tab"].data_ptr(),
+            *[tabs[f"prior_{k}"].data_ptr() for k in _PRIORS], L,
+            lhood.data_ptr(), *[t.data_ptr() for t in ints], pl.data_ptr(),
+            ln_ref.data_ptr()])
     g_max, p_max, g_qref, g_qmax, p_qmax = ints
     return lhood, g_max, p_max, g_qref, g_qmax, p_qmax, pl, ln_ref
+
+
+def snv_hist_tile(hist, ref_gt, is_haploid, s_mis, tabs):
+    """KG-H's dense entry: (lhood [L,10] f32, genome_max_gt, poly_max_gt,
+    snv_qphred, genome_max_gt_qphred, poly_max_gt_qphred [L] int32,
+    phred_loghood [L,10] int32, ln_ref_pprob [L] f64) of
+    call_snv_hist_tile. hist [L, 512] int8 or int32 (16-byte aligned),
+    ref_gt [L] int32 in 0..4, is_haploid [L] bool or None, s_mis [L,4]
+    f32 or None, tabs = convert.device_tables on the same card."""
+    name = "snv_hist_tile"
+    dev = hist.device
+    L = hist.shape[0]
+    _check(name, dev, [
+        ("hist", hist, (torch.int8, torch.int32), (None, 512)),
+        *_tile_specs(L, ref_gt, is_haploid, s_mis, tabs)])
+    _aligned(name, "hist", hist)
+    return _tile_launch(name, dev, L, [hist.data_ptr(), hist.element_size()],
+                        ref_gt, is_haploid, s_mis, tabs)
+
+
+def snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid, s_mis, tabs):
+    """KG-H's lanes entry: snv_hist_tile's eight outputs, of the
+    histogram of the tile's used calls (_tile_hist: q = clamp(qual, 0,
+    127), a call counted where mask and 0 <= base_id < 4), counted by the
+    kernel. base_id [L, D] int8, qual [L, D] int16 or uint8, mask [L, D]
+    bool (the native pileup's lanes; call_snv_lanes_tile casts other
+    widths), any D >= 0; the rest as snv_hist_tile's."""
+    name = "snv_lanes_tile"
+    dev = base_id.device
+    if base_id.dim() != 2:
+        raise ValueError(f"{name}: base_id must be [L, D], got "
+                         f"{tuple(base_id.shape)}")
+    L, D = base_id.shape
+    _check(name, dev, [
+        ("base_id", base_id, (torch.int8,), (L, D)),
+        ("qual", qual, (torch.int16, torch.uint8), (L, D)),
+        ("mask", mask, _BOOL, (L, D)),
+        *_tile_specs(L, ref_gt, is_haploid, s_mis, tabs)])
+    return _tile_launch(
+        name, dev, L, [base_id.data_ptr(), qual.data_ptr(),
+                       qual.element_size(), mask.data_ptr(), D],
+        ref_gt, is_haploid, s_mis, tabs)
 
 
 _GRID_TABLES = ("grid_ref", "grid_alt", "grid_on_ref", "grid_on_alt",

@@ -1325,6 +1325,46 @@ def hist_tile(rng, L, D, hist_dtype=np.int8):
     return h.astype(hist_dtype), ref, hap, smis
 
 
+def lane_tile(rng, L, D, kind, qual_dtype=np.int16):
+    """A germline tile of `kind`: the live slots a row that it gives
+    (0, 1, 4, 32 or all 512 of a full row), or "random" (45 qualities, q
+    = 0 calls, 20% masked lanes, all-masked rows)."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    refb = np.minimum(ref, 3)[:, None]
+    mask = np.ones((L, D), bool)
+    if kind == "random":
+        base = np.where(rng.random((L, D)) < 0.3, rng.integers(-1, 5, (L, D)),
+                        refb).astype(np.int8)
+        qual = rng.integers(0, 45, (L, D))
+        qual[rng.random((L, D)) < 0.02] = 0
+        mask = rng.random((L, D)) < 0.8
+        mask[:max(L // 50, 1)] = False
+    elif kind == 0:
+        base = np.broadcast_to(refb, (L, D)).astype(np.int8)
+        qual = np.full((L, D), 32)
+        mask[:] = False
+    elif kind in (1, 4, 32):
+        # one quality (the CLI's reads), two qualities x ref/alt, or
+        # eight qualities x four bases; every slot met where D allows
+        nq, nb = {1: (1, 1), 4: (2, 2), 32: (8, 4)}[kind]
+        pick = np.arange(D)[None] % (nq * nb)
+        pick = np.take_along_axis(
+            np.broadcast_to(pick, (L, D)),
+            np.argsort(rng.random((L, D)), axis=1), axis=1)
+        qs = np.array([32, 37, 12, 25, 2, 40, 20, 30])[:nq]
+        qual = qs[pick // nb]
+        base = ((refb + pick % nb) % 4).astype(np.int8)
+    else:                       # 512: every (q, base) slot once a row
+        assert D >= 512
+        slot = np.argsort(rng.random((L, D)), axis=1) % 512
+        qual, base = slot // 4, (slot % 4).astype(np.int8)
+    hap = rng.random(L) < 0.2
+    smis = np.where(rng.random((L, 4)) < 0.1,
+                    rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
+    return (base, np.asarray(qual).astype(qual_dtype), mask, ref, hap,
+            smis)
+
+
 def kgh_against_plain(dev, hist, ref, hap, smis):
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import snv_kernels as snk
@@ -1372,6 +1412,88 @@ def test_kgh_ninf_and_nan_rows_bit_identical_to_plain(cuda, fill):
 def test_kgh_ragged_and_tiny_tiles(cuda, L):
     h, ref, hap, smis = hist_tile(np.random.default_rng(L), L, 50)
     kgh_against_plain(cuda, h, ref, hap, smis)
+
+
+@pytest.mark.parametrize("kind,D", [(1, 64), (4, 64), (32, 64),
+                                    (512, 512)])
+def test_kgh_sparse_and_full_rows_bit_identical_to_plain(cuda, kind, D):
+    """Rows with 1, 4, 32 and all 512 live slots: the dense entry walks
+    its live list only."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    base, qual, mask, ref, hap, smis = lane_tile(np.random.default_rng(D),
+                                                 1500, D, kind)
+    h = sd._tile_hist(*(torch.from_numpy(a) for a in (base, qual, mask)))
+    kgh_against_plain(cuda, h.numpy().astype(np.int8 if D < 128
+                                             else np.int32), ref, hap, smis)
+
+
+def lanes_against_plain(dev, base, qual, mask, ref, hap, smis):
+    """KG-H's lanes entry against _tile_hist plus the plain version (the
+    lanes entry's plain version), every field bit for bit, one launch."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    t = [None if a is None else torch.from_numpy(a).to(dev)
+         for a in (base, qual, mask, ref, hap, smis)]
+    before = dict(snk.LAUNCHES)
+    got = sd.call_snv_lanes_tile(*t[:5], 0.001, s_mis=t[5])
+    assert snk.LAUNCHES == dict(before, snv_lanes_tile=(
+        before["snv_lanes_tile"] + (len(ref) > 0)))
+    want = sd.call_snv_lanes_tile_plain(*t[:5], 0.001, s_mis=t[5])
+    torch.cuda.synchronize()
+    for f in sd._PULL:
+        assert same_bits(getattr(got, f), getattr(want, f)), f
+    return got
+
+
+@pytest.mark.parametrize("D", [32, 64, 127, 160, 300])
+@pytest.mark.parametrize("qual_dtype", [np.int16, np.uint8])
+def test_kgh_lanes_bit_identical_to_plain(cuda, D, qual_dtype):
+    """Random tiles (q = 0 calls, bases -1 and 4, masked lanes, all-masked
+    rows, haploid rows, s_mis) at the pileup's qual widths; D > 127 is
+    call_snv_tile's deep pass."""
+    lanes_against_plain(cuda, *lane_tile(np.random.default_rng(D), 3001, D,
+                                         "random", qual_dtype))
+
+
+@pytest.mark.parametrize("kind", [0, 1, 4, 32, 512])
+def test_kgh_lanes_sparse_and_full_rows_bit_identical_to_plain(cuda, kind):
+    D = 512 if kind == 512 else 64
+    lanes_against_plain(cuda, *lane_tile(np.random.default_rng(kind + 40),
+                                         2000, D, kind))
+
+
+@pytest.mark.parametrize("fill", ["ninf", "nan"])
+def test_kgh_lanes_ninf_and_nan_rows_bit_identical_to_plain(cuda, fill):
+    base, qual, mask, ref, hap, smis = lane_tile(np.random.default_rng(7),
+                                                 500, 64, "random")
+    smis[:40] = -np.inf if fill == "ninf" else np.nan
+    got = lanes_against_plain(cuda, base, qual, mask, ref, hap, smis)
+    assert (got.snv_qphred[:40] == 0).all()
+    assert (got.phred_loghood[:40] == 0).all()
+
+
+@pytest.mark.parametrize("L,D", [(0, 40), (1, 40), (33, 0), (1031, 50)])
+def test_kgh_lanes_ragged_and_tiny_tiles(cuda, L, D):
+    lanes_against_plain(cuda, *lane_tile(np.random.default_rng(L + 3), L, D,
+                                         "random"))
+
+
+def test_kgh_lanes_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """On the card too: qual of another width, lanes on two devices, a
+    strided tile; nothing launches."""
+    from strelka_tpu_torch import convert
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    base, qual, mask, ref, hap, smis = (
+        torch.from_numpy(a).to(cuda)
+        for a in lane_tile(np.random.default_rng(3), 64, 32, "random"))
+    tabs = convert.device_tables(0.001, cuda)
+    before = dict(snk.LAUNCHES)
+    for args in ((base, qual.int(), mask, ref, hap, smis),
+                 (base, qual, mask.cpu(), ref, hap, smis),
+                 (base[:, ::2], qual[:, ::2], mask[:, ::2], ref, hap, smis)):
+        with pytest.raises(ValueError):
+            snk.snv_lanes_tile(*args, tabs)
+    assert snk.LAUNCHES == before
 
 
 def ksg_against_plain(dev, tile):
@@ -1541,7 +1663,8 @@ def test_snv_paths_launch_the_kernels_not_the_plain_versions(cuda):
                for k, stats in (("tile", sd.LAUNCH_STATS),
                                 ("grid", ss.LAUNCH_STATS),
                                 ("post", ss.LAUNCH_STATS))}
-    assert snk.LAUNCHES == {"snv_hist_tile": tallies["tile"],
+    assert snk.LAUNCHES == {"snv_hist_tile": 0,
+                            "snv_lanes_tile": tallies["tile"],
                             "somatic_grid": tallies["grid"],
                             "somatic_posterior": tallies["post"]}
     assert all(tallies.values())

@@ -1,5 +1,5 @@
-"""The SNV models' kernels (ops/snv_kernels: KG-H, KS-G, KS-P) and their
-plain versions, on the CPU.
+"""The SNV models' kernels (ops/snv_kernels: KG-H's dense and lanes
+entries, KS-G, KS-P) and their plain versions, on the CPU.
 
 - Rows whose lhoods are all -inf or NaN: the port's somatic_snv_call and
   the germline tile tail give the JAX package's integer fields (XLA's
@@ -104,6 +104,19 @@ def hist_inputs(rng, L, dtype=np.int8):
     return [torch.from_numpy(a) for a in (hist, ref, hap, smis)]
 
 
+def lane_inputs(rng, L, D, qual_dtype=np.int16):
+    """KG-H's lanes entry's operands: (base, qual, mask, ref, hap, smis)."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.8, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 5, (L, D))).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D)).astype(qual_dtype)
+    mask = rng.random((L, D)) < 0.85
+    hap = rng.random(L) < 0.2
+    smis = np.where(rng.random((L, 4)) < 0.1,
+                    rng.random((L, 4)) * 0.5, 0.0).astype(np.float32)
+    return [torch.from_numpy(a) for a in (base, qual, mask, ref, hap, smis)]
+
+
 def grid_inputs(rng, L, D):
     ref = rng.integers(0, 5, L).astype(np.int32)
     base = np.where(rng.random((L, D)) < 0.8, np.minimum(ref, 3)[:, None],
@@ -133,6 +146,12 @@ def test_cpu_tensors_reach_the_plain_versions(no_kernel):
     want = tsd.call_snv_hist_tile_plain(hist, ref, hap, 0.001, s_mis=smis)
     for f in tsd._PULL:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    base, qual, mask, ref, hap, smis = lane_inputs(rng, 40, 24)
+    got = tsd.call_snv_lanes_tile(base, qual, mask, ref, hap, s_mis=smis)
+    want = tsd.call_snv_lanes_tile_plain(base, qual, mask, ref, hap,
+                                         s_mis=smis)
+    for f in tsd._PULL:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
     tiles = [grid_inputs(rng, 30, 24) for _ in range(2)]
     g = [tss.freq_grid_lhoods(*x) for x in tiles]
     for lh, x in zip(g, tiles):
@@ -146,6 +165,11 @@ def test_cpu_tensors_reach_the_plain_versions(no_kernel):
 def hist_call(hist, ref, hap, smis):
     return sk.snv_hist_tile(hist, ref, hap, smis,
                             convert.device_tables(0.001, CPU))
+
+
+def lanes_call(base, qual, mask, ref, hap, smis):
+    return sk.snv_lanes_tile(base, qual, mask, ref, hap, smis,
+                             convert.device_tables(0.001, CPU))
 
 
 def grid_call(base, qual, mask, fwd, ref):
@@ -164,6 +188,7 @@ def _bad_inputs():
     """(label, call) pairs that each wrapper must reject."""
     rng = np.random.default_rng(7)
     hist, ref, hap, smis = hist_inputs(rng, 16)
+    lb, lq, lm, lref, lhap, lsmis = lane_inputs(rng, 16, 24)
     base, qual, mask, fwd, gref = grid_inputs(rng, 16, 24)
     n = torch.from_numpy(lhood_rows(rng, 16))
     t = torch.from_numpy(lhood_rows(rng, 16))
@@ -181,6 +206,24 @@ def _bad_inputs():
                                         smis)),
         ("smis_device", lambda: hist_call(hist, ref, hap, smis.to(meta))),
         ("smis_dtype", lambda: hist_call(hist, ref, hap, smis.double())),
+        ("lanes_base_int32", lambda: lanes_call(lb.int(), lq, lm, lref,
+                                                lhap, lsmis)),
+        ("lanes_qual_int32", lambda: lanes_call(lb, lq.int(), lm, lref,
+                                                lhap, lsmis)),
+        ("lanes_qual_float", lambda: lanes_call(lb, lq.float(), lm, lref,
+                                                lhap, lsmis)),
+        ("lanes_mask_dtype", lambda: lanes_call(lb, lq, lm.to(torch.uint8),
+                                                lref, lhap, lsmis)),
+        ("lanes_shape", lambda: lanes_call(lb, lq[:, :12].contiguous(), lm,
+                                           lref, lhap, lsmis)),
+        ("lanes_rank", lambda: lanes_call(lb[0], lq[0], lm[0], lref[:1],
+                                          lhap[:1], lsmis[:1])),
+        ("lanes_strided", lambda: lanes_call(lb[:, ::2], lq[:, ::2],
+                                             lm[:, ::2], lref, lhap, lsmis)),
+        ("lanes_ref_rows", lambda: lanes_call(lb, lq, lm, lref[:8], lhap,
+                                              lsmis)),
+        ("lanes_smis_device", lambda: lanes_call(lb, lq, lm, lref, lhap,
+                                                 lsmis.to(meta))),
         ("grid_mask_dtype", lambda: grid_call(base, qual, mask.to(torch.int8),
                                               fwd, gref)),
         ("grid_qual_float", lambda: grid_call(base, qual.float(), mask, fwd,
@@ -215,13 +258,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case, no_kernel):
         call()
 
 
-@pytest.mark.parametrize("which", ["hist", "grid", "post"])
+@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post"])
 def test_wrappers_refuse_cpu_tensors(which, monkeypatch):
     """A wrapper given CPU tensors (which the public functions never
     hand it) binds its kernel and then refuses the device."""
     monkeypatch.setattr(sk, "function", lambda name: None)
     rng = np.random.default_rng(8)
     call = {"hist": lambda: hist_call(*hist_inputs(rng, 4)),
+            "lanes": lambda: lanes_call(*lane_inputs(rng, 4, 8)),
             "grid": lambda: grid_call(*grid_inputs(rng, 4, 8)),
             "post": lambda: post_call(
                 torch.from_numpy(lhood_rows(rng, 4)),
@@ -230,6 +274,50 @@ def test_wrappers_refuse_cpu_tensors(which, monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         call()
     assert not any(sk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32,
+                                   torch.int64])
+def test_snv_lanes_reach_the_kernel_in_the_pileups_widths(dtype,
+                                                         monkeypatch):
+    """call_snv_lanes_tile takes integer lanes of any width; on a card
+    KG-H's lanes entry gets int8 base, int16 or uint8 qual and bool mask
+    (meta tensors stand in for the card), cast as _tile_hist counts
+    them: a base outside 0..3 as -1, a qual cast to int16 clamped to
+    0..127 first."""
+    seen = {}
+
+    def kernel(base, qual, mask, ref, hap, smis, tabs):
+        seen.update(base=base.dtype, qual=qual.dtype, mask=mask.dtype)
+        L = base.shape[0]
+        f = dict(device=base.device)
+        return (torch.empty((L, 10), **f),
+                *[torch.empty(L, dtype=torch.int32, **f)] * 5,
+                torch.empty((L, 10), dtype=torch.int32, **f),
+                torch.empty(L, dtype=torch.float64, **f))
+    monkeypatch.setattr(sk, "snv_lanes_tile", kernel)
+    meta = torch.device("meta")
+    base, qual, mask, ref, _, _ = lane_inputs(np.random.default_rng(13), 8,
+                                              16)
+    out = tsd.call_snv_lanes_tile(base.to(dtype).to(meta),
+                                  qual.to(dtype).to(meta),
+                                  mask.to(torch.uint8).to(meta), ref.to(meta))
+    assert out.lhood.shape == (8, 10)
+    assert seen == dict(base=torch.int8, qual=torch.uint8 if dtype ==
+                        torch.uint8 else torch.int16, mask=torch.bool)
+    base = torch.tensor([[0, 3, 4, -1, 260, 2]])
+    qual = torch.tensor([[0, 30, 127, 128, 300, -5]])
+    mask = torch.tensor([[1, 1, 1, 0, 1, 1]], dtype=torch.uint8)
+    b, q, m = tsd._kernel_lanes(base.to(dtype), qual.to(dtype), mask)
+    assert b.tolist() == [[0, 3, -1, -1, -1, 2]]    # uint8: 4 and 255
+    want = qual.to(dtype)
+    if dtype not in (torch.uint8, torch.int16):
+        want = want.clamp(0, 127)
+    assert q.dtype == seen["qual"] and q.tolist() == want.tolist()
+    assert m.tolist() == [[True, True, True, False, True, True]]
+    assert torch.equal(tsd._tile_hist(b, q, m),
+                       tsd._tile_hist(base.to(dtype), qual.to(dtype),
+                                      mask.bool()))
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32,
@@ -266,11 +354,11 @@ def broken_loader(monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(sk.REPLACES))
 def test_load_step_raises_without_the_library(name, broken_loader):
-    with pytest.raises(RuntimeError, match=f"lib{name}.so"):
+    with pytest.raises(RuntimeError, match=f"lib{sk.source(name)}.so"):
         sk.function(name)
 
 
-@pytest.mark.parametrize("which", ["hist", "grid", "post"])
+@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post"])
 def test_no_fallback_to_the_plain_version(which, broken_loader):
     """The public functions on a non-CPU tensor go to the kernel alone:
     where it cannot be loaded they raise, and never return the plain
@@ -280,6 +368,11 @@ def test_no_fallback_to_the_plain_version(which, broken_loader):
     if which == "hist":
         hist, ref, hap, smis = (x.to(meta) for x in hist_inputs(rng, 8))
         args, fn = (hist, ref, hap, 0.001, smis), tsd.call_snv_hist_tile
+    elif which == "lanes":
+        base, qual, mask, ref, hap, smis = (x.to(meta)
+                                            for x in lane_inputs(rng, 8, 16))
+        args, fn = ((base, qual, mask, ref, hap, 0.001, smis),
+                    tsd.call_snv_lanes_tile)
     elif which == "grid":
         args = [a.to(meta) for a in grid_inputs(rng, 8, 16)]
         fn = tss.freq_grid_lhoods
@@ -299,9 +392,10 @@ def test_empty_tiles_launch_nothing(monkeypatch):
     monkeypatch.setattr(sk, "function", lambda name: None)
     sk.reset()
     rng = np.random.default_rng(10)
-    out = hist_call(*hist_inputs(rng, 0))
-    assert [tuple(t.shape) for t in out] == [(0, 10)] + [(0,)] * 5 + \
-        [(0, 10), (0,)]
+    for out in (hist_call(*hist_inputs(rng, 0)),
+                lanes_call(*lane_inputs(rng, 0, 8))):
+        assert [tuple(t.shape) for t in out] == [(0, 10)] + [(0,)] * 5 + \
+            [(0, 10), (0,)]
     assert grid_call(*grid_inputs(rng, 0, 8)).shape == (0, 30)
     e = torch.zeros((0, 30))
     assert all(t.shape == (0,) for t in post_call(e, e))
@@ -330,4 +424,8 @@ def test_plain_versions_take_zero_rows():
     assert tss.freq_grid_lhoods_plain(*grid_inputs(rng, 0, 8)).shape == (0, 30)
     hist, ref, hap, smis = hist_inputs(rng, 0)
     g = tsd.call_snv_hist_tile_plain(hist, ref, hap, s_mis=smis)
+    assert g.lhood.shape == (0, 10) and g.phred_loghood.shape == (0, 10)
+    base, qual, mask, ref, hap, smis = lane_inputs(rng, 0, 8)
+    g = tsd.call_snv_lanes_tile_plain(base, qual, mask, ref, hap,
+                                      s_mis=smis)
     assert g.lhood.shape == (0, 10) and g.phred_loghood.shape == (0, 10)
