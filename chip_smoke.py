@@ -51,10 +51,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    KX-K's row also carries its design's own floor, two bf16 passes of
    the one-hot product;
 3. snv: the SNV tile functions on the card against the port's CPU path
-   (integer fields equal, lhood bit-equal), and RNA mode's tiles (the
-   het-VF extension with per-call dependent-eprob deltas, at a tile's
-   own D and in chunks padded to 32) with lhood, strand bias and the
-   integer fields bit-equal; then KG-H (csrc/snv_hist_tile.cu, the
+   (integer fields equal, lhood and strand bias bit-equal), and RNA
+   mode's tiles (the het-VF extension with per-call dependent-eprob
+   deltas, at a tile's own D and in chunks padded to 32; KG-R and KG-SB
+   on the card) with lhood, strand bias and the integer fields
+   bit-equal; then KG-H (csrc/snv_hist_tile.cu, the
    germline genotype tile) in both its entries, the dense one
    (call_snv_hist_tile) on each tile's histogram and the lanes one
    (call_snv_lanes_tile) on its int16 or uint8 lanes, against their plain
@@ -87,11 +88,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. e2e: the germline CLI with --device cuda (WGS mode) on a synthetic
    contig (default 4 Mb at 30x, 150 bp reads), with the launch counters
    set to 0 just before and read just after (the K1-x kernels' and
-   K1-s's must read 0, KG-H must read the SNV tile tally and no plain
-   SNV model version may run on the card, every genotype tile through
-   KG-H's lanes entry and no (qscore, base) histogram counted on the
-   host), K1's launches by shape and its stream ms, the SNV tiles'
-   stream and host ms;
+   K1-s's must read 0, KG-H must read the SNV tile tally and KG-SB
+   (csrc/snv_strand_bias.cu) the strand-bias tally, at least one each,
+   and no plain SNV model version may run on the card, every genotype
+   tile through KG-H's lanes entry and no (qscore, base) histogram
+   counted on the host), K1's launches by shape and its stream ms, the
+   SNV tiles' stream and host ms;
 4b. KG-H's lanes entry on phase 4's first genotype chunk as the CLI
    made it (int8 base, int16 qual, bool mask), held bit for bit against
    its plain version and the dense entry on the chunk's histogram, timed
@@ -149,7 +151,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. RNA: germline --rna --disable-evs on phase 4's contig's first
    RNA_MB Mb (2 of its 4, for the time limit), cuda then cpu, every
    record equal; the SNV tiles' launches and stream ms on the card (the
-   het-VF extension there);
+   het-VF extension there): KG-R (csrc/snv_rna_tile.cu) once a genotype
+   tile tally and KG-SB once a strand-bias tally, no plain version
+   (phase 12 is held to the same tallies with KG-H's lanes entry);
+14b. KG-SB on phase 4's first strand-bias call and KG-R and KG-SB on
+   phase 14's first RNA tile and strand-bias call, kept as the CLIs made
+   them, each held bit for bit against its plain version, timed by CUDA
+   events and graph replay beside the plain version on the card (run
+   there in this phase alone), one call of each traced, with the bound
+   (kgsb_work, kgr_work), registers and spills;
 15. error estimation: germline --estimate-sequence-error on phase 4's
    contig's first CONT_MB Mb, cuda then cpu: the allele counts' npz
    arrays equal, the model's rates within ERR_FLAT_RTOL, every record
@@ -1084,6 +1094,8 @@ def phase_snv(np, torch, dev, cuda: bool, L: int, parent=None):
                               want.lhood.view(np.int32)):
             fail(f"snv D={D}: lhood not bit-equal "
                  f"({int((got.lhood != want.lhood).sum())} entries)")
+        if got.strand_bias.tobytes() != want.strand_bias.tobytes():
+            fail(f"snv D={D}: strand_bias not bit-equal")
         diffs = {
             "rows": n,
             "snp_rows": int((np.asarray(want.snv_qphred) != 0).sum()),
@@ -1570,6 +1582,126 @@ def phase_kgh_main_shape(np, torch, dev, cuda: bool, kept, parent=None):
     return row
 
 
+def kgsb_work(tile, tgt, dd, ext, inc) -> tuple[int, int]:
+    """KG-SB's bytes (each input read once, the output written once, the
+    tables) and f32 operations (exp and log one each) on these inputs:
+    the delta's add to a call's mismatch value, once a row; a strand's
+    12 free sums of two products and an add a call, its forced sum's
+    product and add, the 12 products and 11 adds of its chains; where
+    tgt is a het in RNA mode, the delta's add to each step's mismatch
+    value, once a row and step, and a strand's 2 n_steps sums of an add
+    a call and a logsumexp (a subtraction, an exp and an add a term, a
+    log, an add and a subtraction); the max and the subtraction of
+    lt."""
+    L, D = tile.base_id.shape
+    lane = sum(x.element_size() for x in (tile.base_id, tile.qual,
+                                          tile.is_fwd, tile.mask))
+    dep = dd is not None
+    n_steps = 1 + int(ext / inc) if ext > 0 else 0
+    nbytes = (L * (D * (lane + 4 * dep) + 16) + 256 * 3 * 4
+              + n_steps * 4 * 256 * 4)
+    het_rows = int((tgt.long() >= 4).sum()) if n_steps else 0
+    strand = D * (12 * 3 + 2) + 23
+    het = (n_steps * D * dep
+           + 2 * (2 * n_steps * D + 3 * (2 * n_steps + 1) + 3))
+    return nbytes, L * (D * dep + 2 * strand + 2) + het_rows * het
+
+
+def kgr_work(torch, tile, hap, dd, ext, inc) -> tuple[int, int, int]:
+    """KG-R's bytes (each input read once, its 108 bytes a row of outputs
+    written once, the tables), f32 operations (exp and log one each: the
+    12 n_steps het-VF sums' add a call, the delta's add to each step's
+    mismatch value once a call, the 4 delta sums' add a call, 20 a live
+    (qscore, base) slot of the dot chains, the chains' and delta term's
+    adds, 6 logsumexps of 2 n_steps + 1 terms) and float64 operations
+    (KG-H's tail) on these inputs; the live slots are counted on the
+    tile's device."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    L, D = tile.base_id.shape
+    lane = sum(x.element_size() for x in (tile.base_id, tile.qual,
+                                          tile.mask))
+    dep = dd is not None
+    n_steps = 1 + int(ext / inc)
+    nbytes = (L * (D * (lane + 4 * dep) + 4 + (hap is not None) + 108)
+              + 512 * 10 * 4 + 4 * 10 * 4 + 4 * 5 * 10 * 8
+              + n_steps * 4 * 256 * 4)
+    live = int((sd._tile_hist(tile.base_id, tile.qual, tile.mask) != 0)
+               .sum())
+    f32 = (L * (12 * n_steps * D + n_steps * D * dep + 4 * D * dep + 30
+                + 80 * dep
+                + 6 * (3 * (2 * n_steps + 1) + 3)) + 20 * live)
+    return nbytes, f32, KGH_F64_PER_ROW * L
+
+
+def phase_xla_kernels(np, torch, dev, cuda: bool, sb4, kept14):
+    """Phase 14b: KG-SB on phase 4's first strand-bias call (`sb4`) and
+    KG-R and KG-SB on phase 14's first RNA genotype tile and strand-bias
+    call (`kept14`), kept as the CLIs made them (StreamTimer.kept), each
+    held bit for bit against its plain version on the same inputs (a
+    NaN as a NaN), timed by CUDA events and graph replay beside it (the
+    plain version runs on the card here alone), one call of each traced,
+    with its bound (kgsb_work, kgr_work), registers and spills. Returns
+    (KG-SB's row at phase 4's call, KG-R's row)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    calls = {"phase 4 strand bias": sb4,
+             "phase 14 strand bias": kept14.get("snv_strand_bias_tiles"),
+             "phase 14 rna tile": kept14.get("snv_call_tiles")}
+    for k, v in calls.items():
+        if not v:
+            fail(f"phase 14b: the CLI made no {k} call")
+    iters = 20 if cuda else 1
+    regs = ptxas_report() if cuda else {}
+    rows = {}
+    for key in ("phase 4 strand bias", "phase 14 strand bias"):
+        (a, kw), = calls[key]
+        tile, tgt, lt, dd, ext, inc = a
+
+        def kernel(a=a, kw=kw):
+            return sd.snv_strand_bias_tile(*a, **kw)
+
+        def plain(a=a, kw=kw):
+            return sd.snv_strand_bias_tile_plain(*a, **kw)
+        err = hold(torch, f"kg-sb {key}", {"strand_bias": kernel()},
+                   {"strand_bias": plain()})
+        nbytes, f32 = kgsb_work(tile, tgt, dd, ext, inc)
+        row = kernel_row(torch, cuda, kernel, plain, nbytes, f32, 0, iters,
+                         list(tile.base_id.shape))
+        row.update(max_abs_err=err, case=key, het_vf_extension=ext,
+                   dep_delta=dd is not None,
+                   dtypes=[str(tile.base_id.dtype), str(tile.qual.dtype)],
+                   het_rows=int((tgt.long() >= 4).sum()),
+                   library_note="no PyTorch call computes it: XLA's sum "
+                                "orders and Cephes exp and log")
+        if cuda:
+            row["registers"] = regs["snv_strand_bias"]
+        rows[key] = row
+        log(f"kg-sb {key}: " + json.dumps(row))
+    (a, kw), = calls["phase 14 rna tile"]
+    tile, theta, hap = a
+    ext, inc = kw["het_vf_extension"], kw["het_vf_increment"]
+    dd = kw.get("dep_delta")
+
+    def kernel():
+        return sd.call_snv_tile(*a, **kw)
+
+    def plain():
+        return sd.call_snv_rna_tile_plain(tile, theta, hap, ext, inc, dd)
+    err = hold_kgh(torch, "kg-r phase 14", kernel(), plain())
+    nbytes, f32, f64 = kgr_work(torch, tile, hap, dd, ext, inc)
+    row = kernel_row(torch, cuda, kernel, plain, nbytes, f32, f64, iters,
+                     list(tile.base_id.shape))
+    row.update(max_abs_err=err, dep_delta=dd is not None,
+               dtypes=[str(tile.base_id.dtype), str(tile.qual.dtype)],
+               live_slots_a_row=live_slots(torch, sd._tile_hist(
+                   tile.base_id, tile.qual, tile.mask)),
+               library_note="no PyTorch call computes it: XLA's sum orders "
+                            "and Cephes exp and log")
+    if cuda:
+        row["registers"] = regs["snv_rna_tile"]
+    log("kg-r phase 14: " + json.dumps(row))
+    return rows["phase 4 strand bias"], row
+
+
 def cli_like_chunk(np, torch, dev, L, D):
     """(args, kwargs) of a call_snv_lanes_tile like the germline CLI's:
     every call at one base quality (32), 10% of them alt, half the lanes
@@ -1909,11 +2041,11 @@ _PTXAS: dict = {}
 
 
 def ptxas_report() -> dict:
-    """KG-H's, KS-G's and KS-P's registers and spills (nvcc -Xptxas -v on
-    their sources, the build's flags; KG-H's the most of its four
-    kernels) and the FP64 SASS instructions (D* ops, by cuobjdump) of one
-    call of exp, log, log1p and a division, from a probe built the same
-    way: four nvcc at once, the first call only."""
+    """KG-H's, KG-SB's, KG-R's, KS-G's and KS-P's registers and spills
+    (nvcc -Xptxas -v on their sources, the build's flags; a source's the
+    most of its kernels) and the FP64 SASS instructions (D* ops, by
+    cuobjdump) of one call of exp, log, log1p and a division, from a
+    probe built the same way: six nvcc at once, the first call only."""
     if _PTXAS:
         return _PTXAS
     import re
@@ -1923,11 +2055,10 @@ def ptxas_report() -> dict:
     probe = os.path.join(out, "fp64_probe.cu")
     with open(probe, "w") as f:
         f.write(FP64_PROBE)
-    srcs = {"snv_hist_tile": os.path.join(_build.CSRC, "snv_hist_tile.cu"),
-            "somatic_grid": os.path.join(_build.CSRC, "somatic_grid.cu"),
-            "somatic_posterior": os.path.join(_build.CSRC,
-                                              "somatic_posterior.cu"),
-            "fp64_probe": probe}
+    srcs = {k: os.path.join(_build.CSRC, f"{k}.cu")
+            for k in ("snv_hist_tile", "snv_strand_bias", "snv_rna_tile",
+                      "somatic_grid", "somatic_posterior")}
+    srcs["fp64_probe"] = probe
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",
                                                        "-Xcompiler",
                                                        "-fPIC")]
@@ -2339,7 +2470,8 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     and read just after; stream time of each device phase by CUDA
     events, and the SNV tiles' host time. With `kept` (a dict), the
     arguments of the first KG-H lanes-entry call go to
-    kept["snv_genotype_tiles"]. Returns (the launch counts of
+    kept["snv_genotype_tiles"] and those of the first strand-bias call to
+    kept["snv_strand_bias_tiles"]. Returns (the launch counts of
     launches_during, the wall s)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
@@ -2351,7 +2483,8 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
     timer.wrap(sd, "call_snv_lanes_tile", "snv_genotype_tiles",
                keep=1 if kept is not None else 0)
-    timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
+    timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles",
+               keep=1 if kept is not None else 0)
     try:
         wall, _, counts = launches_during(
             lambda: run_cli(fa, bam, out, device, extra))
@@ -2366,6 +2499,8 @@ def phase_e2e(torch, cuda: bool, fa, bam, n_reads, mb, out, device,
     check_snv_kernels("the germline path", counts, cuda and device == "cuda")
     if cuda and tile_count(counts, "snv", "tile", device) == 0:
         fail("the main path ran no SNV tile on the card")
+    if cuda and tile_count(counts, "snv", "sb", device) == 0:
+        fail("the main path ran no strand-bias tile on the card")
     if not counts["score"]:
         fail("the main path scored no read x haplotype pair")
     e2e = {"contig_mb": mb, "reads": n_reads, "wall_s": wall,
@@ -2459,16 +2594,20 @@ def tally_rows(counts, group, kind) -> int:
                if k.startswith(f"{kind},cuda,") and int(k.split(",")[2]))
 
 
-def check_snv_kernels(label, counts, cuda, somatic=False):
+def check_snv_kernels(label, counts, cuda, somatic=False, rna=False):
     """On the card: KG-H launched once a germline SNV tile tally, each
     through its lanes entry (every non-RNA path's genotype tiles go up
-    as lanes, at any D, and the dense entry runs on none), KS-G once a
-    grid and KS-P once a posterior tally, no plain version, and, where
-    the run was in this process, no histogram counted on the host."""
+    as lanes, at any D, and the dense entry runs on none), or, on an RNA
+    path, KG-R once a tile tally; KG-SB once a strand-bias tally, KS-G
+    once a grid and KS-P once a posterior tally, no plain version, and,
+    where the run was in this process, no histogram counted on the
+    host."""
     if not cuda:
         return
     tiles = tally_rows(counts, "snv", "tile")
-    want = {"snv_hist_tile": 0, "snv_lanes_tile": tiles,
+    want = {"snv_hist_tile": 0, "snv_lanes_tile": 0 if rna else tiles,
+            "snv_strand_bias_tile": tally_rows(counts, "snv", "sb"),
+            "snv_rna_tile": tiles if rna else 0,
             "somatic_grid": tally_rows(counts, "somatic", "grid"),
             "somatic_posterior": tally_rows(counts, "somatic", "post")}
     if counts["snv_kernels"] != want:
@@ -2483,7 +2622,7 @@ def check_snv_kernels(label, counts, cuda, somatic=False):
     if somatic and not (want["somatic_grid"] and want["somatic_posterior"]):
         fail(f"{label}: KS-G or KS-P was launched no time")
     if not somatic and not tiles:
-        fail(f"{label}: KG-H was launched no time")
+        fail(f"{label}: no genotype tile kernel was launched")
 
 
 def compare_records(a_dir, b_dir, names, label) -> int:
@@ -2908,12 +3047,16 @@ def forest_json(np, rng, features, kind, key, cut, path, n_trees=8,
 
 
 def phase_mode(torch, cuda: bool, label, fa, bam, n_reads, mb, workdir,
-               extra, k1_expected=True, tiles_expected=True):
+               extra, k1_expected=True, tiles_expected=True, kept=None):
     """The germline CLI with `extra` on the card (launch counters set to
-    0 just before and read just after, stream time of the device phases)
-    and then on the CPU, on phase 4's data; every record of
-    variants.vcf.gz and genome.S1.vcf.gz equal. Returns (the card run's
-    counts, its output directory, the row of numbers logged)."""
+    0 just before and read just after, stream time of the device phases;
+    where it runs SNV tiles, the SNV kernels once a tally: KG-R and
+    KG-SB with --rna, at least one of each) and then on the CPU, on
+    phase 4's data; every record of variants.vcf.gz and genome.S1.vcf.gz
+    equal. With `kept` (a dict), the first run's first call_snv_tile and
+    strand-bias call go to kept["snv_call_tiles"] and
+    kept["snv_strand_bias_tiles"]. Returns (the card run's counts, its
+    output directory, the row of numbers logged)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.ops import score_kernel as sk
     devices = ["cuda", "cpu"] if cuda else ["cpu"]
@@ -2925,13 +3068,17 @@ def phase_mode(torch, cuda: bool, label, fa, bam, n_reads, mb, workdir,
         timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
         timer.wrap(sd, "call_snv_hist_tile", "snv_genotype_tiles")
         timer.wrap(sd, "call_snv_lanes_tile", "snv_genotype_tiles")
-        timer.wrap(sd, "call_snv_tile", "snv_call_tiles")
-        timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles")
+        keep = 1 if kept is not None and counts is None else 0
+        timer.wrap(sd, "call_snv_tile", "snv_call_tiles", keep=keep)
+        timer.wrap(sd, "snv_strand_bias_tile", "snv_strand_bias_tiles",
+                   keep=keep)
         try:
             wall, _, c = launches_during(
                 lambda: run_cli(fa, bam, out, device, extra))  # noqa: B023
         finally:
             timer.restore()
+        if keep:
+            kept.update(timer.kept)
         var, gv = check_outputs(out, n_reads)
         row[f"{device}_wall_s"] = wall
         row[f"{device}_stream_ms_by_phase"] = timer.totals_ms()
@@ -2942,9 +3089,15 @@ def phase_mode(torch, cuda: bool, label, fa, bam, n_reads, mb, workdir,
             check_path_launches(label, c, cuda, k1_expected)
             row["k1_launches"] = c["k1"]
             row["snv_tile_launches"] = c["snv"]
+            row["snv_kernel_launches"] = c["snv_kernels"]
             if cuda and tiles_expected and tile_count(
                     c, "snv", "tile", "cuda") == 0:
                 fail(f"{label} ran no SNV tile on the card")
+            if tiles_expected:
+                rna = "--rna" in extra
+                check_snv_kernels(label, c, cuda, rna=rna)
+                if cuda and rna and not tally_rows(c, "snv", "sb"):
+                    fail(f"{label} ran no strand-bias tile on the card")
     if cuda:
         row["records_equal"] = compare_records(
             outs["cuda"], outs["cpu"], ("variants.vcf.gz",
@@ -3725,6 +3878,7 @@ def main(argv=None) -> int:
         "plain version")
     t0 = time.perf_counter()
     lanes_row = phase_kgh_main_shape(np, torch, dev, cuda, kept, parent)
+    sb4 = kept.get("snv_strand_bias_tiles")
     del kept
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
     # k1 again at the main path's most frequent launch shape
@@ -3803,11 +3957,19 @@ def main(argv=None) -> int:
     log("== phase 14: germline --rna --disable-evs, cuda then cpu")
     t0 = time.perf_counter()
     rna_mb = min(mb, RNA_MB)
+    kept14: dict = {}
     rna, _, _ = phase_mode(torch, cuda, "rna", fa, bam, n_reads, rna_mb,
                            workdir, [*base_args, "--rna", "--disable-evs",
                                      "--region",
-                                     f"syn:1-{int(rna_mb * 1_000_000)}"])
+                                     f"syn:1-{int(rna_mb * 1_000_000)}"],
+                           kept=kept14)
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 14b: KG-SB and KG-R on phases 4's and 14's first calls "
+        "vs their plain versions")
+    t0 = time.perf_counter()
+    sb_row, rna_row = phase_xla_kernels(np, torch, dev, cuda, sb4, kept14)
+    del sb4, kept14
+    log(f"phase 14b took {time.perf_counter() - t0:.1f} s")
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
         "tools estimate-parameters")
     t0 = time.perf_counter()
@@ -3967,6 +4129,8 @@ def main(argv=None) -> int:
     for name, source, krow in (
             ("snv_hist_tile", "snv_hist_tile.cu", kgh_row),
             ("snv_lanes_tile", "snv_hist_tile.cu", lanes_row),
+            ("snv_strand_bias_tile", "snv_strand_bias.cu", sb_row),
+            ("snv_rna_tile", "snv_rna_tile.cu", rna_row),
             ("somatic_grid", "somatic_grid.cu", ksg_row),
             ("somatic_posterior", "somatic_posterior.cu", ksp_row)):
         by = {p: c["snv_kernels"].get(name, 0) for p, c in paths.items()}
@@ -3992,6 +4156,7 @@ def main(argv=None) -> int:
             "plain_trace": krow.get("plain_trace"),
             **{k: krow[k] for k in (
                 "registers", "live_slots_a_row", "library_max_abs_diff",
+                "library_note", "het_rows",
                 "sass_fp64_floor_ms", "clean_row_share", "exp_zero_share",
                 "exp_zero_share_listed", "prev_device_ms",
                 "device_ms_turns", "turns_ms", "lanes_entry",

@@ -30,8 +30,10 @@ a histogram counted elsewhere. RNA
 mode (the het-VF extension), where the JAX package runs its XLA tile on
 the CPU, and the strand-bias tile follow XLA's CPU arithmetic instead:
 per-call values from host tables, XLA's log and exp polynomials and its
-reduction orders, as elementwise torch ops (the same bits on the CPU
-and the card).
+reduction orders, as elementwise torch ops on the CPU
+(call_snv_rna_tile_plain, snv_strand_bias_tile_plain); on the card each
+is one launch of a kernel that gives those bits, KG-R
+(csrc/snv_rna_tile.cu) and KG-SB (csrc/snv_strand_bias.cu).
 """
 from __future__ import annotations
 
@@ -500,8 +502,7 @@ def call_snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid=None,
     gives the plain version's bits and leaves genome_pprob and
     poly_pprob None. It takes the native pileup's lanes (int8 base,
     int16 or uint8 qual, bool mask); other widths are cast first, with
-    the histogram's rules kept (qual clamped to 0..127, a base outside
-    0..3 made -1)."""
+    the histogram's rules kept (_kernel_lanes)."""
     if base_id.device.type == "cpu":
         return call_snv_lanes_tile_plain(base_id, qual, mask, ref_gt,
                                          is_haploid, theta, s_mis)
@@ -515,18 +516,18 @@ def call_snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid=None,
 
 
 def _kernel_lanes(base_id, qual, mask):
-    """The lanes in the widths KG-H's lanes entry takes (int8 base, int16
-    or uint8 qual, bool mask), contiguous, counting as _tile_hist counts
-    them: a base outside 0..3 becomes -1, a qual cast to int16 is
-    clamped to 0..127 first."""
+    """The lanes in the widths the SNV tile kernels take (KG-H's lanes
+    entry, KG-SB, KG-R: int8 base, int16 or uint8 qual, bool mask),
+    contiguous, with every rule of the plain versions kept: a base id is
+    clamped to int8's range (its bias index, its match with a base 0..3
+    and so its count do not change), a qual cast to int16 to
+    0.._VALS_Q - 1 first (the value tables clamp it so, the histogram
+    and the kernels to 0..127)."""
     if base_id.dtype != torch.int8:
-        base_id = torch.where((base_id >= 0) & (base_id < digt.N_BASE),
-                              base_id, -1).to(torch.int8)
+        base_id = torch.clamp(base_id.long(), -128, 127).to(torch.int8)
     if qual.dtype not in (torch.int16, torch.uint8):
-        qual = torch.clamp(qual, 0, _SNV_QTAB_SIZE - 1).to(torch.int16)
-    if mask.dtype != torch.bool:
-        mask = mask != 0
-    return base_id.contiguous(), qual.contiguous(), mask.contiguous()
+        qual = torch.clamp(qual.long(), 0, _VALS_Q - 1).to(torch.int16)
+    return base_id.contiguous(), qual.contiguous(), _bool(mask)
 
 
 def call_snv_lanes_tile_plain(base_id, qual, mask, ref_gt, is_haploid=None,
@@ -579,19 +580,54 @@ def call_snv_tile(tile: SnvPileupTile, theta: float = 0.001,
 
     Outside RNA mode a tile on a card goes to call_snv_lanes_tile (KG-H
     counts its histogram); on the CPU the histogram is counted here and
-    goes to call_snv_hist_tile.
+    goes to call_snv_hist_tile. In RNA mode CPU tensors run the plain
+    version (call_snv_rna_tile_plain) and any other device the kernel
+    KG-R (ops/snv_kernels.snv_rna_tile, csrc/snv_rna_tile.cu), which
+    gives its bits with nothing read back to the host and leaves
+    genome_pprob and poly_pprob None (no caller reads them).
     """
-    if het_vf_extension <= 0 and tile.base_id.device.type != "cpu":
+    dev = tile.base_id.device
+    if het_vf_extension > 0:
+        if dev.type == "cpu":
+            return call_snv_rna_tile_plain(tile, theta, is_haploid,
+                                           het_vf_extension,
+                                           het_vf_increment, dep_delta)
+        from ..ops import snv_kernels
+        (lhood, g_max, p_max, g_qref, g_qmax, p_qmax, pl,
+         g_lnref) = snv_kernels.snv_rna_tile(
+            *_kernel_lanes(tile.base_id, tile.qual, tile.mask),
+            _i32_ids(tile.ref_gt),
+            None if is_haploid is None else _bool(is_haploid),
+            None if dep_delta is None else dep_delta.contiguous(),
+            _tables(theta, dev),
+            _xla_tables(het_vf_extension, het_vf_increment, dev)["het_vf"])
+        return _result(lhood, (None, None, g_max, p_max, g_qref, g_qmax,
+                               p_qmax, pl, g_lnref))
+    if dev.type != "cpu":
         return call_snv_lanes_tile(tile.base_id, tile.qual, tile.mask,
                                    tile.ref_gt, is_haploid, theta,
                                    s_mis=dep_smis)
     hist = _tile_hist(tile.base_id, tile.qual, tile.mask)
     # the slots that hold a call in some row, which the plain products
+    # visit
+    cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
+    return call_snv_hist_tile(hist, tile.ref_gt, is_haploid, theta,
+                              s_mis=dep_smis, cols=cols)
+
+
+def call_snv_rna_tile_plain(tile: SnvPileupTile, theta: float, is_haploid,
+                            het_vf_extension: float,
+                            het_vf_increment: float,
+                            dep_delta=None) -> SnvCallResult:
+    """The plain version of call_snv_tile's RNA pass (het_vf_extension
+    > 0), as torch ops in XLA's CPU arithmetic on the tile's device: the
+    CPU path, and what KG-R is held to on the card."""
+    from ..ops import snv_kernels
+    snv_kernels.count_plain("snv_rna_tile", tile.base_id.device)
+    hist = _tile_hist(tile.base_id, tile.qual, tile.mask)
+    # the slots that hold a call in some row, which the plain products
     # visit (a read-back to the host)
     cols = torch.nonzero(hist.any(dim=0))[:, 0].tolist()
-    if het_vf_extension <= 0:
-        return call_snv_hist_tile(hist, tile.ref_gt, is_haploid, theta,
-                                  s_mis=dep_smis, cols=cols)
     tabs = _tables(theta, hist.device)
     lhood = _xla_hist_lhood(hist, tabs["snv_qtab"], cols)
     if dep_delta is not None:
@@ -635,6 +671,30 @@ def _call_vals(qual):
     device."""
     tab = torch.from_numpy(_call_vals_table()).to(qual.device)
     return tab[torch.clamp(qual.to(torch.int64), 0, _VALS_Q - 1)]
+
+
+@functools.lru_cache(maxsize=8)
+def _xla_tables(extension: float, increment: float, device):
+    """The value tables KG-SB and KG-R take, on `device` (cached):
+    call_vals [_VALS_Q, 3] f32 (_call_vals_table) and het_vf [n_steps,
+    4, _VALS_Q] f32 (_het_vf_table), None where extension <= 0."""
+    dev = torch.device(device)
+    het = None
+    if extension > 0:
+        het = torch.from_numpy(
+            _het_vf_table(float(extension), float(increment))[0]).to(dev)
+    return {"call_vals": torch.from_numpy(_call_vals_table()).to(dev),
+            "het_vf": het}
+
+
+def _bool(x):
+    """x as a contiguous bool tensor (nonzero is True)."""
+    return (x if x.dtype == torch.bool else x != 0).contiguous()
+
+
+def _i32_ids(x):
+    """Genotype or base ids as a contiguous int32 tensor."""
+    return x.to(torch.int32).contiguous()
 
 
 @functools.lru_cache(maxsize=1)
@@ -697,14 +757,42 @@ def snv_strand_bias_tile(tile: SnvPileupTile, tgt, lt,
                          het_vf_increment: float = 0.0501):
     """Strand bias for a gathered subset of SNP rows (torch tensors):
     max(lhood_fwd[tgt], lhood_rev[tgt]) - lhood[tgt] per row
-    (position_snp_call_pprob_digt.cpp:520-534).
+    (position_snp_call_pprob_digt.cpp:520-534), [L] f32.
 
     tgt: [L] genome max genotype per row; lt: [L] base lhood at tgt;
     dep_delta: optional [L, D] per-call dependent-eprob deltas, folded
     into the mismatch term. het_vf_extension > 0 (RNA mode): each
     strand's het lhood takes the het-VF extension terms too, the forced
     calls keyed against the reference genotype (:525-527).
+
+    On CPU tensors this runs the plain version
+    (snv_strand_bias_tile_plain); on any other device the kernel KG-SB
+    (ops/snv_kernels.snv_strand_bias_tile, csrc/snv_strand_bias.cu),
+    which gives its bits in one launch.
     """
+    dev = tile.base_id.device
+    if dev.type == "cpu":
+        return snv_strand_bias_tile_plain(tile, tgt, lt, dep_delta,
+                                          het_vf_extension,
+                                          het_vf_increment)
+    from ..ops import snv_kernels
+    base, qual, mask = _kernel_lanes(tile.base_id, tile.qual, tile.mask)
+    return snv_kernels.snv_strand_bias_tile(
+        base, qual, _bool(tile.is_fwd), mask,
+        _i32_ids(tile.ref_gt), _i32_ids(tgt), lt.contiguous(),
+        None if dep_delta is None else dep_delta.contiguous(),
+        _xla_tables(het_vf_extension, het_vf_increment, dev))
+
+
+def snv_strand_bias_tile_plain(tile: SnvPileupTile, tgt, lt,
+                               dep_delta=None,
+                               het_vf_extension: float = 0.0,
+                               het_vf_increment: float = 0.0501):
+    """The plain version of snv_strand_bias_tile, as torch ops in XLA's
+    CPU arithmetic on the tile's device: the CPU path, and what KG-SB is
+    held to on the card."""
+    from ..ops import snv_kernels
+    snv_kernels.count_plain("snv_strand_bias_tile", tile.base_id.device)
     vals = _call_vals(tile.qual)
     if dep_delta is not None:
         vals = torch.cat([vals[..., :1] + dep_delta[..., None],

@@ -1,4 +1,5 @@
-"""The SNV models' CUDA kernels: KG-H (two entries), KS-G and KS-P.
+"""The SNV models' CUDA kernels: KG-H (two entries), KG-SB, KG-R, KS-G
+and KS-P.
 
 Each replaces one program that the JAX package jits (XLA, no Pallas) and
 gives its plain version's bits on the card in one launch:
@@ -17,8 +18,21 @@ gives its plain version's bits on the card in one launch:
     pass; plain version call_snv_lanes_tile_plain (_tile_hist, then
     call_snv_hist_tile_plain's arithmetic).
   Both walk a row's live slots only (a zero count adds exactly nothing:
-  the table is finite) and spread the float64 tail over the warp's lanes;
-  both are bounded by their bytes on the H100;
+  the table is finite) and spread the float64 tail over the warp's lanes
+  (csrc/snv_tile_tail.cuh). Their least time on the H100 is their bytes',
+  but the tail's chain of float64 library calls holds them at 18.6% and
+  10.9% of it (PERF.md section 6);
+- KG-SB, snv_strand_bias_tile (csrc/snv_strand_bias.cu): the strand bias
+  of a germline run's SNP rows, in XLA's CPU arithmetic (RNA mode's
+  het-VF terms too), models/snv_digt.snv_strand_bias_tile; plain version
+  snv_strand_bias_tile_plain;
+- KG-R, snv_rna_tile (csrc/snv_rna_tile.cu): RNA mode's genotype tile
+  from the lanes (the histogram product in XLA's dot order, the
+  dependent-eprob and het-VF sums in its reduction orders, the
+  logsumexp, KG-H's tail), the RNA pass of models/snv_digt.call_snv_tile;
+  plain version call_snv_rna_tile_plain. KG-SB and KG-R share
+  csrc/snv_xla_math.cuh (XLA's exp, log and sum orders); one warp walks
+  a row's calls a window at a time, its sums one to a lane;
 - KS-G, somatic_grid (csrc/somatic_grid.cu): one sample's somatic
   frequency-grid lhoods, models/somatic_snv.freq_grid_lhoods; plain version
   freq_grid_lhoods_plain;
@@ -46,11 +60,14 @@ import torch
 REPLACES = {
     "snv_hist_tile": "strelka_tpu/models/snv_digt.py:506",
     "snv_lanes_tile": "strelka_tpu/models/snv_digt.py:536",
+    "snv_strand_bias_tile": "strelka_tpu/models/snv_digt.py:457",
+    "snv_rna_tile": "strelka_tpu/models/snv_digt.py:536",
     "somatic_grid": "strelka_tpu/models/somatic_snv.py:102",
     "somatic_posterior": "strelka_tpu/models/somatic_snv.py:250",
 }
 # the csrc source of an entry not named after its own
-SOURCES = {"snv_lanes_tile": "snv_hist_tile"}
+SOURCES = {"snv_lanes_tile": "snv_hist_tile",
+           "snv_strand_bias_tile": "snv_strand_bias"}
 LAUNCHES = {name: 0 for name in REPLACES}
 PLAIN_ON_CUDA = {name: 0 for name in REPLACES}
 
@@ -59,6 +76,10 @@ _ARGTYPES = {
     "snv_hist_tile": [_vp, _i, *[_vp] * 9, _ll, *[_vp] * 8, _vp],
     "snv_lanes_tile": [_vp, _vp, _i, _vp, _ll, *[_vp] * 9, _ll, *[_vp] * 8,
                        _vp],
+    "snv_strand_bias_tile": [_vp, _vp, _i, _vp, _vp, _ll, *[_vp] * 6, _i,
+                             _ll, _vp, _vp],
+    "snv_rna_tile": [_vp, _vp, _i, _vp, _ll, _vp, _i, *[_vp] * 9, _ll,
+                     *[_vp] * 8, _vp],
     "somatic_grid": [*[_vp] * 5, _ll, _ll, *[_vp] * 6, ctypes.c_float, _vp,
                      _vp],
     "somatic_posterior": [*[_vp] * 6, _ll, *[_vp] * 6, _vp],
@@ -159,8 +180,9 @@ def _tile_specs(L, ref_gt, is_haploid, s_mis, tabs):
 
 
 def _tile_launch(name, dev, L, head, ref_gt, is_haploid, s_mis, tabs):
-    """Allocate KG-H's outputs and launch entry `name` with its own
-    leading arguments `head`; returns (lhood, genome_max_gt, poly_max_gt,
+    """Allocate KG-H's outputs and launch entry `name` (KG-H's two, or
+    KG-R, whose per-call deltas take s_mis's place) with its own leading
+    arguments `head`; returns (lhood, genome_max_gt, poly_max_gt,
     snv_qphred, genome_max_gt_qphred, poly_max_gt_qphred, phred_loghood,
     ln_ref_pprob)."""
     _aligned(name, "snv_qtab", tabs["snv_qtab"])
@@ -220,6 +242,86 @@ def snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid, s_mis, tabs):
         name, dev, L, [base_id.data_ptr(), qual.data_ptr(),
                        qual.element_size(), mask.data_ptr(), D],
         ref_gt, is_haploid, s_mis, tabs)
+
+
+# KG-SB's and KG-R's limits (csrc/snv_xla_math.cuh): het-ratio steps
+# (their table in shared memory) and calls a row (three window levels)
+MAX_STEPS = 40
+MAX_DEPTH = 1 << 20
+
+
+def _xla_specs(name, dev, base_id, qual, mask, dep_delta, het_vf,
+               min_steps):
+    """The operand checks that KG-SB and KG-R share: the lanes (int8
+    base, int16 or uint8 qual, bool mask [L, D]), the per-call deltas
+    ([L, D] f32 or None) and the het-VF table ([n_steps, 4, 256] f32);
+    returns (L, D, n_steps)."""
+    if base_id.dim() != 2:
+        raise ValueError(f"{name}: base_id must be [L, D], got "
+                         f"{tuple(base_id.shape)}")
+    L, D = base_id.shape
+    if het_vf is None and min_steps:
+        raise ValueError(f"{name}: the het-VF table is required")
+    _check(name, dev, [
+        ("base_id", base_id, (torch.int8,), (L, D)),
+        ("qual", qual, (torch.int16, torch.uint8), (L, D)),
+        ("mask", mask, _BOOL, (L, D)),
+        ("dep_delta", dep_delta, _F32, (L, D)),
+        ("het_vf", het_vf, _F32, (None, 4, 256))])
+    n_steps = 0 if het_vf is None else het_vf.shape[0]
+    if not min_steps <= n_steps <= MAX_STEPS:
+        raise ValueError(f"{name}: {n_steps} het-ratio steps, the kernel "
+                         f"takes {min_steps} to {MAX_STEPS}")
+    if D > MAX_DEPTH:
+        raise ValueError(f"{name}: D = {D} calls a row, the kernel takes "
+                         f"up to {MAX_DEPTH}")
+    return L, D, n_steps
+
+
+def snv_strand_bias_tile(base_id, qual, is_fwd, mask, ref_gt, tgt, lt,
+                         dep_delta, xtabs):
+    """KG-SB: [L] f32 strand bias of snv_strand_bias_tile. base_id [L, D]
+    int8, qual [L, D] int16 or uint8, is_fwd and mask [L, D] bool, ref_gt
+    [L] int32 in 0..4, tgt [L] int32 in 0..9, lt [L] f32, dep_delta [L,
+    D] f32 or None; xtabs = snv_digt._xla_tables on the same card
+    (call_vals, and het_vf or None outside RNA mode)."""
+    name = "snv_strand_bias_tile"
+    dev = base_id.device
+    L, D, n_steps = _xla_specs(name, dev, base_id, qual, mask, dep_delta,
+                               xtabs["het_vf"], 0)
+    _check(name, dev, [
+        ("is_fwd", is_fwd, _BOOL, (L, D)), ("ref_gt", ref_gt, _I32, (L,)),
+        ("tgt", tgt, _I32, (L,)), ("lt", lt, _F32, (L,)),
+        ("call_vals", xtabs["call_vals"], _F32, (256, 3))])
+    out = torch.empty(L, dtype=torch.float32, device=dev)
+    if L:
+        _launch(name, dev, [
+            base_id.data_ptr(), qual.data_ptr(), qual.element_size(),
+            is_fwd.data_ptr(), mask.data_ptr(), D, ref_gt.data_ptr(),
+            tgt.data_ptr(), lt.data_ptr(), _ptr(dep_delta),
+            xtabs["call_vals"].data_ptr(), _ptr(xtabs["het_vf"]), n_steps,
+            L, out.data_ptr()])
+    return out
+
+
+def snv_rna_tile(base_id, qual, mask, ref_gt, is_haploid, dep_delta, tabs,
+                 het_vf):
+    """KG-R: snv_hist_tile's eight outputs for RNA mode's genotype tile
+    (call_snv_tile with the het-VF extension). base_id [L, D] int8, qual
+    [L, D] int16 or uint8, mask [L, D] bool, ref_gt [L] int32 in 0..4,
+    is_haploid [L] bool or None, dep_delta [L, D] f32 or None, tabs =
+    convert.device_tables and het_vf [n_steps, 4, 256] f32
+    (snv_digt._xla_tables) on the same card."""
+    name = "snv_rna_tile"
+    dev = base_id.device
+    L, D, n_steps = _xla_specs(name, dev, base_id, qual, mask, dep_delta,
+                               het_vf, 1)
+    _check(name, dev, _tile_specs(L, ref_gt, is_haploid, None, tabs))
+    return _tile_launch(
+        name, dev, L, [base_id.data_ptr(), qual.data_ptr(),
+                       qual.element_size(), mask.data_ptr(), D,
+                       het_vf.data_ptr(), n_steps],
+        ref_gt, is_haploid, dep_delta, tabs)
 
 
 _GRID_TABLES = ("grid_ref", "grid_alt", "grid_on_ref", "grid_on_alt",

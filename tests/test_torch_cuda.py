@@ -4,9 +4,9 @@ SIMT before-number; the K1-x variants, KX-P, KX-H, KX-I and the four
 ablations (noA, noW in both its plans, nomax, nodot) on K1's pipeline and
 KX-K on K1-h's among them, their before-numbers, and K1-s)
 against their plain versions, the SNV tiles and the somatic SNV model on the card
-against the CPU path, the SNV model kernels (KG-H, KS-G, KS-P) against
-their plain versions bit for bit, one launch a tile (and on cuda:1
-with two cards), the germline and somatic CLIs with --device
+against the CPU path, the SNV model kernels (KG-H, KG-SB, KG-R, KS-G,
+KS-P) against their plain versions bit for bit, one launch a tile (and
+on cuda:1 with two cards), the germline and somatic CLIs with --device
 cuda against --device cpu, a cold --jobs 2 germline run on the card
 against a single-process one, the error-model fits (the emulated
 FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
@@ -1496,6 +1496,201 @@ def test_kgh_lanes_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert snk.LAUNCHES == before
 
 
+# KG-SB and KG-R: the depths where XLA's orders change (the strand-bias
+# tile's CLI pads D to 32 and 64 here), RNA mode's extension
+XLA_DEPTHS = [1, 15, 16, 20, 23, 24, 31, 32, 33, 64, 300, 1024, 1025]
+RNA_EXT, RNA_INC = 0.45, 0.0501
+
+
+def xla_tile(rng, L, D, qual_dtype=np.int16, dep=True):
+    """An RNA-like tile: (base, qual, fwd, mask, ref, hap, dd, tgt, lt).
+    Bases -1..4, mostly the reference; qscores 0..44, the last 3 calls of
+    a row at q = 0 (forced-ref keys on the eprob floor); 85% used, every
+    25th row all masked; strands at random; deltas on 10% of the calls;
+    tgt any genotype; 20% haploid rows."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.6, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 5, (L, D))).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D))
+    qual[:, -3:] = 0
+    mask = rng.random((L, D)) < 0.85
+    mask[::25] = False
+    fwd = rng.random((L, D)) < 0.5
+    dd = (np.where(rng.random((L, D)) < 0.1, -rng.random((L, D)), 0.0)
+          .astype(np.float32) if dep else None)
+    hap = rng.random(L) < 0.2
+    tgt = rng.integers(0, 10, L).astype(np.int32)
+    lt = rng.normal(-50, 10, L).astype(np.float32)
+    return (base, qual.astype(qual_dtype), fwd, mask, ref, hap, dd, tgt, lt)
+
+
+def kgsb_against_plain(dev, base, qual, fwd, mask, ref, hap, dd, tgt, lt,
+                       ext, inc=RNA_INC):
+    """KG-SB against snv_strand_bias_tile_plain on the card, bit for bit
+    (a NaN as a NaN), one launch."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    t = [None if a is None else torch.from_numpy(a).to(dev)
+         for a in (base, qual, fwd, mask, ref, dd, tgt, lt)]
+    tile = sd.SnvPileupTile(t[0], t[1], t[2], t[3], t[4])
+    before = dict(snk.LAUNCHES)
+    got = sd.snv_strand_bias_tile(tile, t[6], t[7], t[5], ext, inc)
+    assert snk.LAUNCHES == dict(before, snv_strand_bias_tile=(
+        before["snv_strand_bias_tile"] + (len(ref) > 0)))
+    want = sd.snv_strand_bias_tile_plain(tile, t[6], t[7], t[5], ext, inc)
+    torch.cuda.synchronize()
+    assert same_bits(got, want)
+    return got
+
+
+def kgr_against_plain(dev, base, qual, fwd, mask, ref, hap, dd, tgt, lt,
+                      ext=RNA_EXT, inc=RNA_INC):
+    """KG-R (call_snv_tile's RNA pass) against call_snv_rna_tile_plain on
+    the card, every _PULL field bit for bit (a NaN as a NaN), one launch."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    t = [None if a is None else torch.from_numpy(a).to(dev)
+         for a in (base, qual, fwd, mask, ref, hap, dd)]
+    tile = sd.SnvPileupTile(t[0], t[1], t[2], t[3], t[4])
+    before = dict(snk.LAUNCHES)
+    got = sd.call_snv_tile(tile, 0.001, t[5], het_vf_extension=ext,
+                           het_vf_increment=inc, dep_delta=t[6])
+    assert snk.LAUNCHES == dict(before, snv_rna_tile=(
+        before["snv_rna_tile"] + (len(ref) > 0)))
+    want = sd.call_snv_rna_tile_plain(tile, 0.001, t[5], ext, inc, t[6])
+    torch.cuda.synchronize()
+    for f in sd._PULL:
+        assert same_bits(getattr(got, f), getattr(want, f)), f
+    return got
+
+
+@pytest.mark.parametrize("D", XLA_DEPTHS)
+@pytest.mark.parametrize("ext", [0.0, RNA_EXT])
+def test_kgsb_bit_identical_to_plain(cuda, D, ext):
+    """KG-SB at every depth where XLA's orders change, with and without
+    the het-VF extension; deltas at odd depths, none at even ones; int16
+    qual, uint8 at D = 32 and 64 (the CLI's padded D)."""
+    rng = np.random.default_rng(D + int(ext * 100))
+    L = 300 if D < 1000 else 40
+    qt = np.uint8 if D in (32, 64) and ext else np.int16
+    kgsb_against_plain(cuda, *xla_tile(rng, L, D, qt, dep=D % 2 == 1), ext)
+
+
+@pytest.mark.parametrize("D", XLA_DEPTHS)
+def test_kgr_bit_identical_to_plain(cuda, D):
+    """KG-R at every depth where XLA's orders change (windows of windows
+    past 1,024), deltas at odd depths, haploid and all-masked rows."""
+    rng = np.random.default_rng(D + 7)
+    L = 600 if D < 1000 else 40
+    qt = np.uint8 if D == 64 else np.int16
+    kgr_against_plain(cuda, *xla_tile(rng, L, D, qt, dep=D % 2 == 1))
+
+
+@pytest.mark.parametrize("ext,inc,n_steps", [
+    (0.03, RNA_INC, 1), (0.394, 0.0101, 40)])
+@pytest.mark.parametrize("D", [32, 64, 300])
+def test_kgsb_and_kgr_at_the_step_limits(cuda, ext, inc, n_steps, D):
+    """KG-SB and KG-R at the fewest and the most het-ratio steps the
+    wrappers take (snv_kernels.MAX_STEPS: KG-R's largest shared-memory
+    table; RNA mode's options give 9), with deltas, haploid and
+    all-masked rows."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    assert sd._het_vf_table(ext, inc)[0].shape[0] == n_steps
+    assert n_steps in (1, snk.MAX_STEPS)
+    x = xla_tile(np.random.default_rng(D + n_steps), 500, D)
+    kgr_against_plain(cuda, *x, ext=ext, inc=inc)
+    kgsb_against_plain(cuda, *x, ext, inc)
+
+
+@pytest.mark.parametrize("fill", ["ninf", "nan"])
+def test_kgsb_and_kgr_ninf_and_nan_rows_bit_identical_to_plain(cuda, fill):
+    """Rows whose deltas are -inf or NaN: KG-R's lhoods go -inf or NaN
+    (phreds 0), KG-SB's strand bias with them, and lt -inf or NaN on
+    others; each as its plain version gives it."""
+    rng = np.random.default_rng(17)
+    x = list(xla_tile(rng, 400, 64))
+    v = -np.inf if fill == "ninf" else np.nan
+    x[6][:40] = v
+    x[8][40:60] = v
+    got = kgr_against_plain(cuda, *x)
+    if fill == "nan":
+        assert (got.snv_qphred[:40] == 0).all()
+    for ext in (0.0, RNA_EXT):
+        kgsb_against_plain(cuda, *x, ext)
+
+
+@pytest.mark.parametrize("L", [0, 1, 33, 1031])
+def test_kgsb_and_kgr_ragged_and_tiny_tiles(cuda, L):
+    rng = np.random.default_rng(L + 11)
+    x = xla_tile(rng, L, 40)
+    kgr_against_plain(cuda, *x)
+    kgsb_against_plain(cuda, *x, RNA_EXT)
+
+
+def test_kgsb_and_kgr_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """On the card too: qual of another width, lanes on two devices, a
+    strided tile; nothing launches."""
+    from strelka_tpu_torch import convert
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    b, q, f, m, r, hap, dd, g, lt = (
+        torch.from_numpy(a).to(cuda)
+        for a in xla_tile(np.random.default_rng(3), 64, 32))
+    xt = sd._xla_tables(RNA_EXT, RNA_INC, cuda)
+    tabs = convert.device_tables(0.001, cuda)
+    before = dict(snk.LAUNCHES)
+    for args in ((b, q.int(), f, m, r, g, lt, dd),
+                 (b, q, f, m.cpu(), r, g, lt, dd),
+                 (b[:, ::2], q[:, ::2], f[:, ::2], m[:, ::2], r, g, lt,
+                  dd[:, ::2])):
+        with pytest.raises(ValueError):
+            snk.snv_strand_bias_tile(*args, xt)
+        with pytest.raises(ValueError):
+            snk.snv_rna_tile(args[0], args[1], args[3], r, hap, args[7],
+                             tabs, xt["het_vf"])
+    assert snk.LAUNCHES == before
+
+
+def test_rna_path_launches_the_kernels_not_the_plain_versions(cuda):
+    """call_snv_tile_chunked in RNA mode on the card: KG-R once a genotype
+    tile tally, KG-SB once a strand-bias tally, no plain version; lhood,
+    strand bias and the integer fields equal to the CPU path's bit for
+    bit, ln_ref_pprob (torch's float64 exp and log on each device) within
+    1e-13 (relative, or absolute near 0)."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    rng = np.random.default_rng(15)
+    L, D = 4000, 64
+    base, qual, fwd, mask, ref, hap, dd, _, _ = xla_tile(rng, L, D)
+    base = np.where(rng.random((L, D)) < 0.7, np.minimum(ref, 3)[:, None],
+                    base).astype(np.int8)
+    dep = (np.zeros((L, 4), np.float32),
+           lambda rows: dd[np.arange(L) if rows is None else rows])
+    tile = sd.SnvPileupTile(base, qual, fwd, mask, ref)
+    snk.reset()
+    sd.LAUNCH_STATS.clear()
+    got = sd.call_snv_tile_chunked(tile, 0.001, hap, RNA_EXT, RNA_INC,
+                                   dep=dep, device=cuda)
+    tallies = {k: sum(v for (kind, dev, rows, _), v in
+                      sd.LAUNCH_STATS.items()
+                      if kind == k and dev == "cuda" and rows)
+               for k in ("tile", "sb")}
+    assert tallies["tile"] and tallies["sb"]
+    assert snk.LAUNCHES == dict({k: 0 for k in snk.LAUNCHES},
+                                snv_rna_tile=tallies["tile"],
+                                snv_strand_bias_tile=tallies["sb"])
+    assert not any(snk.PLAIN_ON_CUDA.values())
+    want = sd.call_snv_tile_chunked(tile, 0.001, hap, RNA_EXT, RNA_INC,
+                                    dep=dep, device="cpu")
+    for f in (*sd._PULL, "strand_bias"):
+        a, b = (np.ascontiguousarray(getattr(x, f)) for x in (got, want))
+        if f == "ln_ref_pprob":
+            np.testing.assert_allclose(a, b, rtol=1e-13, atol=1e-13)
+        else:
+            assert a.tobytes() == b.tobytes(), f
+
+
 def ksg_against_plain(dev, tile):
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import snv_kernels as snk
@@ -1631,9 +1826,34 @@ def test_snv_kernels_on_second_card(cuda):
     assert all(same_bits(a, b) for a, b in zip(out[0], out[1]))
 
 
+def test_kgsb_and_kgr_on_second_card(cuda):
+    """KG-SB and KG-R on cuda:1 with cuda:0 current equal their runs on
+    cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from strelka_tpu_torch.models import snv_digt as sd
+    x = xla_tile(np.random.default_rng(19), 1000, 64)
+    out = {}
+    for d in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        with torch.cuda.device(0):
+            b, q, f, m, r, hap, dd, g, lt = (torch.from_numpy(a).to(d)
+                                             for a in x)
+            tile = sd.SnvPileupTile(b, q, f, m, r)
+            res = sd.call_snv_tile(tile, 0.001, hap,
+                                   het_vf_extension=RNA_EXT,
+                                   het_vf_increment=RNA_INC, dep_delta=dd)
+            out[d.index] = [getattr(res, k) for k in sd._PULL] + [
+                sd.snv_strand_bias_tile(tile, g, lt, dd, e, RNA_INC)
+                for e in (0.0, RNA_EXT)]
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert all(same_bits(a, b) for a, b in zip(out[0], out[1]))
+
+
 def test_snv_paths_launch_the_kernels_not_the_plain_versions(cuda):
     """The germline chunks and the somatic tier1 chunks on the card: one
-    kernel launch a tile, grid and posterior tally, no plain version."""
+    kernel launch a tile, strand-bias, grid and posterior tally, no plain
+    version."""
     import types
 
     from strelka_tpu_torch.models import snv_digt as sd
@@ -1663,8 +1883,11 @@ def test_snv_paths_launch_the_kernels_not_the_plain_versions(cuda):
                for k, stats in (("tile", sd.LAUNCH_STATS),
                                 ("grid", ss.LAUNCH_STATS),
                                 ("post", ss.LAUNCH_STATS))}
+    sb = sum(v for (kind, dev, rows, _), v in sd.LAUNCH_STATS.items()
+             if kind == "sb" and dev == "cuda" and rows)
     assert snk.LAUNCHES == {"snv_hist_tile": 0,
                             "snv_lanes_tile": tallies["tile"],
+                            "snv_strand_bias_tile": sb, "snv_rna_tile": 0,
                             "somatic_grid": tallies["grid"],
                             "somatic_posterior": tallies["post"]}
     assert all(tallies.values())

@@ -1,5 +1,5 @@
 """The SNV models' kernels (ops/snv_kernels: KG-H's dense and lanes
-entries, KS-G, KS-P) and their plain versions, on the CPU.
+entries, KG-SB, KG-R, KS-G, KS-P) and their plain versions, on the CPU.
 
 - Rows whose lhoods are all -inf or NaN: the port's somatic_snv_call and
   the germline tile tail give the JAX package's integer fields (XLA's
@@ -8,7 +8,8 @@ entries, KS-G, KS-P) and their plain versions, on the CPU.
   finite rows, and on ten -inf, ten NaN and finite lhoods, haploid and
   diploid.
 - Dispatch: CPU tensors reach the plain versions and no kernel, and the
-  counters stay 0.
+  counters stay 0; on another device the lanes reach the kernels in the
+  widths they take.
 - The wrappers reject a wrong dtype, shape, device or a non-contiguous
   input before they load anything.
 - No fallback: where the library cannot be built or loaded, the wrapper
@@ -127,6 +128,28 @@ def grid_inputs(rng, L, D):
     return [torch.from_numpy(a) for a in (base, qual, mask, fwd, ref)]
 
 
+def xla_inputs(rng, L, D):
+    """KG-SB's and KG-R's operands as the CLI makes them: (base int8,
+    qual int16, fwd, mask, ref int32, tgt int32, lt f32, dep_delta f32,
+    hap)."""
+    ref = rng.integers(0, 5, L).astype(np.int32)
+    base = np.where(rng.random((L, D)) < 0.7, np.minimum(ref, 3)[:, None],
+                    rng.integers(-1, 5, (L, D))).astype(np.int8)
+    qual = rng.integers(0, 45, (L, D)).astype(np.int16)
+    fwd = rng.random((L, D)) < 0.5
+    mask = rng.random((L, D)) < 0.85
+    tgt = rng.integers(0, 10, L).astype(np.int32)
+    lt = rng.normal(-50, 10, L).astype(np.float32)
+    dd = np.where(rng.random((L, D)) < 0.1, -rng.random((L, D)),
+                  0.0).astype(np.float32)
+    hap = rng.random(L) < 0.2
+    return [torch.from_numpy(a) for a in (base, qual, fwd, mask, ref, tgt,
+                                          lt, dd, hap)]
+
+
+RNA_EXT, RNA_INC = 0.45, 0.0501
+
+
 @pytest.fixture
 def no_kernel(monkeypatch):
     """Binding any kernel fails the test; the counters start at 0."""
@@ -160,6 +183,18 @@ def test_cpu_tensors_reach_the_plain_versions(no_kernel):
     want = tss.somatic_snv_call_plain(*g)
     for f in tss.SomaticSnvResult._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    base, qual, fwd, mask, ref, tgt, lt, dd, hap = xla_inputs(rng, 30, 32)
+    tile = tsd.SnvPileupTile(base, qual, fwd, mask, ref)
+    for ext in (0.0, RNA_EXT):
+        assert torch.equal(
+            tsd.snv_strand_bias_tile(tile, tgt, lt, dd, ext, RNA_INC),
+            tsd.snv_strand_bias_tile_plain(tile, tgt, lt, dd, ext, RNA_INC))
+    got = tsd.call_snv_tile(tile, 0.001, hap, het_vf_extension=RNA_EXT,
+                            het_vf_increment=RNA_INC, dep_delta=dd)
+    want = tsd.call_snv_rna_tile_plain(tile, 0.001, hap, RNA_EXT, RNA_INC,
+                                       dd)
+    for f in tsd._PULL:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def hist_call(hist, ref, hap, smis):
@@ -184,6 +219,18 @@ def post_call(n, t):
     return sk.somatic_posterior(n, t, pf, gp, eq, off)
 
 
+def sb_call(base, qual, fwd, mask, ref, tgt, lt, dd, ext=RNA_EXT):
+    return sk.snv_strand_bias_tile(base, qual, fwd, mask, ref, tgt, lt, dd,
+                                   tsd._xla_tables(ext, RNA_INC, CPU))
+
+
+def rna_call(base, qual, mask, ref, hap, dd, het="table"):
+    if het == "table":
+        het = tsd._xla_tables(RNA_EXT, RNA_INC, CPU)["het_vf"]
+    return sk.snv_rna_tile(base, qual, mask, ref, hap, dd,
+                           convert.device_tables(0.001, CPU), het)
+
+
 def _bad_inputs():
     """(label, call) pairs that each wrapper must reject."""
     rng = np.random.default_rng(7)
@@ -193,7 +240,36 @@ def _bad_inputs():
     n = torch.from_numpy(lhood_rows(rng, 16))
     t = torch.from_numpy(lhood_rows(rng, 16))
     meta = torch.device("meta")
+    xb, xq, xf, xm, xr, xg, xl, xd, xh = xla_inputs(rng, 16, 24)
     return [
+        ("sb_base_int32", lambda: sb_call(xb.int(), xq, xf, xm, xr, xg, xl,
+                                          xd)),
+        ("sb_qual_int32", lambda: sb_call(xb, xq.int(), xf, xm, xr, xg, xl,
+                                          xd)),
+        ("sb_fwd_dtype", lambda: sb_call(xb, xq, xf.to(torch.uint8), xm, xr,
+                                         xg, xl, xd)),
+        ("sb_tgt_int64", lambda: sb_call(xb, xq, xf, xm, xr, xg.long(), xl,
+                                         xd)),
+        ("sb_lt_f64", lambda: sb_call(xb, xq, xf, xm, xr, xg, xl.double(),
+                                      xd)),
+        ("sb_dep_shape", lambda: sb_call(xb, xq, xf, xm, xr, xg, xl,
+                                         xd[:, :8].contiguous())),
+        ("sb_strided", lambda: sb_call(xb[:, ::2], xq[:, ::2], xf[:, ::2],
+                                       xm[:, ::2], xr, xg, xl, xd[:, ::2])),
+        ("sb_rank", lambda: sb_call(xb[0], xq[0], xf[0], xm[0], xr, xg, xl,
+                                    xd)),
+        ("sb_device", lambda: sb_call(xb, xq, xf, xm.to(meta), xr, xg, xl,
+                                      xd)),
+        ("rna_mask_dtype", lambda: rna_call(xb, xq, xm.to(torch.uint8), xr,
+                                            xh, xd)),
+        ("rna_ref_rows", lambda: rna_call(xb, xq, xm, xr[:8], xh, xd)),
+        ("rna_hap_dtype", lambda: rna_call(xb, xq, xm, xr, xh.int(), xd)),
+        ("rna_dep_f64", lambda: rna_call(xb, xq, xm, xr, xh, xd.double())),
+        ("rna_no_table", lambda: rna_call(xb, xq, xm, xr, xh, xd, het=None)),
+        ("rna_steps", lambda: rna_call(xb, xq, xm, xr, xh, xd, het=torch.zeros(
+            (sk.MAX_STEPS + 1, 4, 256)))),
+        ("rna_table_shape", lambda: rna_call(xb, xq, xm, xr, xh, xd,
+                                             het=torch.zeros((9, 3, 256)))),
         ("hist_dtype", lambda: hist_call(hist.to(torch.int16), ref, hap,
                                          smis)),
         ("hist_shape", lambda: hist_call(hist[:, :256].contiguous(), ref,
@@ -258,7 +334,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case, no_kernel):
         call()
 
 
-@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post"])
+def xla_sb(base, qual, fwd, mask, ref, tgt, lt, dd, hap):
+    return sb_call(base, qual, fwd, mask, ref, tgt, lt, dd)
+
+
+def xla_rna(base, qual, fwd, mask, ref, tgt, lt, dd, hap):
+    return rna_call(base, qual, mask, ref, hap, dd)
+
+
+@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post", "sb",
+                                   "rna"])
 def test_wrappers_refuse_cpu_tensors(which, monkeypatch):
     """A wrapper given CPU tensors (which the public functions never
     hand it) binds its kernel and then refuses the device."""
@@ -269,7 +354,9 @@ def test_wrappers_refuse_cpu_tensors(which, monkeypatch):
             "grid": lambda: grid_call(*grid_inputs(rng, 4, 8)),
             "post": lambda: post_call(
                 torch.from_numpy(lhood_rows(rng, 4)),
-                torch.from_numpy(lhood_rows(rng, 4)))}[which]
+                torch.from_numpy(lhood_rows(rng, 4))),
+            "sb": lambda: xla_sb(*xla_inputs(rng, 4, 8)),
+            "rna": lambda: xla_rna(*xla_inputs(rng, 4, 8))}[which]
     sk.reset()
     with pytest.raises(ValueError, match="unsupported device"):
         call()
@@ -283,8 +370,9 @@ def test_snv_lanes_reach_the_kernel_in_the_pileups_widths(dtype,
     """call_snv_lanes_tile takes integer lanes of any width; on a card
     KG-H's lanes entry gets int8 base, int16 or uint8 qual and bool mask
     (meta tensors stand in for the card), cast as _tile_hist counts
-    them: a base outside 0..3 as -1, a qual cast to int16 clamped to
-    0..127 first."""
+    them: a base id clamped to int8's range keeps its match with 0..3, a
+    qual cast to int16 is clamped to 0..255 first (the kernel clamps it
+    to 0..127)."""
     seen = {}
 
     def kernel(base, qual, mask, ref, hap, smis, tabs):
@@ -309,10 +397,12 @@ def test_snv_lanes_reach_the_kernel_in_the_pileups_widths(dtype,
     qual = torch.tensor([[0, 30, 127, 128, 300, -5]])
     mask = torch.tensor([[1, 1, 1, 0, 1, 1]], dtype=torch.uint8)
     b, q, m = tsd._kernel_lanes(base.to(dtype), qual.to(dtype), mask)
-    assert b.tolist() == [[0, 3, -1, -1, -1, 2]]    # uint8: 4 and 255
+    assert b.dtype == torch.int8
+    for x in range(4):
+        assert torch.equal(b.long() == x, base.to(dtype).long() == x)
     want = qual.to(dtype)
     if dtype not in (torch.uint8, torch.int16):
-        want = want.clamp(0, 127)
+        want = want.clamp(0, 255)
     assert q.dtype == seen["qual"] and q.tolist() == want.tolist()
     assert m.tolist() == [[True, True, True, False, True, True]]
     assert torch.equal(tsd._tile_hist(b, q, m),
@@ -343,6 +433,67 @@ def test_grid_lanes_reach_the_kernel_in_the_pileups_widths(dtype,
     assert seen == dict(base=torch.int8, qual=torch.int16, ref=torch.int32)
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32,
+                                   torch.int64])
+def test_sb_and_rna_lanes_reach_the_kernels_in_the_pileups_widths(
+        dtype, monkeypatch):
+    """snv_strand_bias_tile and call_snv_tile's RNA pass take integer
+    lanes of any width; on a card (meta tensors stand in for it) KG-SB
+    and KG-R get int8 base, int16 or uint8 qual, bool strand and mask and
+    int32 ids, cast with the plain versions' rules kept: a base id
+    clamped to int8's range keeps its bias index, its match with 0..3 and
+    its count; a qual cast to int16 is clamped to 0..255 first."""
+    seen = {}
+
+    def sb_kernel(base, qual, fwd, mask, ref, tgt, lt, dd, xtabs):
+        seen["sb"] = (base.dtype, qual.dtype, fwd.dtype, mask.dtype,
+                      ref.dtype, tgt.dtype)
+        return torch.empty(base.shape[0], device=base.device)
+
+    def rna_kernel(base, qual, mask, ref, hap, dd, tabs, het_vf):
+        seen["rna"] = (base.dtype, qual.dtype, mask.dtype, ref.dtype,
+                       hap.dtype, het_vf.shape[0])
+        L = base.shape[0]
+        f = dict(device=base.device)
+        return (torch.empty((L, 10), **f),
+                *[torch.empty(L, dtype=torch.int32, **f)] * 5,
+                torch.empty((L, 10), dtype=torch.int32, **f),
+                torch.empty(L, dtype=torch.float64, **f))
+    monkeypatch.setattr(sk, "snv_strand_bias_tile", sb_kernel)
+    monkeypatch.setattr(sk, "snv_rna_tile", rna_kernel)
+    meta = torch.device("meta")
+    b, q, f, m, r, g, lt, dd, hap = xla_inputs(np.random.default_rng(13), 8,
+                                                16)
+    tile = tsd.SnvPileupTile(b.to(dtype).to(meta), q.to(dtype).to(meta),
+                             f.to(torch.uint8).to(meta),
+                             m.to(torch.uint8).to(meta), r.long().to(meta))
+    assert tsd.snv_strand_bias_tile(tile, g.long().to(meta), lt.to(meta),
+                                    dd.to(meta), RNA_EXT,
+                                    RNA_INC).shape == (8,)
+    out = tsd.call_snv_tile(tile, 0.001, hap.to(torch.uint8).to(meta),
+                            het_vf_extension=RNA_EXT,
+                            het_vf_increment=RNA_INC, dep_delta=dd.to(meta))
+    assert out.lhood.shape == (8, 10)
+    qd = torch.uint8 if dtype == torch.uint8 else torch.int16
+    assert seen["sb"] == (torch.int8, qd, torch.bool, torch.bool,
+                          torch.int32, torch.int32)
+    assert seen["rna"] == (torch.int8, qd, torch.bool, torch.int32,
+                           torch.bool, 9)
+    base = torch.tensor([[0, 3, 4, -1, -3, 200, -200, 2]])
+    qual = torch.tensor([[0, 30, 127, 128, 255, 300, -5, 45]])
+    xb, xq, xm = tsd._kernel_lanes(base.to(dtype), qual.to(dtype),
+                                   torch.ones_like(base, dtype=torch.uint8))
+    assert xm.dtype == torch.bool and bool(xm.all())
+    src = base.to(dtype).long()
+    assert torch.equal(tsd._bias_index(xb.long()), tsd._bias_index(src))
+    for x in range(4):
+        assert torch.equal(xb.long() == x, src == x)
+    want = qual.to(dtype).long()
+    if dtype not in (torch.uint8, torch.int16):
+        want = want.clamp(0, 255)
+    assert xq.dtype == qd and xq.long().tolist() == want.tolist()
+
+
 @pytest.fixture
 def broken_loader(monkeypatch):
     def fail(name):
@@ -358,7 +509,8 @@ def test_load_step_raises_without_the_library(name, broken_loader):
         sk.function(name)
 
 
-@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post"])
+@pytest.mark.parametrize("which", ["hist", "lanes", "grid", "post", "sb",
+                                   "rna"])
 def test_no_fallback_to_the_plain_version(which, broken_loader):
     """The public functions on a non-CPU tensor go to the kernel alone:
     where it cannot be loaded they raise, and never return the plain
@@ -376,6 +528,14 @@ def test_no_fallback_to_the_plain_version(which, broken_loader):
     elif which == "grid":
         args = [a.to(meta) for a in grid_inputs(rng, 8, 16)]
         fn = tss.freq_grid_lhoods
+    elif which in ("sb", "rna"):
+        b, q, f, m, r, g, lt, dd, hap = (x.to(meta)
+                                         for x in xla_inputs(rng, 8, 16))
+        tile = tsd.SnvPileupTile(b, q, f, m, r)
+        args = ((tile, g, lt, dd, RNA_EXT, RNA_INC) if which == "sb" else
+                (tile, 0.001, hap, None, RNA_EXT, RNA_INC, dd))
+        fn = (tsd.snv_strand_bias_tile if which == "sb" else
+              tsd.call_snv_tile)
     else:
         args = [torch.from_numpy(lhood_rows(rng, 8)).to(meta)
                 for _ in range(2)]
@@ -393,9 +553,11 @@ def test_empty_tiles_launch_nothing(monkeypatch):
     sk.reset()
     rng = np.random.default_rng(10)
     for out in (hist_call(*hist_inputs(rng, 0)),
-                lanes_call(*lane_inputs(rng, 0, 8))):
+                lanes_call(*lane_inputs(rng, 0, 8)),
+                xla_rna(*xla_inputs(rng, 0, 8))):
         assert [tuple(t.shape) for t in out] == [(0, 10)] + [(0,)] * 5 + \
             [(0, 10), (0,)]
+    assert xla_sb(*xla_inputs(rng, 0, 8)).shape == (0,)
     assert grid_call(*grid_inputs(rng, 0, 8)).shape == (0, 30)
     e = torch.zeros((0, 30))
     assert all(t.shape == (0,) for t in post_call(e, e))
@@ -429,3 +591,9 @@ def test_plain_versions_take_zero_rows():
     g = tsd.call_snv_lanes_tile_plain(base, qual, mask, ref, hap,
                                       s_mis=smis)
     assert g.lhood.shape == (0, 10) and g.phred_loghood.shape == (0, 10)
+    base, qual, fwd, mask, ref, tgt, lt, dd, hap = xla_inputs(rng, 0, 32)
+    tile = tsd.SnvPileupTile(base, qual, fwd, mask, ref)
+    g = tsd.call_snv_rna_tile_plain(tile, 0.001, hap, RNA_EXT, RNA_INC, dd)
+    assert g.lhood.shape == (0, 10) and g.phred_loghood.shape == (0, 10)
+    assert tsd.snv_strand_bias_tile_plain(tile, tgt, lt, dd, RNA_EXT,
+                                          RNA_INC).shape == (0,)
