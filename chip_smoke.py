@@ -1633,16 +1633,100 @@ def kgr_work(torch, tile, hap, dd, ext, inc) -> tuple[int, int, int]:
     return nbytes, f32, KGH_F64_PER_ROW * L
 
 
-def phase_xla_kernels(np, torch, dev, cuda: bool, sb4, kept14):
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm failed: {r.stderr.strip()}")
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def kgr_floor_ms(torch, tile, dd, ext, inc, clock_hz) -> float:
+    """KG-R's design floor: its terms' shared-memory reads, one warp-wide
+    read (32 terms) an SM cycle, on every SM: the row's 12 n_steps
+    het-VF sums and 4 delta sums of D terms each."""
+    L, D = tile.base_id.shape
+    items = 12 * (1 + int(ext / inc)) + 4 * (dd is not None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return L * items * D / 32 / sms / clock_hz * 1e3
+
+
+def kgsb_floor_ms(tile, empty_ms, clock_hz) -> float:
+    """KG-SB's design floor: an empty kernel's launch on its grid (graph
+    replay) plus one row's chain, D dependent f32 adds of 4 cycles (every
+    row's warp runs at once)."""
+    return empty_ms + tile.base_id.shape[1] * 4 / clock_hz * 1e3
+
+
+def with_parent_lib(snk, name, lib_fn, call):
+    """call() with ops/snv_kernels' entry `name` bound to the parent's
+    launch function lib_fn (parent_xla), this tree's after it."""
+    def run():
+        mine = snk._BOUND.get(name)
+        snk._BOUND[name] = lib_fn
+        try:
+            return call()
+        finally:
+            if mine is None:
+                snk._BOUND.pop(name)
+            else:
+                snk._BOUND[name] = mine
+    return run
+
+
+def parent_xla(parent_csrc) -> dict:
+    """The parent commit's KG-SB and KG-R (its snv_strand_bias.cu and
+    snv_rna_tile.cu, unpacked as parent_kgh's), built with the port's
+    nvcc flags into build/parent/, one nvcc each at once: {entry name:
+    its launch function, with the same C signature}."""
+    import ctypes
+    from strelka_tpu_torch import _build
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    out = os.path.join(HERE, "build", "parent")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, src in (("snv_strand_bias_tile", "snv_strand_bias"),
+                      ("snv_rna_tile", "snv_rna_tile")):
+        lib = os.path.join(out, f"lib{src}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+             os.path.join(parent_csrc, f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, p) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"nvcc of the parent's {name} failed:\n{text}")
+        fn = getattr(ctypes.CDLL(lib), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = snk._ARGTYPES[name]
+        fns[name] = fn
+    return fns
+
+
+def phase_xla_kernels(np, torch, dev, cuda: bool, sb4, kept14,
+                      parent_csrc=None):
     """Phase 14b: KG-SB on phase 4's first strand-bias call (`sb4`) and
     KG-R and KG-SB on phase 14's first RNA genotype tile and strand-bias
     call (`kept14`), kept as the CLIs made them (StreamTimer.kept), each
     held bit for bit against its plain version on the same inputs (a
     NaN as a NaN), timed by CUDA events and graph replay beside it (the
     plain version runs on the card here alone), one call of each traced,
-    with its bound (kgsb_work, kgr_work), registers and spills. Returns
-    (KG-SB's row at phase 4's call, KG-R's row)."""
+    with its bound (kgsb_work, kgr_work), its design floor (kgsb_floor_ms
+    over an empty kernel's launch on KG-SB's grid, kgr_floor_ms),
+    registers and spills; with `parent_csrc`, the parent's kernels on the
+    same inputs, bit for bit too, in turns with this tree's (turns_ms).
+    Returns (KG-SB's row at phase 4's call, KG-R's row)."""
     from strelka_tpu_torch.models import snv_digt as sd
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    parents, empty, clock = {}, None, None
+    if cuda:
+        from strelka_tpu_torch.ops import kgr_probe
+        if parent_csrc:
+            parents = parent_xla(parent_csrc)
+        clock = sm_clock_hz()
     calls = {"phase 4 strand bias": sb4,
              "phase 14 strand bias": kept14.get("snv_strand_bias_tiles"),
              "phase 14 rna tile": kept14.get("snv_call_tiles")}
@@ -1674,6 +1758,20 @@ def phase_xla_kernels(np, torch, dev, cuda: bool, sb4, kept14):
                                 "orders and Cephes exp and log")
         if cuda:
             row["registers"] = regs["snv_strand_bias"]
+            g = snk.launch_grid("snv_strand_bias_tile", tile.base_id.shape[0],
+                                0 if ext <= 0 else int(1 + ext / inc),
+                                tile.base_id.shape[1], dev)
+            empty = kgr_probe.empty_launch_ms(g["blocks"], 128)
+            row.update(grid_blocks=g["blocks"], launch_floor_ms=empty,
+                       design_floor_ms=kgsb_floor_ms(tile, empty, clock),
+                       design_floor_by="launch and one row's chain")
+            if parents:
+                old = with_parent_lib(snk, "snv_strand_bias_tile",
+                                      parents["snv_strand_bias_tile"],
+                                      kernel)
+                hold(torch, f"kg-sb {key} parent",
+                     {"strand_bias": old()}, {"strand_bias": plain()})
+                row.update(turns_ms(torch, old, kernel))
         rows[key] = row
         log(f"kg-sb {key}: " + json.dumps(row))
     (a, kw), = calls["phase 14 rna tile"]
@@ -1698,6 +1796,14 @@ def phase_xla_kernels(np, torch, dev, cuda: bool, sb4, kept14):
                             "and Cephes exp and log")
     if cuda:
         row["registers"] = regs["snv_rna_tile"]
+        row.update(design_floor_ms=kgr_floor_ms(torch, tile, dd, ext, inc,
+                                                clock),
+                   design_floor_by="shared-memory reads, one a term")
+        if parents:
+            old = with_parent_lib(snk, "snv_rna_tile",
+                                  parents["snv_rna_tile"], kernel)
+            hold_kgh(torch, "kg-r phase 14 parent", old(), plain())
+            row.update(turns_ms(torch, old, kernel))
     log("kg-r phase 14: " + json.dumps(row))
     return rows["phase 4 strand bias"], row
 
@@ -3967,7 +4073,9 @@ def main(argv=None) -> int:
     log("== phase 14b: KG-SB and KG-R on phases 4's and 14's first calls "
         "vs their plain versions")
     t0 = time.perf_counter()
-    sb_row, rna_row = phase_xla_kernels(np, torch, dev, cuda, sb4, kept14)
+    sb_row, rna_row = phase_xla_kernels(
+        np, torch, dev, cuda, sb4, kept14,
+        os.path.abspath(opts.parent_csrc) if opts.parent_csrc else None)
     del sb4, kept14
     log(f"phase 14b took {time.perf_counter() - t0:.1f} s")
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
@@ -4156,7 +4264,8 @@ def main(argv=None) -> int:
             "plain_trace": krow.get("plain_trace"),
             **{k: krow[k] for k in (
                 "registers", "live_slots_a_row", "library_max_abs_diff",
-                "library_note", "het_rows",
+                "library_note", "het_rows", "design_floor_ms",
+                "design_floor_by", "launch_floor_ms", "grid_blocks",
                 "sass_fp64_floor_ms", "clean_row_share", "exp_zero_share",
                 "exp_zero_share_listed", "prev_device_ms",
                 "device_ms_turns", "turns_ms", "lanes_entry",

@@ -26,27 +26,42 @@
 namespace snv {
 
 // Blocks of `threads` for a grid over `want` blocks' work: as many as the
-// card holds at once where that is fewer (kernel's blocks walk the rest).
-// Kept per device after its first query, so that no query falls inside a
-// graph capture.
+// card holds at once where that is fewer (kernel's blocks walk the rest),
+// with `dyn` bytes of dynamic shared memory a block (allowed past 48 KB
+// before the call). Kept per kernel, device and byte count after its
+// first query (kernels of one signature share this function's table), so
+// that no query falls inside a graph capture of a launch made before.
 template <typename Kernel>
-long long resident_blocks(Kernel kernel, int threads, long long want) {
-    static long long cap[64];
+long long resident_blocks(Kernel kernel, int threads, long long want,
+                          size_t dyn = 0) {
+    struct Cap {
+        const void* fn;
+        int dev;
+        size_t dyn;
+        long long cap;
+    };
+    static Cap caps[64];
+    static int n = 0;
+    const void* fn = reinterpret_cast<const void*>(kernel);
     int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
-        return want;
-    if (cap[dev] == 0) {
+    if (cudaGetDevice(&dev) != cudaSuccess) return want;
+    long long cap = 0;
+    for (int i = 0; i < n && !cap; ++i)
+        if (caps[i].fn == fn && caps[i].dev == dev && caps[i].dyn == dyn)
+            cap = caps[i].cap;
+    if (!cap) {
         int sms = 0, per_sm = 0;
         if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
                 != cudaSuccess
             || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                             threads, 0)
+                                                             threads, dyn)
                 != cudaSuccess
             || per_sm < 1)
             return want;
-        cap[dev] = static_cast<long long>(sms) * per_sm;
+        cap = static_cast<long long>(sms) * per_sm;
+        if (n < 64) caps[n++] = Cap{fn, dev, dyn, cap};
     }
-    return want < cap[dev] ? want : cap[dev];
+    return want < cap ? want : cap;
 }
 
 constexpr double kF64Tiny = 2.2250738585072014e-308;   // finfo(f64).tiny

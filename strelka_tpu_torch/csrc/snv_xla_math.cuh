@@ -15,11 +15,19 @@
 // - the genotype tables of models/digt.py (EXPECT2, EXPECT2_BIAS), the
 //   low-ratio key remap 0,2,1,3 and _bias_index's wrap-then-clamp of a
 //   base id;
-// - a warp's staging of a row's calls, a window at a time, and the walk
-//   that sums each lane's item over them in those orders, its terms one
-//   at a time (row_sums, SmallSum).
-//   tests/test_torch_snv_sb_rna.py holds a torch model of the walk
-//   against xla_sum_minor and xla_sum_major.
+// - a warp's walk over a row's calls (walk): each window of calls is
+//   fetched into registers a window ahead, then written once into the
+//   warp's shared memory as one row of values a call (its columns: every
+//   value that any of the row's sums can take from it), and each lane
+//   adds kPer sums (its items) over the window together, a term being one
+//   read of the call's row at the column that the item's map gives for
+//   the call's class; each sum in XLA's order (SmallSum at D <= 32, the
+//   windows and push past it);
+// - a logsumexp of several groups spread over the warp's lanes
+//   (lse_spread: the exps one to a lane, each group's sum in order on one
+//   lane).
+//   tests/test_torch_snv_sb_rna.py holds torch models of the walk and of
+//   the spread against xla_sum_minor, xla_sum_major and the plain versions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,10 +39,6 @@
 namespace snv_xla {
 
 constexpr int kVals = 256;        // _VALS_Q: qscores of the value tables
-// a het-VF table row (one step's value v0..v3 for every qscore) padded by
-// one float in shared memory, so that the rows a warp's lanes read at one
-// qscore fall in different banks
-constexpr int kHetStride = kVals + 1;
 constexpr int kMaxSteps = 40;     // het-ratio steps the kernels take
 constexpr int kMaxDepth = 1 << 20;   // calls a row: three window levels
 
@@ -171,7 +175,8 @@ struct SmallSum {
     float s;
     int vf, nv, epi, ne;
 
-    __device__ SmallSum(int v, int n) : s(0.0f) {
+    __device__ void init(int v, int n) {
+        s = 0.0f;
         const int uf = v == kVec8x3 ? 3 : 4;
         vf = v == kVec4x4e4 ? 4 : 8;
         epi = v == kVec8x4e8 ? 8 : (v == kVec4x4e4 ? 4 : 0);
@@ -246,86 +251,136 @@ __device__ __forceinline__ void push(const Windows& w, long long j, float v,
     a2 = 0.0f;
 }
 
-// A window of a row's calls, staged by its warp: call i of the window
-// (lane i loaded it)
-struct Calls {
-    float dd[32];         // the dependent-eprob delta (0 without)
-    int8_t b[32];         // base id as the lanes hold it
-    uint8_t q[32];        // clamp(qual, 0, 255)
-    uint8_t mf[32];       // mask | is_fwd << 1
-};
-
 template <typename Q>
 __device__ __forceinline__ int qual255(Q q) {
     const int v = static_cast<int>(q);
     return v < 0 ? 0 : (v > kVals - 1 ? kVals - 1 : v);
 }
 
-// The sums of a row's D calls for its `items` items, one item a lane in
-// passes of 32: res[it] = the sum over the calls of term(prep(it), i) (i:
-// the call's place in the staged window) in variant(it)'s order for D <=
-// 32 (SmallSum) and in XLA's windows past it (push). load(p0, n, first)
-// stages the row's calls p0 .. p0 + n - 1 into the warp's Calls, call p0
-// + l by lane l, `first` on the row's first pass over them; the warp
-// synchronises around each window. A lane's terms meet one call site, so
-// that each kernel holds one copy of its term.
-template <class Load, class Prep, class Term, class Variant>
-__device__ __forceinline__ void row_sums(const Windows& w, int items,
-                                         int lane, Load load, Prep prep,
-                                         Term term, Variant variant,
-                                         float* res) {
-    for (int it0 = 0; it0 < items; it0 += 32) {
-        const int it = it0 + lane;
-        const bool live = it < items;
-        const auto item = prep(live ? it : 0);
-        SmallSum small(live && w.levels == 0 ? variant(it) : kSeq,
-                       static_cast<int>(w.levels == 0 ? w.n[0] : 0));
-        float a1 = 0.0f, a2 = 0.0f, top = 0.0f;
+// the calls [p0, p0 + n) of level 0's window j
+__device__ __forceinline__ int window_calls(const Windows& w, long long j,
+                                            long long& p0) {
+    const long long lo = 32 * j - w.lo[0];
+    p0 = lo < 0 ? 0 : lo;
+    const long long p1 = lo + 32 < w.n[0] ? lo + 32 : w.n[0];
+    return static_cast<int>(p1 - p0);
+}
+
+// The selector of byte b (0..3) of a word for __byte_perm(word, 0, sel):
+// the byte, zero-extended (the selector's bits past 15 are not read, so a
+// call's class word keeps other fields there)
+__device__ __forceinline__ unsigned byte_sel(int b) {
+    return 0x4440u | static_cast<unsigned>(b);
+}
+
+// One pass of a warp over a row's calls: the sums of each lane's kPer
+// items, each in XLA's order, into out. fetch(p0, n) loads call p0 + lane
+// of a window of n calls into registers (a window ahead of its sums);
+// commit(f, n) writes them into the warp's rows, the warp synchronised
+// after it; term(i, x) gives each item's term of the window's call i.
+// kSmall (D <= 32): one window, each item's terms in its vectorized order
+// (SmallSum with variant(k)); else windows of 32 summed in order from +0
+// and folded into the upper levels (push). Ends synchronised, the rows
+// free.
+template <int kPer, bool kSmall, class Fetch, class Commit, class Term,
+          class Variant>
+__device__ __forceinline__ void walk(const Windows& w, Fetch fetch,
+                                     Commit commit, Term term,
+                                     Variant variant, float (&out)[kPer]) {
+    long long p0;
+    int n = window_calls(w, 0, p0);
+    auto f = fetch(p0, n);
+    if constexpr (kSmall) {
+        commit(f, n);
+        __syncwarp();
+        SmallSum sm[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) sm[k].init(variant(k), n);
+        for (int i = 0; i < n; ++i) {
+            float x[kPer];
+            term(i, x);
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) sm[k].add(i, x[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) out[k] = sm[k].s;
+    } else {
+        float a1[kPer], a2[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) a1[k] = a2[k] = out[k] = 0.0f;
         for (long long j = 0; j < w.n[1]; ++j) {
-            const long long lo = 32 * j - w.lo[0];
-            const long long p0 = lo < 0 ? 0 : lo;
-            const long long p1 = lo + 32 < w.n[0] ? lo + 32 : w.n[0];
-            const int n = static_cast<int>(p1 - p0);
-            load(p0, n, it0 == 0);
+            commit(f, n);
             __syncwarp();
-            if (live) {
-                float s = 0.0f;
-                for (int i = 0; i < n; ++i) {
-                    const float x = term(item, i);
-                    if (w.levels == 0)
-                        small.add(i, x);
-                    else
-                        s = __fadd_rn(s, x);
-                }
-                if (w.levels > 0) push(w, j, s, a1, a2, top);
+            const int nj = n;
+            if (j + 1 < w.n[1]) {
+                n = window_calls(w, j + 1, p0);
+                f = fetch(p0, n);
             }
+            float s[kPer];
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) s[k] = 0.0f;
+#pragma unroll 4
+            for (int i = 0; i < nj; ++i) {
+                float x[kPer];
+                term(i, x);
+#pragma unroll
+                for (int k = 0; k < kPer; ++k) s[k] = __fadd_rn(s[k], x[k]);
+            }
+#pragma unroll
+            for (int k = 0; k < kPer; ++k)
+                push(w, j, s[k], a1[k], a2[k], out[k]);
             __syncwarp();
         }
-        if (live) res[it] = w.levels == 0 ? small.s : top;
     }
+    __syncwarp();
 }
 
-// _het_vf_combine for one het genotype: logsumexp of its lhood x0 and its
-// 2 * n_steps extension terms ext[0..), in order, minus ln(1 + 2 n_steps)
-__device__ __forceinline__ float het_combine(float x0, const float* ext,
-                                             int n_steps) {
-    const int m = 2 * n_steps;
-    float mx = x0;
-    for (int k = 0; k < m; ++k) mx = snv::nan_max(mx, ext[k]);
-    mx = fabsf(mx) < INFINITY ? mx : 0.0f;
-    float tot = exp_f32(__fsub_rn(x0, mx));
-    for (int k = 0; k < m; ++k)
-        tot = __fadd_rn(tot, exp_f32(__fsub_rn(ext[k], mx)));
-    const float lse = __fadd_rn(log_f32(tot), mx);
-    return __fsub_rn(lse, log_f32(static_cast<float>(m + 1)));
-}
-
-// Stage the het-VF table [n_steps, 4, 256] into shared memory (rows
-// kHetStride apart), each block once.
-__device__ __forceinline__ void stage_het(float* dst, const float* src,
-                                          int n_steps) {
-    for (int i = threadIdx.x; i < n_steps * 4 * kVals; i += blockDim.x)
-        dst[(i / kVals) * kHetStride + i % kVals] = src[i];
+// _het_vf_combine over `groups` groups, spread over the warp: group c's
+// lhood x0 on its owner lane (own: c, -1 on other lanes), its m terms at
+// ext(c, k) in shared memory, k < m. The owner takes its group's max in
+// four interleaved chains (the NaN-first max of any order: a NaN, and
+// then any non-finite max, becomes 0, and a +0 or -0 max shifts every
+// term alike), the lanes take the groups' exps, term t = c (m + 1) + k on
+// lane t % 32 (x0's into x0s[c], the terms' in place), then the owner adds
+// its exps in order and returns log(sum) + max - ln(1 + m); other lanes
+// get x0 back. x0s and mxs hold `groups` floats of the warp's scratch.
+template <class Ext>
+__device__ __forceinline__ float lse_spread(float x0, int own, int groups,
+                                            int m, Ext ext, float* x0s,
+                                            float* mxs, int lane) {
+    if (own >= 0) {
+        float mx[4] = {x0, x0, x0, x0};
+        int k = 0;
+        for (; k + 4 <= m; k += 4) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                mx[u] = snv::nan_max(mx[u], *ext(own, k + u));
+        }
+        for (; k < m; ++k) mx[0] = snv::nan_max(mx[0], *ext(own, k));
+        const float top = snv::nan_max(snv::nan_max(mx[0], mx[1]),
+                                       snv::nan_max(mx[2], mx[3]));
+        x0s[own] = x0;
+        mxs[own] = fabsf(top) < INFINITY ? top : 0.0f;
+    }
+    __syncwarp();
+    const int w = m + 1;
+    int c = lane / w, k = lane % w;
+    for (int t = lane; t < groups * w; t += 32) {
+        float* p = k == 0 ? x0s + c : ext(c, k - 1);
+        *p = exp_f32(__fsub_rn(*p, mxs[c]));
+        for (k += 32; k >= w; k -= w) ++c;
+    }
+    __syncwarp();
+    float r = x0;
+    if (own >= 0) {
+        float tot = x0s[own];
+#pragma unroll 4
+        for (int j = 0; j < m; ++j) tot = __fadd_rn(tot, *ext(own, j));
+        r = __fsub_rn(__fadd_rn(log_f32(tot), mxs[own]),
+                      log_f32(static_cast<float>(m + 1)));
+    }
+    __syncwarp();
+    return r;
 }
 
 // The dynamic shared memory a launch asks for, allowed past 48 KB

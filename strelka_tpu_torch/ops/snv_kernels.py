@@ -32,7 +32,10 @@ gives its plain version's bits on the card in one launch:
   logsumexp, KG-H's tail), the RNA pass of models/snv_digt.call_snv_tile;
   plain version call_snv_rna_tile_plain. KG-SB and KG-R share
   csrc/snv_xla_math.cuh (XLA's exp, log and sum orders); one warp walks
-  a row's calls a window at a time, its sums one to a lane;
+  a row's calls a window at a time, each call decoded once into a row of
+  values in shared memory, its sums several to a lane (a term one read
+  of the column that the sum's map gives for the call), the
+  logsumexps' exps spread over the lanes;
 - KS-G, somatic_grid (csrc/somatic_grid.cu): one sample's somatic
   frequency-grid lhoods, models/somatic_snv.freq_grid_lhoods; plain version
   freq_grid_lhoods_plain;
@@ -245,9 +248,29 @@ def snv_lanes_tile(base_id, qual, mask, ref_gt, is_haploid, s_mis, tabs):
 
 
 # KG-SB's and KG-R's limits (csrc/snv_xla_math.cuh): het-ratio steps
-# (their table in shared memory) and calls a row (three window levels)
+# (KG-SB's call rows in shared memory hold every step's values) and calls
+# a row (three window levels)
 MAX_STEPS = 40
 MAX_DEPTH = 1 << 20
+
+
+def launch_grid(name, L, n_steps, D, dev=None) -> dict:
+    """The grid of entry `name` (snv_strand_bias_tile or snv_rna_tile)
+    for L rows at n_steps het-ratio steps and D calls a row (int16 qual)
+    on card `dev`: blocks (its grid), per_sm (the blocks an SM holds by
+    the occupancy API with the launch's dynamic shared memory) and sms.
+    Raises where the query fails."""
+    from .. import _build
+    fn = getattr(_build.load(source(name)), f"{name}_grid")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_ll, _i, _ll, ctypes.POINTER(_ll)]
+    out = (_ll * 3)()
+    with torch.cuda.device(dev if dev is not None else
+                           torch.cuda.current_device()):
+        rc = fn(L, n_steps, D, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} grid query failed: CUDA error {rc}")
+    return {"blocks": out[0], "per_sm": out[1], "sms": out[2]}
 
 
 def _xla_specs(name, dev, base_id, qual, mask, dep_delta, het_vf,

@@ -1652,6 +1652,53 @@ def test_kgsb_and_kgr_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert snk.LAUNCHES == before
 
 
+# the het-ratio steps the kernels take (1, RNA mode's 9, the most) as
+# (extension, increment)
+XLA_STEPS = {1: (0.03, RNA_INC), 9: (RNA_EXT, RNA_INC), 40: (0.394, 0.0101)}
+
+
+@pytest.mark.parametrize("qual_dtype,dep", [(np.uint8, True),
+                                            (np.uint8, False),
+                                            (np.int16, True),
+                                            (np.int16, False)])
+@pytest.mark.parametrize("D", [1, 20, 32, 33, 64, 1025])
+@pytest.mark.parametrize("n_steps", [1, 9, 40])
+def test_kgsb_and_kgr_walk_bit_identical_to_plain(cuda, n_steps, D,
+                                                  qual_dtype, dep):
+    """The redesigned walk of both kernels (items several to a lane in
+    passes, call rows, spread logsumexps) at 1, 9 and 40 het-ratio steps,
+    at the depths where their sums change shape (one vectorized window,
+    a partial one, windows of windows), with uint8 and int16 qual, with
+    and without deltas, haploid and all-masked rows; KG-SB also without
+    the extension."""
+    from strelka_tpu_torch.models import snv_digt as sd
+    ext, inc = XLA_STEPS[n_steps]
+    assert sd._het_vf_table(ext, inc)[0].shape[0] == n_steps
+    x = xla_tile(np.random.default_rng(D * 7 + n_steps),
+                 160 if D < 1000 else 40, D, qual_dtype, dep)
+    kgr_against_plain(cuda, *x, ext=ext, inc=inc)
+    kgsb_against_plain(cuda, *x, ext, inc)
+    if n_steps == 9:
+        kgsb_against_plain(cuda, *x, 0.0)
+
+
+@pytest.mark.parametrize("n_steps", [9, 40])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("name", ["snv_rna_tile", "snv_strand_bias_tile"])
+def test_kgsb_and_kgr_grids_count_the_dynamic_shared_memory(cuda, name, D,
+                                                            n_steps):
+    """For more rows than the card holds at once, each kernel's grid is
+    the blocks an SM holds by the occupancy API with the launch's dynamic
+    shared memory, times the SMs (snv::resident_blocks keeps its count
+    per byte count)."""
+    from strelka_tpu_torch.ops import snv_kernels as snk
+    g = snk.launch_grid(name, 1 << 24, n_steps, D, cuda)
+    assert g["per_sm"] >= 1 and g["sms"] >= 1
+    assert g["blocks"] == g["per_sm"] * g["sms"]
+    small = snk.launch_grid(name, 3, n_steps, D, cuda)
+    assert small["blocks"] == 1
+
+
 def test_rna_path_launches_the_kernels_not_the_plain_versions(cuda):
     """call_snv_tile_chunked in RNA mode on the card: KG-R once a genotype
     tile tally, KG-SB once a strand-bias tally, no plain version; lhood,
