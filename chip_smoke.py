@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build: the host library (make -C native) and every CUDA kernel of
-   strelka_tpu_torch/csrc (one nvcc per source, started together);
+   strelka_tpu_torch/csrc (one nvcc per source, started together); then
+   phases 4's, 6's and 10's synthetic data start in three spawned
+   processes (DataMakers), made while phases 2-3 run;
 2. k1: the scoring kernel (u8 tensor cores, csrc/score_best_offsets_tc.cu)
    against its plain torch version on the card, bit for bit, at the main
    path's shapes plus tie, ragged and code-4 cases, timed by CUDA events
@@ -165,10 +167,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    arrays equal, the model's rates within ERR_FLAT_RTOL, every record
    equal, K1's launches counted on the cuda run; then tools
    estimate-parameters <npz> indelIndy, cuda against cpu within
-   ERR_FIT_RTOL, on three of the counts' contexts. It logs the
-   counting's host wall, the fit's wall, Adam steps, launches a step
-   (a torch.profiler trace of a short fit) and stream ms, and each
-   run's wall.
+   ERR_FIT_RTOL, on three of the counts' contexts. The cuda run fits
+   through KE-F (csrc/error_fit_step.cu): its step launched once an
+   Adam step and its prep once a fit, the plain step no time, and a
+   torch.profiler trace of a short fit at 2 kernel launches a step at
+   most. It
+   logs the counting's host wall, the fit's wall, Adam steps, each
+   context's pattern count, launches a step (the trace) and stream ms,
+   and each run's wall;
+15b. KE-F on the first two contexts that phase 15's cuda run fitted
+   (kept as the CLI made them, StreamTimer.kept) and on a seeded
+   synthetic context of over 100,000 patterns (two loci a thread): the
+   prep bit for bit with fit_prep_plain, the first step's loss within
+   ERR_LOSS_RTOL and gradient within ERR_GRAD_RTOL of its largest
+   component (or 2 eps N times its terms' scale) of fit_step_plain's on
+   the card, Adam's state bit for bit given the kernel's gradient, the
+   whole fit within ERR_FLAT_RTOL of the plain step's fit on the card
+   (the plain loss at both fits' rates within ERR_LOSS_AT_FIT_RTOL);
+   one step timed by CUDA events and by graph replay beside the plain
+   step, with its bound (fit_kernels.step_work: bytes at 3.35 TB/s
+   against float64 operations at 34 TFLOP/s), an empty kernel's launch
+   on its grid, registers and spills; the prep likewise.
 Phases 12-15 log each run's size, wall and stream ms by device phase.
 16. denovo: per-sample mode on phase 10's gVCFs (sample 1 the proband)
    and multi-sample mode on its variants.vcf.gz (host code): every input
@@ -2146,12 +2165,23 @@ extern "C" __global__ void p_div(const double* x, double* y)
 _PTXAS: dict = {}
 
 
+def entry_registers(report: dict, kernel: str) -> int:
+    """The registers of the one kernel of a source's ptxas_report whose
+    (mangled) entry name holds `kernel`."""
+    hits = [v for k, v in report["registers_by_entry"].items()
+            if kernel in k]
+    if len(hits) != 1:
+        fail(f"ptxas: {len(hits)} entries named {kernel} in "
+             f"{sorted(report['registers_by_entry'])}")
+    return hits[0]
+
+
 def ptxas_report() -> dict:
-    """KG-H's, KG-SB's, KG-R's, KS-G's and KS-P's registers and spills
+    """KG-H's, KG-SB's, KG-R's, KS-G's, KS-P's and KE-F's registers and spills
     (nvcc -Xptxas -v on their sources, the build's flags; a source's the
     most of its kernels) and the FP64 SASS instructions (D* ops, by
     cuobjdump) of one call of exp, log, log1p and a division, from a
-    probe built the same way: six nvcc at once, the first call only."""
+    probe built the same way: seven nvcc at once, the first call only."""
     if _PTXAS:
         return _PTXAS
     import re
@@ -2163,7 +2193,7 @@ def ptxas_report() -> dict:
         f.write(FP64_PROBE)
     srcs = {k: os.path.join(_build.CSRC, f"{k}.cu")
             for k in ("snv_hist_tile", "snv_strand_bias", "snv_rna_tile",
-                      "somatic_grid", "somatic_posterior")}
+                      "somatic_grid", "somatic_posterior", "error_fit_step")}
     srcs["fp64_probe"] = probe
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",
                                                        "-Xcompiler",
@@ -2180,8 +2210,17 @@ def ptxas_report() -> dict:
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
                                              text)]
+        by_entry, entry = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling (entry )?function '(\S+)'", line)
+            if m:
+                entry = m.group(2) if m.group(1) else None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                by_entry[entry] = int(m.group(1))
         report[k] = {"registers": max(regs), "spill_store_bytes": max(
-            spills, default=0), "registers_each": regs}
+            spills, default=0), "registers_each": regs,
+            "registers_by_entry": by_entry}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     r = subprocess.run([cuobjdump, "-sass",
                         os.path.join(out, "fp64_probe.cubin")],
@@ -2397,6 +2436,49 @@ def make_tn_dataset(np, workdir: str, mb: float):
         f"{len(truth['som_snv'])} somatic SNVs planted, made in "
         f"{time.perf_counter() - t0:.1f} s")
     return fa, nbam, tbam, n, truth["som_snv"]
+
+
+def make_data(kind: str, workdir: str, mb: float):
+    """Phase 4's ("germline"), 6's ("tn") or 10's ("joint") dataset with
+    what its maker logs captured: (its result, the text). DataMakers runs
+    it in a child process."""
+    import numpy as np
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if kind == "germline":
+            out = make_dataset(np, workdir, mb)
+        elif kind == "tn":
+            out = make_tn_dataset(np, workdir, mb)
+        else:
+            out = make_joint_dataset(workdir, mb)
+    return out, buf.getvalue()
+
+
+class DataMakers:
+    """Phases 4's, 6's and 10's datasets made side by side in three
+    spawned processes (numpy and the port's synth, no card) while phases
+    2-3 run; get(kind) waits for one, logs what its maker logged and
+    returns its result. The processes end with close(), or are
+    terminated at exit where the smoke fails first."""
+
+    def __init__(self, workdir: str, sizes: dict):
+        import atexit
+        import multiprocessing
+        self.pool = multiprocessing.get_context("spawn").Pool(len(sizes))
+        atexit.register(self.pool.terminate)
+        self.jobs = {kind: self.pool.apply_async(make_data,
+                                                 (kind, workdir, mb))
+                     for kind, mb in sizes.items()}
+
+    def get(self, kind: str):
+        out, text = self.jobs[kind].get()
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        return out
+
+    def close(self) -> None:
+        self.pool.close()
+        self.pool.join()
 
 
 def run_somatic_cli(fa, nbam, tbam, out, device):
@@ -2633,13 +2715,15 @@ def launches_during(fn):
     """fn() with every launch counter set to 0 just before and read just
     after: (fn's result, the wall s, {"k1", "k1h", "k1h_simt", "kx",
     "score", "snv", "somatic", "snv_kernels", "snv_plain"} in the layout
-    of the workers' STRELKA_TPU_LAUNCH_STATS dumps, and "host_hist": the
-    (qscore, base) histograms counted on the host meanwhile, which the
-    dumps do not hold)."""
+    of the workers' STRELKA_TPU_LAUNCH_STATS dumps, and "fit_kernels",
+    "fit_plain" (KE-F's entries and their plain versions) and
+    "host_hist": the (qscore, base) histograms counted on the host
+    meanwhile, which the dumps do not hold)."""
     from strelka_tpu_torch.models import snv_digt as sd
     from strelka_tpu_torch.models import somatic_snv as ss
     from strelka_tpu_torch.ops import score_kernel as sk
     from strelka_tpu_torch.ops import score_variants as sv
+    from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.ops import snv_kernels as snk
     from strelka_tpu_torch.pipeline import realign_batch as rb
     sk.LAUNCHES = 0
@@ -2650,6 +2734,7 @@ def launches_during(fn):
     sd.LAUNCH_STATS.clear()
     ss.LAUNCH_STATS.clear()
     snk.reset()
+    fk.reset()
     rb.LAUNCH_STATS = {}
     # the host's (qscore, base) histograms, which a card path counts on
     # the card instead
@@ -2674,6 +2759,8 @@ def launches_during(fn):
                   "somatic": keyed(ss.LAUNCH_STATS),
                   "snv_kernels": dict(snk.LAUNCHES),
                   "snv_plain": dict(snk.PLAIN_ON_CUDA),
+                  "fit_kernels": dict(fk.LAUNCHES),
+                  "fit_plain": dict(fk.PLAIN_ON_CUDA),
                   "host_hist": host_hist[0]}
         rb.LAUNCH_STATS = None
     return out, wall, counts
@@ -2855,6 +2942,20 @@ RNA_MB = 2.0
 ERR_FLAT_RTOL = 1e-6
 ERR_FIT_RTOL = 1e-10
 ERR_CONTEXTS = ((1, 1), (1, 2), (2, 2))   # phase 15's estimate-parameters
+# phase 15b's bounds on KE-F against the plain step, the tests'
+# (tests/test_torch_error_fit.py LOSS_RTOL, GRAD_RTOL and
+# LOSS_AT_FIT_RTOL: the sums over loci run in another order)
+ERR_LOSS_RTOL = 1e-14
+ERR_GRAD_RTOL = 1e-12
+ERR_LOSS_AT_FIT_RTOL = 1e-12
+# phase 15b's synthetic context: (seed, loci, largest ref count), over
+# 100,000 patterns after deduplication, two loci a thread of KE-F's step
+KEF_SYNTHETIC = (9, 130_000, 500)
+# float64 operations a locus of KE-F's prep, counted from its source
+# (each exp and log one; compares and selects not counted): the count
+# sums and rems (9), the three prefixes (9), the clean mixture's four
+# terms (21) and its logsumexp (16)
+KEF_PREP_F64_PER_LOCUS = 9 + 9 + 21 + 16
 
 
 def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
@@ -3238,19 +3339,27 @@ def phase_evs(np, torch, cuda, fa, bam, n_reads, mb, workdir, extra,
 
 
 def fit_launches_per_step(torch, ef, cc, log_theta, steps=20) -> dict:
-    """The device work of one Adam step of fit_context on the card: the
-    kernels and copies of a torch.profiler trace of a `steps`-step fit,
-    each per step (None where the trace holds no device event)."""
+    """The device work of one Adam step of fit_context on the card, from
+    a torch.profiler trace of a `steps`-step fit: the kernel launches
+    that its host side recorded (the runtime's launch calls: kineto can
+    lose the device record of a kernel launched through ctypes, as
+    profile_call says), and the kernels and copies that its device side
+    holds, each per step."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         ef.fit_context(cc, log_theta, n_steps=steps, device="cuda")
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
-    return {"kernels_per_step": (len(ev) - copies) / steps if ev else None,
-            "copies_per_step": copies / steps if ev else None,
-            "trace_device_events": len(ev)}
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    dev = [e.name() for e in events if e.device_type() == cuda]
+    launched = sum(e.name() in LAUNCH_CALLS for e in events
+                   if e.device_type() != cuda)
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in dev)
+    return {"launches_per_step": launched / steps,
+            "kernels_per_step": (len(dev) - copies) / steps,
+            "copies_per_step": copies / steps,
+            "trace_device_events": len(dev)}
 
 
 def read_json(path):
@@ -3284,7 +3393,7 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     for device in devices:
         out = os.path.join(workdir, f"error_{device}")
         timer = StreamTimer(torch, device == "cuda")
-        timer.wrap(ef, "fit_context", "error_fit")
+        timer.wrap(ef, "fit_context", "error_fit", keep=64)
         timer.wrap(sk, "score_best_offsets", "k1_score_best_offsets")
         host = StreamTimer(torch, False)
         host.wrap(ac, "collect_context_counts", "counting")
@@ -3307,10 +3416,16 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
             "stream_ms_by_phase": stream}
         row["variant_records"], row["gvcf_records"] = len(var), len(gv)
         outs[device] = out
+        fitted = [(a, k) for a, k in timer.kept["error_fit"]
+                  if a[0].total_instances]
+        row[device]["patterns_by_fit"] = [len(a[0].ref_obs) for a, _ in fitted]
         if counts is None:
             counts = c
             check_path_launches("error estimation", c, cuda)
             row["k1_launches"] = c["k1"]
+            kept = fitted[:2]
+            if cuda:
+                check_fit_kernels(c, row[device])
         if not row[device]["fits"]:
             fail(f"phase 15 on {device}: no context was fitted")
     if cuda:
@@ -3349,6 +3464,10 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     if cuda:
         row["fit_launches"] = fit_launches_per_step(
             torch, ef, full[(1, 1)], float(np.log(0.001)))
+        per_step = row["fit_launches"]["launches_per_step"]
+        if not 0 < per_step <= 2:
+            fail(f"phase 15: a fit's trace holds {per_step} kernel "
+                 f"launches a step, not 1 to 2")
     est = {}
     for device in devices:
         t0 = time.perf_counter()
@@ -3374,7 +3493,191 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
         row["estimate_parameters_max_rel_diff"] = worst
     row["estimate_parameters_contexts"] = len(est["cpu"])
     log("error: " + json.dumps(row))
-    return counts
+    return counts, kept
+
+
+def check_fit_kernels(counts, run) -> None:
+    """Phase 15's cuda run: KE-F's step launched once an Adam step and
+    its prep once a fit, their plain versions no time."""
+    want = {"error_fit_prep": run["fits"], "error_fit_step": run["adam_steps"]}
+    if counts["fit_kernels"] != want:
+        fail(f"phase 15: KE-F launched {counts['fit_kernels']}, the fits "
+             f"need {want}")
+    if any(counts["fit_plain"].values()):
+        fail(f"phase 15: the plain fit step ran on the card: "
+             f"{counts['fit_plain']}")
+
+
+def kef_grad_bound(np, model, n, g):
+    """Each gradient component's bound against the plain step's g: the
+    larger of ERR_GRAD_RTOL of its largest component and 2 eps n times
+    its terms' scale through the rate chain (fit_step_model's "scale";
+    where the terms cancel, near an optimum)."""
+    return np.maximum(ERR_GRAD_RTOL * np.abs(g).max(),
+                      2 * np.finfo(np.float64).eps * n
+                      * model["scale"].cpu().numpy())
+
+
+def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
+                iters) -> tuple[dict, dict]:
+    """Phase 15b on one context: KE-F's prep and first step against the
+    plain versions on the card, the whole fit against the plain step's,
+    both entries timed with their bounds. Returns (the step's row, the
+    prep's row)."""
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.utils import special as sp
+    obs = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
+           for a in (cc.ref_obs, cc.alt_obs, cc.instance_count)]
+    n = obs[0].shape[0]
+    c = ef.kernel_consts(lt, 0.05)
+    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
+                      dtype=torch.float64, device=dev)
+    plain_loc = ef.fit_prep_plain(*obs, lt)
+    model = fk.fit_step_model(plain_loc, p0, c)
+    _, pv, pg = ef.fit_step_plain(p0, sp.Adam(p0, 0.05), lt, *obs)
+    pv, pg = float(pv), pg.cpu().numpy()
+    info = {"case": label, "patterns": n, "instances": cc.total_instances,
+            "grid": list(fk.step_grid(n))}
+    if cuda:
+        loc = fk.error_fit_prep(*obs, c)
+        if not same_bits(torch, loc, plain_loc):
+            fail(f"phase 15b {label}: KE-F's prep differs from "
+                 f"fit_prep_plain")
+        bufs = fk.StepBuffers(loc, p0, c, 600)
+        fk.error_fit_step(bufs, 1)
+        st = bufs.state.cpu()
+        kv, kg = float(st[fk.V]), st[fk.GRAD].numpy()
+        opt = sp.Adam(p0, 0.05)
+        p1 = opt.step(p0, st[fk.GRAD].to(dev))
+        for name, a, b in (("params", st[fk.PARAMS], p1),
+                           ("mu", st[fk.MU], opt.mu),
+                           ("nu", st[fk.NU], opt.nu)):
+            if not same_bits(torch, a, b):
+                fail(f"phase 15b {label}: KE-F's Adam {name} differs from "
+                     f"special.Adam's given its gradient")
+        info["model_same_bits"] = (same_bits(torch, st[fk.V], model["v"])
+                                   and same_bits(torch, st[fk.GRAD],
+                                                 model["g"]))
+        if not info["model_same_bits"]:
+            fail(f"phase 15b {label}: KE-F's first step differs from "
+                 f"fit_step_model's bits on the card")
+    else:
+        loc = plain_loc
+        kv, kg = float(model["v"]), model["g"].numpy()
+    loss_rel = abs(kv - pv) / abs(pv)
+    bound = kef_grad_bound(np, model, n, pg)
+    gerr = np.abs(kg - pg)
+    if loss_rel > ERR_LOSS_RTOL or np.any(gerr > bound):
+        fail(f"phase 15b {label}: KE-F's first step is off the plain "
+             f"step's: loss {loss_rel:.3g} relative, gradient errors "
+             f"{gerr.tolist()} against {bound.tolist()}")
+    info.update(first_step_loss=kv, loss_rel_err=loss_rel,
+                grad=kg.tolist(), grad_abs_err=gerr.tolist(),
+                grad_bound=bound.tolist())
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    got = ef.fit_context(cc, lt, device=dev)
+    sync()
+    info["fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ef.fit_context_plain(cc, lt, device=dev)
+    sync()
+    info["plain_fit_s"] = time.perf_counter() - t0
+    worst = max(abs(getattr(got, f) - getattr(want, f))
+                / abs(getattr(want, f)) for f in (
+                    "log_error_rate", "log_noisy_locus_rate",
+                    "log_insert_rate", "log_delete_rate"))
+
+    def loss(fit):
+        r = [torch.tensor(x, dtype=torch.float64, device=dev) for x in
+             (fit.log_insert_rate, fit.log_delete_rate,
+              fit.log_noisy_locus_rate)]
+        return -float(ef.context_log_lhood(*r, lt, *obs))
+    at_fit = abs(loss(got) - loss(want)) / abs(loss(want))
+    if worst > ERR_FLAT_RTOL or at_fit > ERR_LOSS_AT_FIT_RTOL:
+        fail(f"phase 15b {label}: KE-F's fit is off the plain step's: "
+             f"rates {worst:.3g} relative (bound {ERR_FLAT_RTOL}), loss "
+             f"at the fit {at_fit:.3g} (bound {ERR_LOSS_AT_FIT_RTOL})")
+    info.update(fit_rates_max_rel_diff=worst, loss_at_fit_rel_diff=at_fit)
+
+    scratch = fk.StepBuffers(loc, p0, c, 600) if cuda else None
+
+    def kernel():
+        if cuda:
+            fk.error_fit_step(scratch, 1)
+        else:
+            fk.fit_step_model(loc, p0, c)
+
+    def plain():
+        ef.fit_step_plain(p0, sp.Adam(p0, 0.05), lt, *obs)
+    nbytes, ops = fk.step_work(n)
+    row = kernel_row(torch, cuda, kernel, plain, nbytes, 0, ops, iters,
+                     [n])
+    row.update(info, max_abs_err=max(abs(kv - pv), float(gerr.max())),
+               library_note="no PyTorch call computes it: the mixture's "
+                            "loss, its gradient and Adam in one step")
+
+    def kprep():
+        return (fk.error_fit_prep(*obs, c) if cuda
+                else ef.fit_prep_plain(*obs, lt))
+
+    def pprep():
+        return ef.fit_prep_plain(*obs, lt)
+    prep = kernel_row(torch, cuda, kprep, pprep, 160 * n, 0,
+                      KEF_PREP_F64_PER_LOCUS * n, iters, [n])
+    prep.update(case=label, max_abs_err=0.0,
+                library_note="no PyTorch call computes it: the counts' "
+                             "argmax rems, prefixes and clean mixture")
+    if cuda:
+        from strelka_tpu_torch.ops import kgr_probe
+        blocks = fk.step_grid(n)[0]
+        row.update(registers=regs["error_fit_step_kernel"],
+                   spill_store_bytes=regs["spill_store_bytes"],
+                   grid_blocks=blocks,
+                   launch_floor_ms=kgr_probe.empty_launch_ms(blocks,
+                                                             fk.THREADS))
+        row["launch_floor_share"] = row["launch_floor_ms"] / row["device_ms"]
+        pblocks = -(-n // fk.THREADS)
+        prep.update(registers=regs["error_fit_prep_kernel"],
+                    spill_store_bytes=regs["spill_store_bytes"],
+                    grid_blocks=pblocks,
+                    launch_floor_ms=kgr_probe.empty_launch_ms(pblocks,
+                                                              fk.THREADS))
+    log(f"kef {label}: " + json.dumps(row))
+    log(f"kef prep {label}: " + json.dumps(prep))
+    return row, prep
+
+
+def phase_fit_kernel(np, torch, dev, cuda: bool, kept, rehearse: bool):
+    """Phase 15b: KE-F on phase 15's first two fitted contexts (`kept`,
+    StreamTimer.kept of its cuda run) and on the synthetic context
+    (KEF_SYNTHETIC; smaller when rehearsing). Returns (the step's row,
+    the prep's row) at the first kept context."""
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    if not kept:
+        fail("phase 15b: phase 15 fitted no context")
+    regs = ptxas_report()["error_fit_step"] if cuda else None
+    if cuda:
+        regs = {**{k: entry_registers(regs, k) for k in (
+            "error_fit_step_kernel", "error_fit_prep_kernel")},
+            "spill_store_bytes": regs["spill_store_bytes"]}
+    iters = 200 if cuda else 1
+    rows = []
+    for i, (a, kw) in enumerate(kept):
+        cc, lt = a[0], float(a[1])
+        rows.append(kef_context(np, torch, dev, cuda, f"phase 15 fit {i}",
+                                cc, lt, regs, iters))
+    seed, n, ref_max = KEF_SYNTHETIC
+    if rehearse:
+        n, ref_max = 5000, 50
+    cc = fk.synthetic_counts(seed, n, ref_max)
+    if not rehearse and len(cc.ref_obs) < 100_000:
+        fail(f"phase 15b: the synthetic context has {len(cc.ref_obs)} "
+             f"patterns, under 100,000")
+    kef_context(np, torch, dev, cuda, "synthetic", cc, float(np.log(0.001)),
+                regs, iters)
+    return rows[0]
 
 
 NOISE_MB = 0.4     # phase 17's span: the panel's normals and the --region
@@ -3876,6 +4179,13 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
+    # a fresh work directory: a --jobs run would resume from the
+    # taskstates of an earlier smoke's outputs
+    workdir = os.path.join(HERE, "build", "smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    data = DataMakers(workdir, {"germline": mb, "tn": tn_mb,
+                                "joint": joint_mb})
+
     main_shapes = [(256, r, 160, w) for r in (32, 128, 512)
                    for w in (256, 320)]
     main_shapes += [(256, 128, 128, 192), (128, 32, 128, 192),
@@ -3967,12 +4277,8 @@ def main(argv=None) -> int:
     phase_somatic_snv(np, torch, dev, 2000 if rehearse else 200_000)
     log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
 
-    # a fresh work directory: a --jobs run would resume from the
-    # taskstates of an earlier smoke's outputs
-    workdir = os.path.join(HERE, "build", "smoke")
-    shutil.rmtree(workdir, ignore_errors=True)
     log(f"== phase 4: germline --device {dev.type} end to end")
-    fa, bam, n_reads = make_dataset(np, workdir, mb)
+    fa, bam, n_reads = data.get("germline")
     out_dev = os.path.join(workdir, f"out_{dev.type}")
     # one segment a worker in phase 8: the CLI's default 1 Mb on the card
     seg = int(mb * 1_000_000) // JOBS
@@ -4006,7 +4312,7 @@ def main(argv=None) -> int:
             "cpu_wall_s": wall_cpu}))
 
     log(f"== phase 6: somatic --device {dev.type} end to end")
-    tn = make_tn_dataset(np, workdir, tn_mb)
+    tn = data.get("tn")
     fa_tn, nbam, tbam, n_tn, som_snv = tn
     som_dev = os.path.join(workdir, f"som_{dev.type}")
     kept: dict = {}
@@ -4037,8 +4343,8 @@ def main(argv=None) -> int:
                                 workdir)
 
     log("== phase 10: joint germline, three samples, cuda against cpu")
-    joint = phase_joint(cuda, *make_joint_dataset(workdir, joint_mb),
-                        workdir)
+    joint = phase_joint(cuda, *data.get("joint"), workdir)
+    data.close()
 
     log(f"== phase 11: germline --device {dev.type} on CRAM against BAM")
     cram = phase_cram(cuda, workdir)
@@ -4081,10 +4387,17 @@ def main(argv=None) -> int:
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
         "tools estimate-parameters")
     t0 = time.perf_counter()
-    error = phase_error(np, torch, cuda, fa, bam, n_reads, cont_mb, workdir,
-                        [*base_args, "--region", region,
-                         "--estimate-sequence-error"])
+    error, kept15 = phase_error(np, torch, cuda, fa, bam, n_reads, cont_mb,
+                                workdir, [*base_args, "--region", region,
+                                          "--estimate-sequence-error"])
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 15b: KE-F on phase 15's first fits and a synthetic "
+        "context vs the plain step")
+    t0 = time.perf_counter()
+    kef_row, kef_prep_row = phase_fit_kernel(np, torch, dev, cuda, kept15,
+                                             rehearse)
+    del kept15
+    log(f"phase 15b took {time.perf_counter() - t0:.1f} s")
 
     log("== phase 16: denovo on phase 10's trio, per-sample and "
         "multi-sample")
@@ -4270,6 +4583,44 @@ def main(argv=None) -> int:
                 "exp_zero_share_listed", "prev_device_ms",
                 "device_ms_turns", "turns_ms", "lanes_entry",
                 "dense_entry") if k in krow},
+        })
+    # KE-F's two entries: their launches on every path, their rows from
+    # phase 15b at phase 15's first fitted context
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    for name, krow, tol in (
+            ("error_fit_step", kef_row,
+             f"loss {ERR_LOSS_RTOL} relative; gradient {ERR_GRAD_RTOL} of "
+             f"its largest component or 2 eps N sum|terms|; Adam bit for "
+             f"bit; the fit's rates {ERR_FLAT_RTOL}"),
+            ("error_fit_prep", kef_prep_row, "bit for bit")):
+        by = {p: c.get("fit_kernels", {}).get(name, 0)
+              for p, c in paths.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "strelka_tpu_torch/csrc/error_fit_step.cu",
+            "replaces": fk.REPLACES[name],
+            "launches": sum(by.values()),
+            "launches_by_path": by,
+            "max_abs_err": krow["max_abs_err"],
+            "tolerance": tol,
+            "shape": krow["shape"],
+            "ms": krow["ms"],
+            "device_ms": krow.get("device_ms"),
+            "plain_ms": krow["plain_ms"],
+            "library_ms": None,
+            "library_note": krow["library_note"],
+            "bound_ms": krow["bound_ms"],
+            "bound_by": krow["bound_by"],
+            "bound_share": krow["bound_share"],
+            "device_bound_share": krow.get("device_bound_share"),
+            "trace": krow.get("trace"),
+            "plain_trace": krow.get("plain_trace"),
+            **{k: krow[k] for k in (
+                "registers", "spill_store_bytes", "grid_blocks",
+                "launch_floor_ms", "launch_floor_share", "grid", "patterns",
+                "model_same_bits",
+                "fit_s", "plain_fit_s") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

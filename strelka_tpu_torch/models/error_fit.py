@@ -8,12 +8,17 @@ Reference: applications/EstimateVariantErrorRates/IndelModelProduction.cpp
 
 Port of strelka_tpu/models/error_fit.py. The counts are host numpy (the
 same dataclass and dedupe); the likelihood runs as f64 torch ops on the
-fit's device, its gradient comes from torch.autograd, and the optimizer
-is optax's Adam in optax's order (utils/special.Adam), so every
-expression keeps the JAX package's association order. What differs
-from the JAX package is the order of the sums over loci (torch's
-reductions against XLA's) and torch's elementwise primitives, each an
-ulp at most (tests/test_torch_error_fit.py measures the drift).
+fit's device. On the CPU each step is fit_step_plain: the loss as
+torch ops, its gradient from torch.autograd, and optax's Adam in optax's
+order (utils/special.Adam), so every expression keeps the JAX package's
+association order. On a card each step is one launch of KE-F
+(ops/fit_kernels, csrc/error_fit_step.cu): the same elementwise values,
+the gradient in closed form, the same Adam bit for bit, the best step
+kept on the card. What differs from the JAX package is the order of the
+sums over loci (torch's or KE-F's reductions against XLA's) and the
+elementwise primitives, each an ulp at most
+(tests/test_torch_error_fit.py and tests/test_torch_error_fit_kernel.py
+measure the drift).
 """
 from __future__ import annotations
 
@@ -92,6 +97,30 @@ def _theta_priors(log_theta):
             log_theta * 2)
 
 
+def _obs_counts(alt_obs):
+    """Each locus's (ins_tot, del_tot, max_val, rem_ins, rem_del,
+    max2_val, rem_ins2, rem_del2) from its alt slots: the most frequent
+    alt (the first max) as the candidate allele, the second for alt-het
+    (max2 clamped at 0), and the counts left after each."""
+    ins_tot = torch.sum(alt_obs[:, INSERT_SLOTS], dim=1)
+    del_tot = torch.sum(alt_obs[:, DELETE_SLOTS], dim=1)
+    max_idx = torch.argmax(alt_obs, dim=1)
+    max_val = torch.amax(alt_obs, dim=1)
+    is_ins_max = max_idx < 3
+    zero = torch.zeros_like(max_val)
+    rem_ins = ins_tot - torch.where(is_ins_max, max_val, zero)
+    rem_del = del_tot - torch.where(is_ins_max, zero, max_val)
+    one_hot = torch.nn.functional.one_hot(max_idx, N_SIGNAL).to(torch.bool)
+    masked = torch.where(one_hot, torch.full_like(alt_obs, -1), alt_obs)
+    max2_idx = torch.argmax(masked, dim=1)
+    max2_val = torch.maximum(torch.amax(masked, dim=1), zero)
+    is_ins_max2 = max2_idx < 3
+    rem_ins2 = rem_ins - torch.where(is_ins_max2, max2_val, zero)
+    rem_del2 = rem_del - torch.where(is_ins_max2, zero, max2_val)
+    return (ins_tot, del_tot, max_val, rem_ins, rem_del, max2_val, rem_ins2,
+            rem_del2)
+
+
 def _obs_log_lhood(log_ins, log_del, log_ref_rate, ref_obs, alt_obs,
                    log_theta):
     """Vectorized per-locus genotype-marginalized log lhood [N]."""
@@ -102,32 +131,13 @@ def _obs_log_lhood(log_ins, log_del, log_ref_rate, ref_obs, alt_obs,
     log_hom_ref = math.log(1 - HOM_ALT_RATE)
     log_het = math.log(0.5)
 
-    ins_tot = torch.sum(alt_obs[:, INSERT_SLOTS], dim=1)
-    del_tot = torch.sum(alt_obs[:, DELETE_SLOTS], dim=1)
+    (ins_tot, del_tot, max_val, rem_ins, rem_del, max2_val, rem_ins2,
+     rem_del2) = _obs_counts(alt_obs)
 
     noindel = log_ins * ins_tot + log_del * del_tot + log_ref_rate * ref_obs
-
-    # most frequent alt = candidate variant allele (first max)
-    max_idx = torch.argmax(alt_obs, dim=1)
-    max_val = torch.amax(alt_obs, dim=1)
-    is_ins_max = max_idx < 3
-    zero = torch.zeros_like(max_val)
-    rem_ins = ins_tot - torch.where(is_ins_max, max_val, zero)
-    rem_del = del_tot - torch.where(is_ins_max, zero, max_val)
-
     het = (log_het * (ref_obs + max_val) + log_ins * rem_ins + log_del * rem_del)
     hom = (log_hom_alt * max_val + log_hom_ref * ref_obs +
            log_ins * rem_ins + log_del * rem_del)
-
-    # second most frequent alt for alt-het
-    one_hot = torch.nn.functional.one_hot(max_idx, N_SIGNAL).to(torch.bool)
-    masked = torch.where(one_hot, torch.full_like(alt_obs, -1), alt_obs)
-    max2_idx = torch.argmax(masked, dim=1)
-    max2_val = torch.amax(masked, dim=1)
-    max2_val = torch.maximum(max2_val, zero)
-    is_ins_max2 = max2_idx < 3
-    rem_ins2 = rem_ins - torch.where(is_ins_max2, max2_val, zero)
-    rem_del2 = rem_del - torch.where(is_ins_max2, zero, max2_val)
     althet = (log_het * (max_val + max2_val) + log_hom_ref * ref_obs +
               log_ins * rem_ins2 + log_del * rem_del2)
 
@@ -170,17 +180,95 @@ class FitResult:
     n_instances: int
 
 
-def fit_context(counts: ContextCounts, log_theta: float,
-                n_steps: int = 600, lr: float = 0.05,
-                device=None) -> FitResult:
-    """ML fit of (ln insert, ln delete, ln noisy-locus) rates with the
-    reference's smoother reparameterization; theta locked. Runs on
-    `device` (default: the current device).
+def _neg_lhood(params, lt, ref_obs, alt_obs, inst):
+    li = _rate_smoother(params[0], MAX_LOG_RATE)
+    ld = _rate_smoother(params[1], MAX_LOG_RATE)
+    ln = _rate_smoother(params[2], MAX_LOG_LOCUS_RATE)
+    return -context_log_lhood(li, ld, ln, lt, ref_obs, alt_obs, inst)
 
-    As in the JAX package, each step evaluates the loss and gradient at
-    the parameters, then takes the Adam step; the best loss seen (strict
-    <, so ties keep the earlier step) keeps the parameters *after* its
-    step."""
+
+def fit_step_plain(params, opt: Adam, lt: float, ref_obs, alt_obs, inst):
+    """KE-F's plain version: one step of the fit as torch ops, the loss
+    at `params`, its gradient by torch.autograd, then opt's Adam step.
+    Returns (the parameters after the step, the loss (0-d), the
+    gradient)."""
+    from ..ops import fit_kernels as fk
+    fk.count_plain("error_fit_step", params.device)
+    x = params.detach().requires_grad_(True)
+    v = _neg_lhood(x, lt, ref_obs, alt_obs, inst)
+    g, = torch.autograd.grad(v, x)
+    return opt.step(params, g), v.detach(), g
+
+
+def fit_prep_plain(ref_obs, alt_obs, inst, log_theta: float):
+    """KE-F prep's plain version: loc [12, N] float64, each locus's
+    parameter-free values in ops/fit_kernels.ROWS's order, as the plain
+    expressions of _obs_log_lhood compute them (_obs_counts, the hom, het
+    and alt-het sums' parameter-free left prefixes, the whole clean
+    mixture)."""
+    from ..ops import fit_kernels as fk
+    fk.count_plain("error_fit_prep", ref_obs.device)
+    log_hom_alt = math.log(HOM_ALT_RATE)
+    log_hom_ref = math.log(1 - HOM_ALT_RATE)
+    log_het = math.log(0.5)
+    (ins_tot, del_tot, max_val, rem_ins, rem_del, max2_val, rem_ins2,
+     rem_del2) = _obs_counts(alt_obs)
+    clean = _obs_log_lhood(math.log(CLEAN_LOCUS_INDEL_RATE),
+                           math.log(CLEAN_LOCUS_INDEL_RATE),
+                           math.log(1 - CLEAN_LOCUS_INDEL_RATE), ref_obs,
+                           alt_obs, float(log_theta))
+    return torch.stack([
+        ref_obs, ins_tot, del_tot, rem_ins, rem_del, rem_ins2, rem_del2,
+        log_hom_alt * max_val + log_hom_ref * ref_obs,
+        log_het * (ref_obs + max_val),
+        log_het * (max_val + max2_val) + log_hom_ref * ref_obs, clean,
+        inst])
+
+
+def kernel_consts(log_theta: float, lr: float) -> tuple:
+    """KE-F's host doubles (ops/fit_kernels.CONSTS) for a fit at
+    log_theta with Adam at learning rate lr (its other settings Adam's
+    defaults, as the plain fit takes them): the log constants and priors
+    as the plain version's floats (_theta_priors of a float)."""
+    b1, b2 = Adam.B1, Adam.B2
+    return (math.log(HOM_ALT_RATE), math.log(1 - HOM_ALT_RATE),
+            math.log(0.5), math.log(CLEAN_LOCUS_INDEL_RATE),
+            math.log(1 - CLEAN_LOCUS_INDEL_RATE),
+            *_theta_priors(float(log_theta)), LOG_RATE_TRIGGER,
+            LOG_LOCUS_TRIGGER, MAX_LOG_RATE, MAX_LOG_LOCUS_RATE, lr, b1, b2,
+            1 - b1, 1 - b2, Adam.EPS)
+
+
+def _fit_plain(params, lr, n_steps, lt, obs):
+    """The fit through fit_step_plain: (best loss, its parameters)."""
+    opt = Adam(params, lr)
+    best = None
+    for _ in range(n_steps):
+        params, v, _ = fit_step_plain(params, opt, lt, *obs)
+        v = float(v)
+        if best is None or v < best[0]:
+            best = (v, params.cpu().numpy())
+    return best
+
+
+def _fit_kernel(params, lr, n_steps, lt, obs):
+    """The fit through KE-F on the observations' card: the prep once,
+    the step once an Adam step (the best step kept on the card), one
+    read of the state at the end: (best loss, its parameters)."""
+    from ..ops import fit_kernels as fk
+    consts = kernel_consts(lt, lr)
+    loc = fk.error_fit_prep(*obs, consts)
+    bufs = fk.StepBuffers(loc, params, consts, n_steps)
+    for t in range(1, n_steps + 1):
+        fk.error_fit_step(bufs, t)
+    state = bufs.state.cpu()
+    return float(state[fk.BEST_V]), state[fk.BEST_PARAMS].numpy()
+
+
+def _fit(counts: ContextCounts, log_theta: float, n_steps: int, lr: float,
+         device, fit) -> FitResult:
+    """The fit on `device` through `fit` (_fit_kernel or _fit_plain; the
+    CPU always takes _fit_plain)."""
     if counts.total_instances == 0:
         return FitResult(-np.inf, -np.inf, -np.inf, -np.inf, False, 0)
     dev = devmod.current() if device is None else devmod.resolve(device)
@@ -188,28 +276,11 @@ def fit_context(counts: ContextCounts, log_theta: float,
 
     def f64(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
-    ref_obs = f64(counts.ref_obs)
-    alt_obs = f64(counts.alt_obs)
-    inst = f64(counts.instance_count)
-    lt = float(log_theta)
-
-    def neg_lhood(params):
-        li = _rate_smoother(params[0], MAX_LOG_RATE)
-        ld = _rate_smoother(params[1], MAX_LOG_RATE)
-        ln = _rate_smoother(params[2], MAX_LOG_LOCUS_RATE)
-        return -context_log_lhood(li, ld, ln, lt, ref_obs, alt_obs, inst)
-
+    obs = (f64(counts.ref_obs), f64(counts.alt_obs),
+           f64(counts.instance_count))
     params = f64([np.log(1e-3), np.log(1e-3), np.log(0.5)])
-    opt = Adam(params, lr)
-    best = None
-    for _ in range(n_steps):
-        x = params.detach().requires_grad_(True)
-        v = neg_lhood(x)
-        g, = torch.autograd.grad(v, x)
-        params = opt.step(params, g)
-        v = float(v.detach())
-        if best is None or v < best[0]:
-            best = (v, params.cpu().numpy())
+    run = _fit_plain if dev.type == "cpu" else fit
+    best = run(params, lr, n_steps, float(log_theta), obs)
     FIT_STATS["fits"] += 1
     FIT_STATS["steps"] += n_steps
     FIT_STATS["seconds"] += time.perf_counter() - t0
@@ -219,6 +290,30 @@ def fit_context(counts: ContextCounts, log_theta: float,
     ln = float(_rate_smoother(p[2], MAX_LOG_LOCUS_RATE))
     log_err = (li + ld) / 2.0
     return FitResult(log_err, ln, li, ld, True, counts.total_instances)
+
+
+def fit_context(counts: ContextCounts, log_theta: float,
+                n_steps: int = 600, lr: float = 0.05,
+                device=None) -> FitResult:
+    """ML fit of (ln insert, ln delete, ln noisy-locus) rates with the
+    reference's smoother reparameterization; theta locked. Runs on
+    `device` (default: the current device): on the CPU through the
+    plain step (fit_step_plain), on a card through KE-F
+    (ops/fit_kernels).
+
+    As in the JAX package, each step evaluates the loss and gradient at
+    the parameters, then takes the Adam step; the best loss seen (strict
+    <, so ties keep the earlier step) keeps the parameters *after* its
+    step."""
+    return _fit(counts, log_theta, n_steps, lr, device, _fit_kernel)
+
+
+def fit_context_plain(counts: ContextCounts, log_theta: float,
+                      n_steps: int = 600, lr: float = 0.05,
+                      device=None) -> FitResult:
+    """fit_context through the plain step on any device: on a card, the
+    version that KE-F is held against."""
+    return _fit(counts, log_theta, n_steps, lr, device, _fit_plain)
 
 
 def _linear_fit(x, x1, y1, x2, y2):

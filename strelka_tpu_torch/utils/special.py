@@ -221,8 +221,10 @@ class Adam:
     (libm's pow, as XLA's).
     """
 
-    def __init__(self, params, lr: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+    B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
+
+    def __init__(self, params, lr: float, b1: float = B1, b2: float = B2,
+                 eps: float = EPS):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.mu = torch.zeros_like(params)
         self.nu = torch.zeros_like(params)

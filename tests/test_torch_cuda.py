@@ -10,6 +10,8 @@ on cuda:1 with two cards), the germline and somatic CLIs with --device
 cuda against --device cpu, a cold --jobs 2 germline run on the card
 against a single-process one, the error-model fits (the emulated
 FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
+KE-F (the error fit's step kernel) against its plain step and its torch
+model at the CLI's sizes and at 50,000 and 100,000 patterns,
 and the engine mesh: K1 sharded over a mesh that repeats cuda:0 against
 one launch, a launch on cuda:1 against one on cuda:0 (with two cards),
 the SNV and somatic chunks split over the mesh, and --mesh on the CLI.
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from strelka_tpu_torch.ops import fit_kernels
 from strelka_tpu_torch.ops import score_variants as sv
 
 pytestmark = pytest.mark.cuda
@@ -1158,6 +1161,141 @@ def test_fit_context_on_card_matches_cpu(cuda, seed, rate, noisy):
               "log_delete_rate"):
         assert getattr(got, f) == pytest.approx(getattr(want, f),
                                                 rel=FLAT_RTOL, abs=0), f
+
+
+# KE-F (csrc/error_fit_step.cu) against its plain step on the card, with
+# tests/test_torch_error_fit.py's bounds: the loss within KEF_LOSS_RTOL
+# and the gradient within KEF_GRAD_RTOL of its largest component or
+# 2 eps N times its terms' scale (the sums over loci run in another
+# order), Adam bit for bit given the kernel's gradient, and the kernel
+# bit for bit with ops/fit_kernels' torch model of its order on the card
+KEF_LOSS_RTOL = 1e-14
+KEF_GRAD_RTOL = 1e-12
+KEF_LOSS_AT_FIT_RTOL = 1e-12
+
+
+# fit_kernels.synthetic_counts: over 50,000 patterns, one locus a thread,
+# and over 100,000, two a thread
+KEF_CASES = {
+    "smoke_size": lambda: indel_counts(1, 3000, 35, 2e-2, 0.3),
+    "flat": lambda: indel_counts(3, 3000, 35, 1e-4, 1.0),
+    "patterns_50k": lambda: fit_kernels.synthetic_counts(9, 60_000, 300),
+    "patterns_100k": lambda: fit_kernels.synthetic_counts(9, 130_000, 500)}
+
+
+
+def kef_inputs(cuda, cc, lt):
+    from strelka_tpu_torch.models import error_fit as ef
+    obs = [torch.as_tensor(np.asarray(a, np.float64), device=cuda)
+           for a in (cc.ref_obs, cc.alt_obs, cc.instance_count)]
+    return obs, ef.kernel_consts(lt, 0.05)
+
+
+def same(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int64),
+                                              b.view(torch.int64))
+
+
+@pytest.mark.parametrize("case", list(KEF_CASES))
+def test_kef_step_matches_plain_step_and_model(cuda, case):
+    """KE-F's prep bit for bit with fit_prep_plain; its first step's loss
+    and gradient against fit_step_plain's, its Adam state bit for bit
+    with special.Adam's given its gradient, and all of it bit for bit
+    with fit_step_model and adam_model on the card; one launch each."""
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.utils import special as sp
+    cc = KEF_CASES[case]()
+    lt = float(np.log(0.001))
+    obs, c = kef_inputs(cuda, cc, lt)
+    fk.reset()
+    loc = fk.error_fit_prep(*obs, c)
+    assert same(loc, ef.fit_prep_plain(*obs, lt))
+    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
+                      dtype=torch.float64, device=cuda)
+    bufs = fk.StepBuffers(loc, p0, c, 600)
+    fk.error_fit_step(bufs, 1)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == {"error_fit_prep": 1, "error_fit_step": 1}
+    st = bufs.state.cpu()
+    opt = sp.Adam(p0, 0.05)
+    _, v, g = ef.fit_step_plain(p0, opt, lt, *obs)
+    assert float(st[fk.V]) == pytest.approx(float(v), rel=KEF_LOSS_RTOL,
+                                            abs=0)
+    model = fk.fit_step_model(loc, p0, c)
+    scale = model["scale"].cpu().numpy()
+    g = g.cpu().numpy()
+    bound = np.maximum(KEF_GRAD_RTOL * np.abs(g).max(),
+                       2 * np.finfo(np.float64).eps * loc.shape[1] * scale)
+    assert np.all(np.abs(st[fk.GRAD].numpy() - g) <= bound)
+    gk = st[fk.GRAD].to(cuda)
+    ref_opt = sp.Adam(p0, 0.05)
+    p1 = ref_opt.step(p0, gk)
+    assert same(st[fk.PARAMS], p1) and same(st[fk.MU], ref_opt.mu)
+    assert same(st[fk.NU], ref_opt.nu)
+    assert same(st[fk.BEST_PARAMS], p1) and st[fk.BEST_V] == st[fk.V]
+    # the model of the kernel's order gives its bits
+    assert same(st[fk.V], model["v"]) and same(st[fk.GRAD], model["g"])
+    pm, mu, nu = fk.adam_model(p0, torch.zeros_like(p0), torch.zeros_like(p0),
+                               model["g"], 1, c)
+    assert same(st[fk.PARAMS], pm) and same(st[fk.MU], mu)
+    assert fk.PLAIN_ON_CUDA["error_fit_step"] == 1   # the plain step above
+
+
+@pytest.mark.parametrize("case", list(KEF_CASES))
+def test_kef_fit_matches_plain_fit_on_card(cuda, case):
+    """fit_context on the card through KE-F (one prep, one step launch an
+    Adam step, no plain step) against the plain step's fit on the card:
+    the rates within FLAT_RTOL and the plain loss at both fits' rates
+    within KEF_LOSS_AT_FIT_RTOL; a second run gives the same bits."""
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    cc = KEF_CASES[case]()
+    lt = float(np.log(0.001))
+    fk.reset()
+    got = ef.fit_context(cc, lt, device=cuda)
+    assert fk.LAUNCHES == {"error_fit_prep": 1, "error_fit_step": 600}
+    assert not any(fk.PLAIN_ON_CUDA.values())
+    again = ef.fit_context(cc, lt, device=cuda)
+    want = ef.fit_context_plain(cc, lt, device=cuda)
+    assert fk.PLAIN_ON_CUDA["error_fit_step"] == 600
+    fields = ("log_error_rate", "log_noisy_locus_rate", "log_insert_rate",
+              "log_delete_rate")
+    for f in fields:
+        assert getattr(again, f) == getattr(got, f), f
+        assert getattr(got, f) == pytest.approx(getattr(want, f),
+                                                rel=FLAT_RTOL, abs=0), f
+    obs, _ = kef_inputs(cuda, cc, lt)
+
+    def loss(fit):
+        r = [torch.tensor(x, dtype=torch.float64, device=cuda) for x in
+             (fit.log_insert_rate, fit.log_delete_rate,
+              fit.log_noisy_locus_rate)]
+        return -float(ef.context_log_lhood(*r, lt, *obs))
+    assert loss(got) == pytest.approx(loss(want), rel=KEF_LOSS_AT_FIT_RTOL,
+                                      abs=0)
+
+
+def test_kef_fit_bit_for_bit_with_the_model_on_card(cuda):
+    """A whole 600-step fit through KE-F keeps fit_model's best loss and
+    parameters bit for bit on the card (the step, Adam and the best-step
+    rule)."""
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    cc = KEF_CASES["smoke_size"]()
+    lt = float(np.log(0.001))
+    obs, c = kef_inputs(cuda, cc, lt)
+    loc = fk.error_fit_prep(*obs, c)
+    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
+                      dtype=torch.float64, device=cuda)
+    bufs = fk.StepBuffers(loc, p0, c, 600)
+    for t in range(1, 601):
+        fk.error_fit_step(bufs, t)
+    st = bufs.state.cpu()
+    best_v, best_p, _ = fk.fit_model(loc, p0, c, 600)
+    assert st[fk.BEST_V].item() == best_v
+    assert same(st[fk.BEST_PARAMS], best_p)
 
 
 @pytest.mark.parametrize("name", ["fit_indel_indy",

@@ -43,7 +43,7 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "pipeline/allele_counts.py", "training/evs_train.py",
                  "utils/special.py", "workflow/tools.py",
                  "workflow/denovo.py", "workflow/noise_extractor.py",
-                 "sim.py", "parallel/mesh.py"):
+                 "sim.py", "parallel/mesh.py", "ops/fit_kernels.py"):
         assert os.path.join("strelka_tpu_torch", path) in scanned, path
 
 
