@@ -168,26 +168,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal, K1's launches counted on the cuda run; then tools
    estimate-parameters <npz> indelIndy, cuda against cpu within
    ERR_FIT_RTOL, on three of the counts' contexts. The cuda run fits
-   through KE-F (csrc/error_fit_step.cu): its step launched once an
-   Adam step and its prep once a fit, the plain step no time, and a
-   torch.profiler trace of a short fit at 2 kernel launches a step at
-   most. It
-   logs the counting's host wall, the fit's wall, Adam steps, each
-   context's pattern count, launches a step (the trace) and stream ms,
-   and each run's wall;
+   through KE-F's fit entry (csrc/error_fit_step.cu): launched once a
+   fit, its prep entry and the plain step no time, and a torch.profiler
+   trace of a short fit holding one kernel launch. It logs the
+   counting's host wall, the fit's wall, Adam steps, each context's
+   pattern count, launches a fit (the trace), stream ms, each run's
+   wall, and the zoo's fit behind estimate-parameters (kernels, copies
+   and device ms a step, traced);
 15b. KE-F on the first two contexts that phase 15's cuda run fitted
    (kept as the CLI made them, StreamTimer.kept) and on a seeded
-   synthetic context of over 100,000 patterns (two loci a thread): the
-   prep bit for bit with fit_prep_plain, the first step's loss within
-   ERR_LOSS_RTOL and gradient within ERR_GRAD_RTOL of its largest
-   component (or 2 eps N times its terms' scale) of fit_step_plain's on
-   the card, Adam's state bit for bit given the kernel's gradient, the
-   whole fit within ERR_FLAT_RTOL of the plain step's fit on the card
-   (the plain loss at both fits' rates within ERR_LOSS_AT_FIT_RTOL);
-   one step timed by CUDA events and by graph replay beside the plain
-   step, with its bound (fit_kernels.step_work: bytes at 3.35 TB/s
-   against float64 operations at 34 TFLOP/s), an empty kernel's launch
-   on its grid, registers and spills; the prep likewise.
+   synthetic context of over 100,000 patterns (the grid regime): the
+   prep bit for bit with fit_prep_plain; a one-step fit of the fit
+   entry: its loss within ERR_LOSS_RTOL and gradient within
+   ERR_GRAD_RTOL of its largest component (or 2 eps N times its terms'
+   scale) of fit_step_plain's on the card, Adam's state bit for bit
+   given the kernel's gradient; the whole 600-step fit's state bit for
+   bit with fit_model on the entry's grid, and the fit within
+   ERR_FLAT_RTOL of the plain step's fit on the card (the plain loss at
+   both fits' rates within ERR_LOSS_AT_FIT_RTOL); each fit timed from
+   its start (the parameters, zero moments; reset outside the CUDA
+   events around each launch; ms a fit and a step) beside the plain
+   fit, with its bound (fit_kernels.fit_work: bytes at 3.35 TB/s
+   against float64 operations at 34 TFLOP/s), its chain floor (the
+   entry on one locus) and registers; where the fit takes the cluster
+   regime, the grid regime on the same grid in turns with it (the same
+   bits); with --parent-csrc, the parent's step entry (one launch a
+   step) as a graph of a whole fit's 600 launches after a reset of its
+   state, in turns with the fit entry's ms a step, and its 600 launches
+   from the host; the prep timed as before.
 Phases 12-15 log each run's size, wall and stream ms by device phase.
 16. denovo: per-sample mode on phase 10's gVCFs (sample 1 the proband)
    and multi-sample mode on its variants.vcf.gz (host code): every input
@@ -2949,13 +2957,10 @@ ERR_LOSS_RTOL = 1e-14
 ERR_GRAD_RTOL = 1e-12
 ERR_LOSS_AT_FIT_RTOL = 1e-12
 # phase 15b's synthetic context: (seed, loci, largest ref count), over
-# 100,000 patterns after deduplication, two loci a thread of KE-F's step
+# 100,000 patterns after deduplication, two loci a thread of KE-F's fit
+# entry (its grid regime)
 KEF_SYNTHETIC = (9, 130_000, 500)
-# float64 operations a locus of KE-F's prep, counted from its source
-# (each exp and log one; compares and selects not counted): the count
-# sums and rems (9), the three prefixes (9), the clean mixture's four
-# terms (21) and its logsumexp (16)
-KEF_PREP_F64_PER_LOCUS = 9 + 9 + 21 + 16
+KEF_STEPS = 600   # the CLI's Adam steps a fit
 
 
 def phase_germline_jobs(cuda: bool, fa, bam, n_reads, seg, ref_out,
@@ -3338,13 +3343,13 @@ def phase_evs(np, torch, cuda, fa, bam, n_reads, mb, workdir, extra,
     return counts
 
 
-def fit_launches_per_step(torch, ef, cc, log_theta, steps=20) -> dict:
-    """The device work of one Adam step of fit_context on the card, from
-    a torch.profiler trace of a `steps`-step fit: the kernel launches
-    that its host side recorded (the runtime's launch calls: kineto can
-    lose the device record of a kernel launched through ctypes, as
+def fit_launches_per_fit(torch, ef, cc, log_theta, steps=20) -> dict:
+    """The device work of one fit_context on the card, from a
+    torch.profiler trace of a `steps`-step fit: the kernel launches that
+    its host side recorded (the runtime's launch calls: kineto can lose
+    the device record of a kernel launched through ctypes, as
     profile_call says), and the kernels and copies that its device side
-    holds, each per step."""
+    holds."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3356,10 +3361,42 @@ def fit_launches_per_step(torch, ef, cc, log_theta, steps=20) -> dict:
     launched = sum(e.name() in LAUNCH_CALLS for e in events
                    if e.device_type() != cuda)
     copies = sum(n.startswith(("Memcpy", "Memset")) for n in dev)
-    return {"launches_per_step": launched / steps,
-            "kernels_per_step": (len(dev) - copies) / steps,
-            "copies_per_step": copies / steps,
+    return {"steps": steps, "launches_per_fit": launched,
+            "kernels_per_fit": len(dev) - copies, "copies_per_fit": copies,
             "trace_device_events": len(dev)}
+
+
+def zoo_step_profile(torch, ez, cc, steps=(20, 40)) -> dict:
+    """The zoo's fit behind tools estimate-parameters' indelIndy
+    (error_zoo.fit_indel_indy) on the card, a step's device work: the
+    kernels, copies and device ms that torch.profiler traces in fits of
+    steps[0] and steps[1] Adam steps, their difference over the steps
+    between (the fit's set-up and its last loss cancel)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    ez.fit_indel_indy(cc, steps=steps[0], device="cuda")
+    torch.cuda.synchronize()
+    seen = []
+    for n in steps:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ez.fit_indel_indy(cc, steps=n, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [(e.name(), e.duration_ns()) for e in
+              prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+        copies = [d for m, d in ev if m.startswith(("Memcpy", "Memset"))]
+        seen.append((len(ev) - len(copies), len(copies),
+                     sum(d for _, d in ev) / 1e6, wall))
+    k = steps[1] - steps[0]
+    (k0, c0, ms0, w0), (k1, c1, ms1, w1) = seen
+    return {"fit": "error_zoo.fit_indel_indy", "patterns": len(cc.ref_obs),
+            "steps": list(steps), "kernels_per_step": (k1 - k0) / k,
+            "copies_per_step": (c1 - c0) / k,
+            "device_ms_per_step": (ms1 - ms0) / k,
+            "wall_ms_per_step": (w1 - w0) * 1e3 / k}
 
 
 def read_json(path):
@@ -3462,12 +3499,14 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     ac.save_context_counts(sub, {k: full[k] for k in ERR_CONTEXTS
                                  if k in full})
     if cuda:
-        row["fit_launches"] = fit_launches_per_step(
+        from strelka_tpu_torch.models import error_zoo as ez
+        row["fit_launches"] = fit_launches_per_fit(
             torch, ef, full[(1, 1)], float(np.log(0.001)))
-        per_step = row["fit_launches"]["launches_per_step"]
-        if not 0 < per_step <= 2:
-            fail(f"phase 15: a fit's trace holds {per_step} kernel "
-                 f"launches a step, not 1 to 2")
+        per_fit = row["fit_launches"]["launches_per_fit"]
+        if per_fit != 1:
+            fail(f"phase 15: a fit's trace holds {per_fit} kernel launches, "
+                 f"not 1")
+        row["zoo_step"] = zoo_step_profile(torch, ez, full[(1, 1)])
     est = {}
     for device in devices:
         t0 = time.perf_counter()
@@ -3497,9 +3536,9 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
 
 
 def check_fit_kernels(counts, run) -> None:
-    """Phase 15's cuda run: KE-F's step launched once an Adam step and
-    its prep once a fit, their plain versions no time."""
-    want = {"error_fit_prep": run["fits"], "error_fit_step": run["adam_steps"]}
+    """Phase 15's cuda run: KE-F's fit entry launched once a fit, its
+    prep entry (off the CLI path) and the plain versions no time."""
+    want = {"error_fit_prep": 0, "error_fit_run": run["fits"]}
     if counts["fit_kernels"] != want:
         fail(f"phase 15: KE-F launched {counts['fit_kernels']}, the fits "
              f"need {want}")
@@ -3518,12 +3557,102 @@ def kef_grad_bound(np, model, n, g):
                       * model["scale"].cpu().numpy())
 
 
-def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
+def parent_kef(torch, parent_csrc):
+    """The parent commit's KE-F (its csrc/error_fit_step.cu, unpacked as
+    parent_kgh's): its prep and its step entry, one launch an Adam step,
+    built with the port's nvcc flags into build/parent/; returns
+    setup(obs, p0, consts) -> (a launch of step t on fresh buffers, their
+    state, the step's grid), launched on the current stream and counted
+    nowhere, and a reset of them to the fit's start (the parameters, zero
+    moments); None where the parent has no step entry."""
+    import ctypes
+    from strelka_tpu_torch import _build
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    out = os.path.join(HERE, "build", "parent")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "liberror_fit_step.so")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                        os.path.join(parent_csrc, "error_fit_step.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"nvcc of the parent's KE-F failed:\n{r.stdout}{r.stderr}")
+    so = ctypes.CDLL(lib)
+    if not hasattr(so, "error_fit_step_launch"):
+        log("phase 15b: the parent's KE-F has no step entry; not timed")
+        return None
+    prep, step = so.error_fit_prep_launch, so.error_fit_step_launch
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    cd = ctypes.POINTER(ctypes.c_double)
+    prep.restype = step.restype = ctypes.c_int
+    prep.argtypes = [vp, vp, vp, ll, cd, vp, vp]
+    step.argtypes = [vp, ll, i, i, cd, vp, i, vp, vp, vp, vp]
+
+    def setup(obs, p0, consts):
+        dev = obs[0].device
+        n = obs[0].shape[0]
+        host = (ctypes.c_double * len(consts))(*map(float, consts))
+        f64 = dict(dtype=torch.float64, device=dev)
+        loc = torch.empty((len(fk.ROWS), n), **f64)
+        if prep(*[o.data_ptr() for o in obs], n, host, loc.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream):
+            fail("the parent's KE-F prep launch failed")
+        # the parent's step grid: one locus a thread up to 264 blocks
+        per = max(1, -(-n // (fk.THREADS * 264)))
+        blocks = -(-n // (fk.THREADS * per))
+        c = dict(zip(fk.CONSTS, consts))
+        bias = torch.tensor([(1 - c["b1"] ** t, 1 - c["b2"] ** t)
+                             for t in range(1, KEF_STEPS + 1)], **f64)
+        state = torch.zeros(fk.STATE, **f64)
+        state[fk.PARAMS] = p0
+        start = state.clone()
+        partials = torch.empty((blocks, fk.SUMS), **f64)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        keep = (obs, loc, bias, state, start, partials, ticket)
+
+        def launch(t=1):
+            # the stream at the call: a graph capture's, where one runs
+            if step(loc.data_ptr(), n, blocks, per, host, bias.data_ptr(), t,
+                    state.data_ptr(), partials.data_ptr(),
+                    ticket.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream):
+                fail("the parent's KE-F step launch failed")
+            return keep
+
+        def reset():
+            state.copy_(start)
+        return launch, reset, (blocks, per)
+    return setup
+
+
+def kef_fit_ms(torch, run, reps=5) -> float:
+    """Device ms of one launch of a FitRun (a whole fit from its start:
+    the parameters, zero moments), the mean of `reps` launches after a
+    warm one, each reset outside the CUDA events around it."""
+    run.reset()
+    run.launch()
+    total = 0.0
+    for _ in range(reps):
+        run.reset()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        run.launch()
+        e.record()
+        torch.cuda.synchronize()
+        total += s.elapsed_time(e)
+    return total / reps
+
+
+def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs, parent,
                 iters) -> tuple[dict, dict]:
-    """Phase 15b on one context: KE-F's prep and first step against the
-    plain versions on the card, the whole fit against the plain step's,
-    both entries timed with their bounds. Returns (the step's row, the
-    prep's row)."""
+    """Phase 15b on one context: KE-F's prep bit for bit with
+    fit_prep_plain; a one-step fit of its fit entry against the plain
+    step on the card; the whole 600-step fit bit for bit with fit_model
+    on the entry's grid and within the tests' bounds of the plain step's
+    fit; the fit entry timed per fit and per step with its bound and its
+    chain floor (the same entry at N = 1), and the parent's step entry
+    in turns where `parent` (parent_kef) is given; the prep timed.
+    Returns (the fit entry's row, the prep's row)."""
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.utils import special as sp
@@ -3534,19 +3663,23 @@ def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
     p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
                       dtype=torch.float64, device=dev)
     plain_loc = ef.fit_prep_plain(*obs, lt)
-    model = fk.fit_step_model(plain_loc, p0, c)
+    grid = (fk.fit_grid(n, fk.resident_blocks(dev)) if cuda
+            else fk.fit_grid(n))
+    model = fk.fit_step_model(plain_loc, p0, c, grid[:2])
     _, pv, pg = ef.fit_step_plain(p0, sp.Adam(p0, 0.05), lt, *obs)
     pv, pg = float(pv), pg.cpu().numpy()
     info = {"case": label, "patterns": n, "instances": cc.total_instances,
-            "grid": list(fk.step_grid(n))}
+            "grid": list(grid), "steps": KEF_STEPS}
     if cuda:
         loc = fk.error_fit_prep(*obs, c)
         if not same_bits(torch, loc, plain_loc):
             fail(f"phase 15b {label}: KE-F's prep differs from "
                  f"fit_prep_plain")
-        bufs = fk.StepBuffers(loc, p0, c, 600)
-        fk.error_fit_step(bufs, 1)
-        st = bufs.state.cpu()
+        one = fk.error_fit_run(*obs, p0, c, 1)
+        if list(one.grid) != info["grid"]:
+            fail(f"phase 15b {label}: the fit entry took grid {one.grid}, "
+                 f"fit_grid gives {grid}")
+        st = one.state.cpu()
         kv, kg = float(st[fk.V]), st[fk.GRAD].numpy()
         opt = sp.Adam(p0, 0.05)
         p1 = opt.step(p0, st[fk.GRAD].to(dev))
@@ -3556,12 +3689,18 @@ def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
             if not same_bits(torch, a, b):
                 fail(f"phase 15b {label}: KE-F's Adam {name} differs from "
                      f"special.Adam's given its gradient")
-        info["model_same_bits"] = (same_bits(torch, st[fk.V], model["v"])
-                                   and same_bits(torch, st[fk.GRAD],
-                                                 model["g"]))
-        if not info["model_same_bits"]:
+        if not (same_bits(torch, st[fk.V], model["v"])
+                and same_bits(torch, st[fk.GRAD], model["g"])):
             fail(f"phase 15b {label}: KE-F's first step differs from "
                  f"fit_step_model's bits on the card")
+        t0 = time.perf_counter()
+        whole = fk.error_fit_run(*obs, p0, c, KEF_STEPS).state.cpu()
+        info["fit_entry_wall_s"] = time.perf_counter() - t0
+        want = fk.fit_model(plain_loc, p0, c, KEF_STEPS, grid[:2])[3]
+        info["model_same_bits"] = same_bits(torch, whole, want)
+        if not info["model_same_bits"]:
+            fail(f"phase 15b {label}: KE-F's {KEF_STEPS}-step fit differs "
+                 f"from fit_model's state on the card")
     else:
         loc = plain_loc
         kv, kg = float(model["v"]), model["g"].numpy()
@@ -3583,7 +3722,7 @@ def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
     t0 = time.perf_counter()
     want = ef.fit_context_plain(cc, lt, device=dev)
     sync()
-    info["plain_fit_s"] = time.perf_counter() - t0
+    plain_s = time.perf_counter() - t0
     worst = max(abs(getattr(got, f) - getattr(want, f))
                 / abs(getattr(want, f)) for f in (
                     "log_error_rate", "log_noisy_locus_rate",
@@ -3601,22 +3740,97 @@ def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
              f"at the fit {at_fit:.3g} (bound {ERR_LOSS_AT_FIT_RTOL})")
     info.update(fit_rates_max_rel_diff=worst, loss_at_fit_rel_diff=at_fit)
 
-    scratch = fk.StepBuffers(loc, p0, c, 600) if cuda else None
+    nbytes, ops = fk.fit_work(n, KEF_STEPS)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F64_OPS_PER_S * 1e3
+    row = {"shape": [n, KEF_STEPS], "plain_ms": plain_s * 1e3,
+           "plain_ms_from": "host clock around fit_context_plain (600 "
+                            "plain steps, synchronized)",
+           "bytes": int(nbytes), "f32_ops": 0, "f64_ops": int(ops),
+           "library_ms": None,
+           "library_note": "no PyTorch call computes it: the mixture's "
+                           "loss, its gradient and Adam, 600 steps"}
+    row["bound_ms"], row["bound_by"] = ((tb, "bytes") if tb >= to
+                                        else (to, "operations"))
+    if cuda:
+        run = fk.FitRun(*obs, p0, c, KEF_STEPS)
+        row["ms"] = row["device_ms"] = kef_fit_ms(torch, run)
+        row["device_ms_from"] = ("CUDA events around each of 5 launches of "
+                                 "the fit, each from its start")
+        run.reset()
+        row["trace"] = profile_call(torch, run.launch)
+        # the chain floor: the same entry on one locus (the context's most
+        # frequent pattern, not an edge one whose values take the math
+        # library's slow paths), its serial chain
+        k = int(np.argmax(cc.instance_count))
+        floor = fk.FitRun(*(o[k:k + 1].contiguous() for o in obs), p0, c,
+                          KEF_STEPS)
+        row["chain_floor_ms"] = kef_fit_ms(torch, floor)
+        row["chain_floor_share"] = row["chain_floor_ms"] / row["ms"]
+        row["registers"] = regs
+        blocks, per, regime = run.grid
+        if regime == "cluster":
+            # the cluster regime against the grid regime's cooperative
+            # launch and counter barrier on the same grid, in turns; the
+            # same sums in the same order, so the same bits
+            other = fk.FitRun(*obs, p0, c, KEF_STEPS, grid=(blocks, per,
+                                                            "grid"))
+            turns = [kef_fit_ms(torch, r, reps=3) / KEF_STEPS
+                     for r in (run, other, other, run)]
+            run.reset()
+            run.launch()
+            other.reset()
+            other.launch()
+            if not same_bits(torch, run.state, other.state):
+                fail(f"phase 15b {label}: the grid regime's fit differs "
+                     f"from the cluster regime's")
+            row.update(cluster_turns_ms_a_step=turns,
+                       cluster_ms_a_step=(turns[0] + turns[3]) / 2,
+                       grid_regime_ms_a_step=(turns[1] + turns[2]) / 2)
+        if parent is not None:
+            launch, preset, pgrid = parent(obs, p0, c)
 
-    def kernel():
-        if cuda:
-            fk.error_fit_step(scratch, 1)
-        else:
-            fk.fit_step_model(loc, p0, c)
+            def change_step():
+                return kef_fit_ms(torch, run, reps=2) / KEF_STEPS
 
-    def plain():
-        ef.fit_step_plain(p0, sp.Adam(p0, 0.05), lt, *obs)
-    nbytes, ops = fk.step_work(n)
-    row = kernel_row(torch, cuda, kernel, plain, nbytes, 0, ops, iters,
-                     [n])
-    row.update(info, max_abs_err=max(abs(kv - pv), float(gerr.max())),
-               library_note="no PyTorch call computes it: the mixture's "
-                            "loss, its gradient and Adam in one step")
+            def parent_fit():
+                # the parent's whole fit, its state reset first, as one
+                # graph of 600 step launches
+                preset()
+                for t in range(1, KEF_STEPS + 1):
+                    launch(t)
+
+            def parent_step():
+                return graph_ms(torch, parent_fit, iters=1) / KEF_STEPS
+            turns = [parent_step(), change_step(), change_step(),
+                     parent_step()]
+            row.update(prev_device_ms_a_step=(turns[0] + turns[3]) / 2,
+                       device_ms_a_step_turns=(turns[1] + turns[2]) / 2,
+                       turns_ms_a_step=turns, parent_grid=list(pgrid),
+                       prev_device_ms_from="a CUDA graph of the parent's "
+                       "600 step launches after a reset of its state, "
+                       "the least of 3 replays")
+            # the parent's fit as the CLI ran it: 600 launches from the
+            # host (its prep left out), from its start
+            pl, pr, _ = parent(obs, p0, c)
+            pl(1)
+            pr()
+            torch.cuda.synchronize()
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            for t in range(1, KEF_STEPS + 1):
+                pl(t)
+            e_ev.record()
+            torch.cuda.synchronize()
+            row["prev_fit_ms_host_loop"] = s_ev.elapsed_time(e_ev)
+    else:
+        row["ms"] = time_ms(torch, cuda, lambda: fk.fit_model(
+            loc, p0, c, 2, grid[:2]), 1, warm=0) * KEF_STEPS / 2
+    row["device_ms_a_step"] = row["ms"] / KEF_STEPS
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    device_share(row)
+    row.update(info, max_abs_err=max(abs(kv - pv), float(gerr.max())))
 
     def kprep():
         return (fk.error_fit_prep(*obs, c) if cuda
@@ -3625,49 +3839,51 @@ def kef_context(np, torch, dev, cuda: bool, label, cc, lt, regs,
     def pprep():
         return ef.fit_prep_plain(*obs, lt)
     prep = kernel_row(torch, cuda, kprep, pprep, 160 * n, 0,
-                      KEF_PREP_F64_PER_LOCUS * n, iters, [n])
+                      fk.PREP_F64_PER_LOCUS * n, iters, [n])
     prep.update(case=label, max_abs_err=0.0,
                 library_note="no PyTorch call computes it: the counts' "
                              "argmax rems, prefixes and clean mixture")
     if cuda:
-        from strelka_tpu_torch.ops import kgr_probe
-        blocks = fk.step_grid(n)[0]
-        row.update(registers=regs["error_fit_step_kernel"],
-                   spill_store_bytes=regs["spill_store_bytes"],
-                   grid_blocks=blocks,
-                   launch_floor_ms=kgr_probe.empty_launch_ms(blocks,
-                                                             fk.THREADS))
-        row["launch_floor_share"] = row["launch_floor_ms"] / row["device_ms"]
-        pblocks = -(-n // fk.THREADS)
         prep.update(registers=regs["error_fit_prep_kernel"],
                     spill_store_bytes=regs["spill_store_bytes"],
-                    grid_blocks=pblocks,
-                    launch_floor_ms=kgr_probe.empty_launch_ms(pblocks,
-                                                              fk.THREADS))
+                    grid_blocks=-(-n // fk.THREADS))
     log(f"kef {label}: " + json.dumps(row))
     log(f"kef prep {label}: " + json.dumps(prep))
     return row, prep
 
 
-def phase_fit_kernel(np, torch, dev, cuda: bool, kept, rehearse: bool):
+def phase_fit_kernel(np, torch, dev, cuda: bool, kept, rehearse: bool,
+                     parent_csrc=None):
     """Phase 15b: KE-F on phase 15's first two fitted contexts (`kept`,
     StreamTimer.kept of its cuda run) and on the synthetic context
-    (KEF_SYNTHETIC; smaller when rehearsing). Returns (the step's row,
-    the prep's row) at the first kept context."""
+    (KEF_SYNTHETIC; smaller when rehearsing), with the parent's step
+    entry in turns where `parent_csrc` is given. Returns (the fit
+    entry's row, the prep's row) at the first kept context."""
     from strelka_tpu_torch.ops import fit_kernels as fk
     if not kept:
         fail("phase 15b: phase 15 fitted no context")
-    regs = ptxas_report()["error_fit_step"] if cuda else None
+    regs = None
     if cuda:
-        regs = {**{k: entry_registers(regs, k) for k in (
-            "error_fit_step_kernel", "error_fit_prep_kernel")},
-            "spill_store_bytes": regs["spill_store_bytes"]}
+        rep = ptxas_report()["error_fit_step"]
+        regs = {"error_fit_prep_kernel": entry_registers(
+            rep, "error_fit_prep_kernel"),
+            "spill_store_bytes": rep["spill_store_bytes"]}
+        # the fit entry's three instantiations by their mangled template
+        # arguments: <kCluster, true>, <kGrid, true>, <kGrid, false>
+        for regime, tail in (("cluster", "E0ELb1E"), ("grid", "E1ELb1E"),
+                             ("global", "E1ELb0E")):
+            hits = [v for k, v in rep["registers_by_entry"].items()
+                    if "error_fit_run_kernel" in k and tail in k]
+            regs[f"error_fit_run_kernel {regime}"] = (
+                hits[0] if len(hits) == 1 else None)
+    parent = (parent_kef(torch, parent_csrc) if cuda and parent_csrc
+              else None)
     iters = 200 if cuda else 1
     rows = []
     for i, (a, kw) in enumerate(kept):
         cc, lt = a[0], float(a[1])
         rows.append(kef_context(np, torch, dev, cuda, f"phase 15 fit {i}",
-                                cc, lt, regs, iters))
+                                cc, lt, regs, parent, iters))
     seed, n, ref_max = KEF_SYNTHETIC
     if rehearse:
         n, ref_max = 5000, 50
@@ -3676,7 +3892,7 @@ def phase_fit_kernel(np, torch, dev, cuda: bool, kept, rehearse: bool):
         fail(f"phase 15b: the synthetic context has {len(cc.ref_obs)} "
              f"patterns, under 100,000")
     kef_context(np, torch, dev, cuda, "synthetic", cc, float(np.log(0.001)),
-                regs, iters)
+                regs, parent, iters)
     return rows[0]
 
 
@@ -4141,8 +4357,9 @@ def main(argv=None) -> int:
                          "(two or more); no result line")
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="a parent commit's strelka_tpu_torch/csrc (from "
-                         "git archive): its KG-H is built and timed beside "
-                         "this tree's in phases 3 and 4b")
+                         "git archive): its KG-H, KG-SB, KG-R and KE-F are "
+                         "built and timed beside this tree's in phases 3, "
+                         "4b, 14b and 15b")
     opts = ap.parse_args(argv)
     rehearse = opts.rehearse
 
@@ -4391,11 +4608,12 @@ def main(argv=None) -> int:
                                 workdir, [*base_args, "--region", region,
                                           "--estimate-sequence-error"])
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
-    log("== phase 15b: KE-F on phase 15's first fits and a synthetic "
-        "context vs the plain step")
+    log("== phase 15b: KE-F's fit entry on phase 15's first fits and a "
+        "synthetic context vs fit_model and the plain step")
     t0 = time.perf_counter()
-    kef_row, kef_prep_row = phase_fit_kernel(np, torch, dev, cuda, kept15,
-                                             rehearse)
+    kef_row, kef_prep_row = phase_fit_kernel(
+        np, torch, dev, cuda, kept15, rehearse,
+        os.path.abspath(opts.parent_csrc) if opts.parent_csrc else None)
     del kept15
     log(f"phase 15b took {time.perf_counter() - t0:.1f} s")
 
@@ -4588,10 +4806,11 @@ def main(argv=None) -> int:
     # phase 15b at phase 15's first fitted context
     from strelka_tpu_torch.ops import fit_kernels as fk
     for name, krow, tol in (
-            ("error_fit_step", kef_row,
-             f"loss {ERR_LOSS_RTOL} relative; gradient {ERR_GRAD_RTOL} of "
-             f"its largest component or 2 eps N sum|terms|; Adam bit for "
-             f"bit; the fit's rates {ERR_FLAT_RTOL}"),
+            ("error_fit_run", kef_row,
+             f"bit for bit with fit_model; against the plain step: loss "
+             f"{ERR_LOSS_RTOL} relative, gradient {ERR_GRAD_RTOL} of its "
+             f"largest component or 2 eps N sum|terms|, Adam bit for bit, "
+             f"the fit's rates {ERR_FLAT_RTOL}"),
             ("error_fit_prep", kef_prep_row, "bit for bit")):
         by = {p: c.get("fit_kernels", {}).get(name, 0)
               for p, c in paths.items()}
@@ -4617,10 +4836,13 @@ def main(argv=None) -> int:
             "trace": krow.get("trace"),
             "plain_trace": krow.get("plain_trace"),
             **{k: krow[k] for k in (
-                "registers", "spill_store_bytes", "grid_blocks",
-                "launch_floor_ms", "launch_floor_share", "grid", "patterns",
-                "model_same_bits",
-                "fit_s", "plain_fit_s") if k in krow},
+                "registers", "spill_store_bytes", "grid_blocks", "grid",
+                "patterns", "steps", "model_same_bits", "fit_s",
+                "device_ms_a_step", "chain_floor_ms", "chain_floor_share",
+                "prev_device_ms_a_step", "device_ms_a_step_turns",
+                "turns_ms_a_step", "prev_fit_ms_host_loop",
+                "cluster_ms_a_step", "grid_regime_ms_a_step",
+                "fit_entry_wall_s") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

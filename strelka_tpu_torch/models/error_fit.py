@@ -11,7 +11,7 @@ same dataclass and dedupe); the likelihood runs as f64 torch ops on the
 fit's device. On the CPU each step is fit_step_plain: the loss as
 torch ops, its gradient from torch.autograd, and optax's Adam in optax's
 order (utils/special.Adam), so every expression keeps the JAX package's
-association order. On a card each step is one launch of KE-F
+association order. On a card the whole fit is one launch of KE-F
 (ops/fit_kernels, csrc/error_fit_step.cu): the same elementwise values,
 the gradient in closed form, the same Adam bit for bit, the best step
 kept on the card. What differs from the JAX package is the order of the
@@ -252,16 +252,12 @@ def _fit_plain(params, lr, n_steps, lt, obs):
 
 
 def _fit_kernel(params, lr, n_steps, lt, obs):
-    """The fit through KE-F on the observations' card: the prep once,
-    the step once an Adam step (the best step kept on the card), one
+    """The fit through KE-F on the observations' card: one launch of its
+    fit entry (the n_steps Adam steps and the best step on the card), one
     read of the state at the end: (best loss, its parameters)."""
     from ..ops import fit_kernels as fk
-    consts = kernel_consts(lt, lr)
-    loc = fk.error_fit_prep(*obs, consts)
-    bufs = fk.StepBuffers(loc, params, consts, n_steps)
-    for t in range(1, n_steps + 1):
-        fk.error_fit_step(bufs, t)
-    state = bufs.state.cpu()
+    run = fk.error_fit_run(*obs, params, kernel_consts(lt, lr), n_steps)
+    state = run.state.cpu()
     return float(state[fk.BEST_V]), state[fk.BEST_PARAMS].numpy()
 
 
@@ -298,8 +294,8 @@ def fit_context(counts: ContextCounts, log_theta: float,
     """ML fit of (ln insert, ln delete, ln noisy-locus) rates with the
     reference's smoother reparameterization; theta locked. Runs on
     `device` (default: the current device): on the CPU through the
-    plain step (fit_step_plain), on a card through KE-F
-    (ops/fit_kernels).
+    plain step (fit_step_plain), on a card through KE-F's fit entry, one
+    launch a fit (ops/fit_kernels.error_fit_run).
 
     As in the JAX package, each step evaluates the loss and gradient at
     the parameters, then takes the Adam step; the best loss seen (strict

@@ -1,4 +1,4 @@
-"""KE-F, the indel error fit's step as one CUDA kernel
+"""KE-F, the indel error fit as one CUDA kernel a fit
 (csrc/error_fit_step.cu), and a torch model of its arithmetic.
 
 KE-F replaces the step that the JAX package's fit_context jits
@@ -7,27 +7,30 @@ Adam update; XLA, no Pallas). Its plain version in the port is
 models/error_fit.fit_step_plain, the loss as torch ops, torch.autograd's
 backward and utils/special.Adam. Two entries of one source:
 
-- error_fit_prep, once a fit: loc [12, N] float64, each locus's
-  parameter-free values (the rows of ROWS), bit for bit with
-  models/error_fit.fit_prep_plain;
-- error_fit_step, once an Adam step: the loss and its gradient in closed
-  form summed over the loci in one fixed order (step_grid; no float
-  atomics), Adam and the best-step rule, in the fit's state buffer on the
-  card (STATE), one launch a step.
+- error_fit_run, once a fit: n_steps Adam steps in one launch (FitRun):
+  each locus's parameter-free values computed once and held on chip,
+  then a step's loss and its gradient in closed form summed over the
+  loci in one fixed order (fit_grid; no float atomics), Adam and the
+  best-step rule, the blocks meeting at one barrier a step, and the
+  state (STATE) written once at the end;
+- error_fit_prep: the same parameter-free values as loc [12, N] float64
+  (the rows of ROWS), bit for bit with models/error_fit.fit_prep_plain;
+  the tested form of the fit entry's prep, on no CLI path.
 
 models/error_fit.fit_context runs the plain step on CPU tensors and KE-F
 on any other device. A wrapper here checks its operands, builds and binds
 the library (_build.load) and launches on the tensors' card and its
 current stream, and raises on what it does not take and where the build,
-the load or the launch fails: nothing falls back to the plain step.
+the load or the launch fails (a cluster or cooperative launch that the
+card cannot place among them): nothing falls back to the plain step.
 LAUNCHES counts each entry's launches; PLAIN_ON_CUDA counts the plain
 versions' runs on a card, which no CLI path makes.
 
 fit_step_model, adam_model and fit_model are KE-F's arithmetic as torch
 ops: the same elementwise expressions, the closed-form gradient and the
-kernel's order of the sums over loci (grid_sum). The tests hold them
-against the JAX package on the CPU, and the kernel against them on the
-card; no path runs them.
+kernel's order of the sums over loci (grid_sum on fit_grid's blocks and
+loci a thread). The tests hold them against the JAX package on the CPU,
+and the kernel against them on the card; no path runs them.
 """
 from __future__ import annotations
 
@@ -37,10 +40,11 @@ import torch
 
 from ..utils import special as sp
 
-REPLACES = {"error_fit_step": "strelka_tpu/models/error_fit.py:171",
+REPLACES = {"error_fit_run": "strelka_tpu/models/error_fit.py:171",
             "error_fit_prep": "strelka_tpu/models/error_fit.py:171"}
 SOURCE = "error_fit_step"
-LAUNCHES = {"error_fit_prep": 0, "error_fit_step": 0}
+LAUNCHES = {"error_fit_prep": 0, "error_fit_run": 0}
+# the plain versions: fit_prep_plain, and fit_step_plain once a step
 PLAIN_ON_CUDA = {"error_fit_prep": 0, "error_fit_step": 0}
 
 # the host doubles that both entries take, in csrc's Consts order
@@ -60,16 +64,31 @@ STATE = 17
 
 THREADS = 256
 WARPS = THREADS // 32
-MAX_BLOCKS = 264          # two blocks an SM on the H100's 132
 SUMS = 6                  # loss, d/dli, d/dld, d/dlr, d/dlcl, d/dln
+# the fit entry's grid (csrc's kMaxBlocks, kOnChipPer): at most
+# MAX_BLOCKS blocks, two an SM on the H100's 132 (the card's own
+# co-resident count where lower, resident_blocks); up to ON_CHIP_PER loci
+# a thread held in shared memory (96 KB a block); the whole grid one
+# thread-block cluster up to CLUSTER_MAX blocks (the H100's largest
+# cluster)
+MAX_BLOCKS = 264
+ON_CHIP_PER = 4
+CLUSTER_MAX = 16
+REGIMES = ("cluster", "grid", "global")
+# the barrier's counter reaches n_steps * blocks
+MAX_ARRIVALS = 2**32 - 1
 
 _vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _CD = ctypes.POINTER(ctypes.c_double)
+# the C functions of csrc/error_fit_step.cu
 _ARGTYPES = {
-    "error_fit_prep": [_vp, _vp, _vp, _ll, _CD, _vp, _vp],
-    "error_fit_step": [_vp, _ll, _i, _i, _CD, _vp, _i, _vp, _vp, _vp, _vp],
+    "error_fit_prep_launch": [_vp, _vp, _vp, _ll, _CD, _vp, _vp],
+    "error_fit_run_launch": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _CD, _vp,
+                             _vp, _vp, _vp, _vp, _vp],
+    "error_fit_resident_blocks": [ctypes.POINTER(ctypes.c_int)],
 }
 _BOUND: dict = {}
+_RESIDENT: dict = {}
 
 
 def reset() -> None:
@@ -86,23 +105,59 @@ def count_plain(name: str, dev) -> None:
 
 
 def function(name: str):
-    """Entry `name`'s launch function, bound with ctypes; builds
-    csrc/error_fit_step.cu first if stale. Raises where the build or the
-    load fails."""
+    """C function `name` of csrc/error_fit_step.cu (_ARGTYPES), bound
+    with ctypes; builds the source first if stale. Raises where the
+    build or the load fails."""
     if name not in _BOUND:
         from .. import _build
-        fn = getattr(_build.load(SOURCE), f"{name}_launch")
+        fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
         _BOUND[name] = fn
     return _BOUND[name]
 
 
-def step_grid(n: int) -> tuple[int, int]:
-    """(blocks, loci a thread) of error_fit_step over n loci: one locus a
-    thread up to MAX_BLOCKS blocks, more a thread past them."""
-    per = max(1, -(-n // (THREADS * MAX_BLOCKS)))
-    return -(-n // (THREADS * per)), per
+def fit_grid(n: int, resident: int = MAX_BLOCKS) -> tuple[int, int, str]:
+    """(blocks, loci a thread, regime) of error_fit_run over n loci on a
+    card that keeps `resident` of its blocks at once (resident_blocks):
+    one locus a thread up to `resident` blocks, more a thread past them,
+    no empty block. The regime: "cluster" up to CLUSTER_MAX blocks (the
+    grid one thread-block cluster), "grid" past it (a cooperative launch
+    with a barrier on a counter), both with the loci in shared memory;
+    "global" past ON_CHIP_PER loci a thread (n > resident * THREADS *
+    ON_CHIP_PER, 270,336 on the H100), the loci read from global memory
+    every step."""
+    if n < 1 or resident < 1:
+        raise ValueError(f"fit_grid: wants n >= 1 and resident >= 1, got "
+                         f"{n}, {resident}")
+    per = max(1, -(-n // (THREADS * resident)))
+    blocks = -(-n // (THREADS * per))
+    if per > ON_CHIP_PER:
+        regime = "global"
+    else:
+        regime = "cluster" if blocks <= CLUSTER_MAX else "grid"
+    return blocks, per, regime
+
+
+def resident_blocks(dev) -> int:
+    """The fit entry's blocks that card `dev` keeps co-resident (the
+    occupancy of its grid kernels times the SMs, at most MAX_BLOCKS),
+    asked once a card; builds the library first. Raises where the card
+    keeps none."""
+    dev = torch.device(dev)
+    if dev not in _RESIDENT:
+        fn = function("error_fit_resident_blocks")
+        if dev.type != "cuda":
+            raise ValueError(f"error_fit_run: unsupported device {dev}")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"error_fit_run: the card keeps "
+                               f"{out.value} blocks resident (CUDA error "
+                               f"{rc})")
+        _RESIDENT[dev] = out.value
+    return _RESIDENT[dev]
 
 
 def _host_consts(consts):
@@ -129,11 +184,24 @@ def _check(name, dev, specs):
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
+def _check_obs(name, ref_obs, alt_obs, inst) -> int:
+    """ref_obs [N], alt_obs [N, 6] and inst [N] float64 on one device,
+    N >= 1: returns N."""
+    n = ref_obs.shape[0] if ref_obs.dim() == 1 else -1
+    if n < 1:
+        raise ValueError(f"{name}: ref_obs must be [N], N >= 1, got "
+                         f"{tuple(ref_obs.shape)}")
+    _check(name, ref_obs.device, [("ref_obs", ref_obs, (n,)),
+                                  ("alt_obs", alt_obs, (n, 6)),
+                                  ("inst", inst, (n,))])
+    return n
+
+
 def _launch(name, dev, args):
     """Bind entry `name` and launch it on `dev` and its current stream;
     raises where the build or the load fails, `dev` is no card or the
     launch fails."""
-    fn = function(name)
+    fn = function(f"{name}_launch")
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     with torch.cuda.device(dev):
@@ -148,67 +216,111 @@ def error_fit_prep(ref_obs, alt_obs, inst, consts):
     ref_obs [N], alt_obs [N, 6] and inst [N] float64 on one card, N >= 1;
     consts the CONSTS doubles."""
     name = "error_fit_prep"
-    dev = ref_obs.device
-    n = ref_obs.shape[0] if ref_obs.dim() == 1 else -1
-    if n < 1:
-        raise ValueError(f"{name}: ref_obs must be [N], N >= 1, got "
-                         f"{tuple(ref_obs.shape)}")
-    _check(name, dev, [("ref_obs", ref_obs, (n,)),
-                       ("alt_obs", alt_obs, (n, 6)), ("inst", inst, (n,))])
+    n = _check_obs(name, ref_obs, alt_obs, inst)
     host = _host_consts(consts)
+    dev = ref_obs.device
     loc = torch.empty((len(ROWS), n), dtype=torch.float64, device=dev)
     _launch(name, dev, [ref_obs.data_ptr(), alt_obs.data_ptr(),
                         inst.data_ptr(), n, host, loc.data_ptr()])
     return loc
 
 
-class StepBuffers:
-    """One fit's operands of KE-F's step entry on loc's card, checked and
-    bound once: loc [12, N] float64 (error_fit_prep's), the CONSTS
-    doubles, the bias corrections [n_steps, 2] (1 - b1**t, 1 - b2**t by
-    Python's **, as special.Adam takes them), the state (STATE float64:
-    the parameters, zero moments), the block partials [blocks, 6] and the
-    ticket (one int32, the kernel's unsigned counter, 0 between
-    launches), with the grid (step_grid)."""
+def _check_grid(name, grid, n: int) -> None:
+    """A (blocks, loci a thread, regime) whose buffers FitRun can make
+    over n loci: blocks covering n, the regime one of REGIMES and
+    "global" just where per > ON_CHIP_PER. The C entry refuses more than
+    MAX_BLOCKS blocks, and the card a grid it cannot place, at the
+    launch."""
+    blocks, per, regime = grid
+    if not (blocks >= 1 and per >= 1
+            and blocks * per * THREADS >= n and regime in REGIMES
+            and (regime == "global") == (per > ON_CHIP_PER)):
+        raise ValueError(f"{name}: grid {tuple(grid)} does not cover {n} "
+                         f"loci in a regime of the entry")
 
-    def __init__(self, loc, params, consts, n_steps: int):
-        name = "error_fit_step"
-        if loc.dim() != 2 or loc.shape[0] != len(ROWS) or loc.shape[1] < 1:
-            raise ValueError(f"{name}: loc must be [{len(ROWS)}, N], N >= 1, "
-                             f"got {tuple(loc.shape)}")
+
+class FitRun:
+    """One fit's operands of KE-F's fit entry on the observations' card,
+    checked, allocated and bound once, holding the observations; launch()
+    runs the whole fit from the state as it stands, reset() puts the
+    start back (the parameters, zero moments and counters) for another
+    launch of the same fit. ref_obs [N], alt_obs [N, 6] and inst [N]
+    float64 on one card, N >= 1; params [3] the start; the CONSTS
+    doubles; n_steps >= 1. On the card: the state (STATE float64: the
+    parameters, zero moments; every slot after a launch), the bias
+    corrections [n_steps, 2] (1 - b1**t, 1 - b2**t by Python's **, as
+    special.Adam takes them) and the barrier's two counters (the kernel
+    leaves them at 0), copied up in one buffer; the block partials [2,
+    blocks, 6] past the cluster regime, loc [12, N] in the global regime.
+    The grid is fit_grid(N, resident_blocks(card)): the loci stay on chip
+    up to resident * 256 * ON_CHIP_PER of them (270,336 on the H100 at
+    two blocks an SM); past that they are read from loc every step.
+    `grid` (blocks, per, regime) replaces fit_grid's to measure a regime
+    where fit_grid picks another; a grid that the card cannot place makes
+    the launch raise."""
+
+    def __init__(self, ref_obs, alt_obs, inst, params, consts, n_steps: int,
+                 grid=None):
+        name = "error_fit_run"
+        n = _check_obs(name, ref_obs, alt_obs, inst)
         if n_steps < 1:
             raise ValueError(f"{name}: n_steps must be >= 1, got {n_steps}")
-        c = dict(zip(CONSTS, consts))
         host = _host_consts(consts)
-        dev = loc.device
-        n = loc.shape[1]
-        _check(name, dev, [("loc", loc, (len(ROWS), n))])
-        self.loc, self.dev, self.n_steps = loc, dev, n_steps
-        self.blocks, self.per = step_grid(n)
-        self.bias = torch.tensor(
-            [(1 - c["b1"] ** t, 1 - c["b2"] ** t)
-             for t in range(1, n_steps + 1)], dtype=torch.float64).to(dev)
-        state = torch.zeros(STATE, dtype=torch.float64)
-        state[PARAMS] = params.detach().cpu()
-        self.state = state.to(dev)
-        self.partials = torch.empty((self.blocks, SUMS), dtype=torch.float64,
-                                    device=dev)
-        self.ticket = torch.zeros(1, dtype=torch.int32).to(dev)
-        self._args = ([loc.data_ptr(), n, self.blocks, self.per, host,
-                       self.bias.data_ptr()],
-                      [self.state.data_ptr(), self.partials.data_ptr(),
-                       self.ticket.data_ptr()])
+        dev = ref_obs.device
+        if grid is None:
+            grid = fit_grid(n, resident_blocks(dev))
+        _check_grid(name, grid, n)
+        self.grid = tuple(grid)
+        blocks, per, regime = self.grid
+        if n_steps * blocks > MAX_ARRIVALS:
+            raise ValueError(f"{name}: {n_steps} steps of {blocks} blocks "
+                             f"overflow the barrier's counter")
+        c = dict(zip(CONSTS, consts))
+        io = torch.zeros(STATE + 2 * n_steps + 1, dtype=torch.float64)
+        io[PARAMS] = torch.as_tensor(params, dtype=torch.float64).cpu()
+        io[STATE:STATE + 2 * n_steps] = torch.tensor(
+            [x for t in range(1, n_steps + 1)
+             for x in (1 - c["b1"] ** t, 1 - c["b2"] ** t)],
+            dtype=torch.float64)
+        self._start, io = io, io.to(dev, copy=True)
+        self.dev, self.n_steps = dev, n_steps
+        # the launch reads these through their addresses
+        self._obs = (ref_obs, alt_obs, inst)
+        self.state = io[:STATE]
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.partials = (torch.empty((2, blocks, SUMS), **f64)
+                         if regime != "cluster" else None)
+        self.loc = (torch.empty((len(ROWS), n), **f64)
+                    if regime == "global" else None)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        self._args = [ref_obs.data_ptr(), alt_obs.data_ptr(),
+                      inst.data_ptr(), n, blocks, per, n_steps,
+                      int(regime == "cluster"), host,
+                      io[STATE:].data_ptr(), self.state.data_ptr(),
+                      ptr(self.loc), ptr(self.partials),
+                      io[STATE + 2 * n_steps:].data_ptr()]
+        self._io = io
+
+    def launch(self) -> None:
+        """One launch of the whole fit on the state as it stands."""
+        _launch("error_fit_run", self.dev, self._args)
+
+    def reset(self) -> None:
+        """The state, bias table and counters as before the first launch
+        (one copy from the host on the card's current stream)."""
+        self._io.copy_(self._start)
 
 
-def error_fit_step(bufs: StepBuffers, t: int) -> None:
-    """KE-F's step entry: step t (1..n_steps) of the fit in `bufs` (its
-    state updated on the card: the loss and gradient at the parameters,
-    Adam's step, the best step)."""
-    if not 1 <= t <= bufs.n_steps:
-        raise ValueError(f"error_fit_step: step {t} outside "
-                         f"1..{bufs.n_steps}")
-    head, tail = bufs._args
-    _launch("error_fit_step", bufs.dev, [*head, t, *tail])
+def error_fit_run(ref_obs, alt_obs, inst, params, consts,
+                  n_steps: int) -> FitRun:
+    """KE-F's fit entry: a fit of n_steps Adam steps from params in one
+    launch (FitRun's operands); the result is its .state (fk.BEST_V,
+    fk.BEST_PARAMS, ...) on the card and its .grid."""
+    run = FitRun(ref_obs, alt_obs, inst, params, consts, n_steps)
+    run.launch()
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -216,7 +328,7 @@ def error_fit_step(bufs: StepBuffers, t: int) -> None:
 # --------------------------------------------------------------------------
 
 def grid_sum(terms, n_blocks: int, per: int):
-    """The sums of terms [K, N] over N in error_fit_step's order: thread
+    """The sums of terms [K, N] over N in error_fit_run's order: thread
     t of block b adds loci (b * per + i) * THREADS + t from 0.0 (+0.0 past
     N), a warp's lanes fold by halves (xor shuffles), a block adds its
     warps in order, then the blocks in order. Returns (totals [K],
@@ -275,7 +387,8 @@ def _lse4(t):
 def fit_step_model(loc, params, consts, grid=None) -> dict:
     """KE-F's loss and gradient at params [3] float64 as torch ops on
     loc's device: the kernel's per-locus terms and closed-form gradient,
-    summed in its order (grid_sum on `grid`, default step_grid(N)).
+    summed in its order (grid_sum on `grid`, (blocks, loci a thread),
+    default fit_grid(N)'s).
     Returns {"v": loss, "g": gradient [3], "totals": the six sums,
     "terms": the per-locus terms [6, N] (the first mix * inst), "scale":
     each gradient component's sums of |term| carried through the rate
@@ -318,7 +431,7 @@ def fit_step_model(loc, params, consts, grid=None) -> dict:
         ((gk[0] * ri + gk[1] * ri) + gk[2] * ins) + gk[3] * ri2,
         ((gk[0] * rd + gk[1] * rd) + gk[2] * dele) + gk[3] * rd2,
         gk[2] * ref, g1, g2])
-    blocks, per = grid if grid is not None else step_grid(loc.shape[1])
+    blocks, per = grid if grid is not None else fit_grid(loc.shape[1])[:2]
     tot, _ = grid_sum(terms, blocks, per)
     q = -(tot[3] / vr)
     g_li = tot[1] + q * e_li
@@ -357,10 +470,11 @@ def keeps_step(t: int, v: float, best_v) -> bool:
 
 
 def fit_model(loc, params, consts, n_steps: int, grid=None):
-    """A whole fit through fit_step_model, adam_model and the best-step
-    rule (the first step kept, then a strict v < best; the parameters
-    after the step kept): (best loss, best parameters [3], the losses of
-    every step [n_steps])."""
+    """A whole fit (error_fit_run's) through fit_step_model on `grid`,
+    adam_model and the best-step rule (the first step kept, then a strict
+    v < best; the parameters after the step kept): (best loss, best
+    parameters [3], the losses of every step [n_steps], the state [STATE]
+    that the fit entry writes at the end)."""
     p = params.to(loc.device, torch.float64).clone()
     mu, nu = torch.zeros_like(p), torch.zeros_like(p)
     best_v, best_p, losses = None, None, []
@@ -371,21 +485,26 @@ def fit_model(loc, params, consts, n_steps: int, grid=None):
         losses.append(v)
         if keeps_step(t, v, best_v):
             best_v, best_p = v, p.clone()
-    return best_v, best_p, torch.tensor(losses, dtype=torch.float64)
+    state = torch.cat([p, mu, nu, torch.tensor([best_v], dtype=p.dtype,
+                                               device=p.device),
+                       best_p, out["v"].reshape(1), out["g"]])
+    return best_v, best_p, torch.tensor(losses, dtype=torch.float64), state
 
 
-def step_work(n: int) -> tuple[int, int]:
-    """(bytes, float64 operations) that one step's function (the loss,
-    its gradient, Adam and the best step; the JAX package's jitted step)
-    needs at the least over n loci: the observations read once (ref_obs,
-    alt_obs' 6 slots and inst, OBS_ROWS float64 a locus; not loc, whose
-    other rows are KE-F's own) and the state read and written (not the
-    partials, KE-F's own); F64_PER_LOCUS operations a locus (each exp,
-    log, log1p and division one; the prep's hoisted work not counted)
-    and the tail's."""
-    blocks, _ = step_grid(n)
-    nbytes = OBS_ROWS * 8 * n + 2 * STATE * 8
-    return nbytes, F64_PER_LOCUS * n + SUMS * blocks + F64_TAIL
+def fit_work(n: int, n_steps: int) -> tuple[int, int]:
+    """(bytes, float64 operations) that a fit's function (n_steps of the
+    loss, its gradient, Adam and the best step; the JAX package's jitted
+    step n_steps times) needs at the least over n loci: the observations
+    read once (ref_obs, alt_obs' 6 slots and inst, OBS_ROWS float64 a
+    locus), the bias table read and the state read and written (not loc
+    or the partials, KE-F's own); each locus's parameter-free values once
+    (PREP_F64_PER_LOCUS) and F64_PER_LOCUS operations a locus a step
+    (each exp, log, log1p and division one), and each step's tail."""
+    blocks = fit_grid(n)[0]
+    nbytes = OBS_ROWS * 8 * n + 2 * 8 * n_steps + 2 * STATE * 8
+    return nbytes, (PREP_F64_PER_LOCUS * n
+                    + n_steps * (F64_PER_LOCUS * n + SUMS * blocks
+                                 + F64_TAIL))
 
 
 def synthetic_counts(seed: int, n: int, ref_max: int):
@@ -406,9 +525,9 @@ def synthetic_counts(seed: int, n: int, ref_max: int):
 OBS_ROWS = 1 + 6 + 1
 
 
-# float64 operations of error_fit_step, counted from its source (each exp,
-# log, log1p, division and square root one, an FMA two; compares,
-# selects, abs and negations not counted). A locus's forward: 7 products
+# float64 operations of a step of error_fit_run, counted from its source
+# (each exp, log, log1p, division and square root one, an FMA two;
+# compares, selects, abs and negations not counted). A locus's forward: 7 products
 # and 12 adds of the four terms, 3 max, 4 differences, 4 exps, 3 adds,
 # log and add, 2 adds, difference, exp, log1p, max, add and the loss
 # term's product (43); its backward: 2 x (difference, exp, product),
@@ -418,3 +537,8 @@ OBS_ROWS = 1 + 6 + 1
 # backward (15) and Adam (3 x 14).
 F64_PER_LOCUS = 43 + 27 + 6
 F64_TAIL = 22 + 9 + 15 + 3 * 14
+# float64 operations a locus of the prep (prep_locus), counted from its
+# source (each exp and log one; compares and selects not counted): the
+# count sums and rems (9), the three prefixes (9), the clean mixture's
+# four terms (21) and its logsumexp (16)
+PREP_F64_PER_LOCUS = 9 + 9 + 21 + 16

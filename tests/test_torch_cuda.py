@@ -10,8 +10,9 @@ on cuda:1 with two cards), the germline and somatic CLIs with --device
 cuda against --device cpu, a cold --jobs 2 germline run on the card
 against a single-process one, the error-model fits (the emulated
 FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
-KE-F (the error fit's step kernel) against its plain step and its torch
-model at the CLI's sizes and at 50,000 and 100,000 patterns,
+KE-F (the error fit, one launch a fit) against its plain step and its
+torch model at the CLI's sizes, a 16-block cluster, 50,000 and 100,000
+patterns and past what the card holds on chip,
 and the engine mesh: K1 sharded over a mesh that repeats cuda:0 against
 one launch, a launch on cuda:1 against one on cuda:0 (with two cards),
 the SNV and somatic chunks split over the mesh, and --mesh on the CLI.
@@ -1174,14 +1175,16 @@ KEF_GRAD_RTOL = 1e-12
 KEF_LOSS_AT_FIT_RTOL = 1e-12
 
 
-# fit_kernels.synthetic_counts: over 50,000 patterns, one locus a thread,
-# and over 100,000, two a thread
+# fit_kernels.synthetic_counts: over 50,000 patterns, one locus a thread;
+# over 100,000, two a thread; 4,050 patterns, a cluster of 16 blocks; and
+# 305,159, past what the card holds on chip (the global regime)
 KEF_CASES = {
     "smoke_size": lambda: indel_counts(1, 3000, 35, 2e-2, 0.3),
     "flat": lambda: indel_counts(3, 3000, 35, 1e-4, 1.0),
+    "cluster_16": lambda: fit_kernels.synthetic_counts(9, 4500, 60),
     "patterns_50k": lambda: fit_kernels.synthetic_counts(9, 60_000, 300),
-    "patterns_100k": lambda: fit_kernels.synthetic_counts(9, 130_000, 500)}
-
+    "patterns_100k": lambda: fit_kernels.synthetic_counts(9, 130_000, 500),
+    "past_on_chip": lambda: fit_kernels.synthetic_counts(9, 360_000, 2000)}
 
 
 def kef_inputs(cuda, cc, lt):
@@ -1197,12 +1200,18 @@ def same(a, b) -> bool:
                                               b.view(torch.int64))
 
 
+def kef_p0(cuda):
+    return torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
+                        dtype=torch.float64, device=cuda)
+
+
 @pytest.mark.parametrize("case", list(KEF_CASES))
 def test_kef_step_matches_plain_step_and_model(cuda, case):
-    """KE-F's prep bit for bit with fit_prep_plain; its first step's loss
-    and gradient against fit_step_plain's, its Adam state bit for bit
-    with special.Adam's given its gradient, and all of it bit for bit
-    with fit_step_model and adam_model on the card; one launch each."""
+    """KE-F's prep bit for bit with fit_prep_plain; a one-step fit of its
+    fit entry: the loss and gradient against fit_step_plain's, its Adam
+    state bit for bit with special.Adam's given its gradient, and all of
+    it bit for bit with fit_step_model and adam_model on the card on the
+    entry's grid; one launch each."""
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.utils import special as sp
@@ -1212,22 +1221,23 @@ def test_kef_step_matches_plain_step_and_model(cuda, case):
     fk.reset()
     loc = fk.error_fit_prep(*obs, c)
     assert same(loc, ef.fit_prep_plain(*obs, lt))
-    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
-                      dtype=torch.float64, device=cuda)
-    bufs = fk.StepBuffers(loc, p0, c, 600)
-    fk.error_fit_step(bufs, 1)
+    p0 = kef_p0(cuda)
+    run = fk.error_fit_run(*obs, p0, c, 1)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"error_fit_prep": 1, "error_fit_step": 1}
-    st = bufs.state.cpu()
+    assert fk.LAUNCHES == {"error_fit_prep": 1, "error_fit_run": 1}
+    n = loc.shape[1]
+    assert run.grid == fk.fit_grid(n, fk.resident_blocks(cuda))
+    assert (run.grid[2] == "global") == (case == "past_on_chip")
+    st = run.state.cpu()
     opt = sp.Adam(p0, 0.05)
     _, v, g = ef.fit_step_plain(p0, opt, lt, *obs)
     assert float(st[fk.V]) == pytest.approx(float(v), rel=KEF_LOSS_RTOL,
                                             abs=0)
-    model = fk.fit_step_model(loc, p0, c)
+    model = fk.fit_step_model(loc, p0, c, run.grid[:2])
     scale = model["scale"].cpu().numpy()
     g = g.cpu().numpy()
     bound = np.maximum(KEF_GRAD_RTOL * np.abs(g).max(),
-                       2 * np.finfo(np.float64).eps * loc.shape[1] * scale)
+                       2 * np.finfo(np.float64).eps * n * scale)
     assert np.all(np.abs(st[fk.GRAD].numpy() - g) <= bound)
     gk = st[fk.GRAD].to(cuda)
     ref_opt = sp.Adam(p0, 0.05)
@@ -1245,17 +1255,18 @@ def test_kef_step_matches_plain_step_and_model(cuda, case):
 
 @pytest.mark.parametrize("case", list(KEF_CASES))
 def test_kef_fit_matches_plain_fit_on_card(cuda, case):
-    """fit_context on the card through KE-F (one prep, one step launch an
-    Adam step, no plain step) against the plain step's fit on the card:
-    the rates within FLAT_RTOL and the plain loss at both fits' rates
-    within KEF_LOSS_AT_FIT_RTOL; a second run gives the same bits."""
+    """fit_context on the card through KE-F (one launch of its fit entry,
+    no prep launch, no plain step) against the plain step's fit on the
+    card: the rates within FLAT_RTOL and the plain loss at both fits'
+    rates within KEF_LOSS_AT_FIT_RTOL; a second run gives the same
+    bits."""
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import fit_kernels as fk
     cc = KEF_CASES[case]()
     lt = float(np.log(0.001))
     fk.reset()
     got = ef.fit_context(cc, lt, device=cuda)
-    assert fk.LAUNCHES == {"error_fit_prep": 1, "error_fit_step": 600}
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 1}
     assert not any(fk.PLAIN_ON_CUDA.values())
     again = ef.fit_context(cc, lt, device=cuda)
     want = ef.fit_context_plain(cc, lt, device=cuda)
@@ -1277,25 +1288,80 @@ def test_kef_fit_matches_plain_fit_on_card(cuda, case):
                                       abs=0)
 
 
-def test_kef_fit_bit_for_bit_with_the_model_on_card(cuda):
-    """A whole 600-step fit through KE-F keeps fit_model's best loss and
-    parameters bit for bit on the card (the step, Adam and the best-step
-    rule)."""
+@pytest.mark.parametrize("case", list(KEF_CASES))
+def test_kef_fit_bit_for_bit_with_the_model_on_card(cuda, case):
+    """A whole 600-step fit in one launch of KE-F's fit entry keeps
+    fit_model's state bit for bit on the card at the grid it used: the
+    best loss and parameters, the last parameters, Adam's moments and
+    the last step's loss and gradient."""
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import fit_kernels as fk
-    cc = KEF_CASES["smoke_size"]()
+    cc = KEF_CASES[case]()
     lt = float(np.log(0.001))
     obs, c = kef_inputs(cuda, cc, lt)
-    loc = fk.error_fit_prep(*obs, c)
-    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
-                      dtype=torch.float64, device=cuda)
-    bufs = fk.StepBuffers(loc, p0, c, 600)
-    for t in range(1, 601):
-        fk.error_fit_step(bufs, t)
-    st = bufs.state.cpu()
-    best_v, best_p, _ = fk.fit_model(loc, p0, c, 600)
+    p0 = kef_p0(cuda)
+    fk.reset()
+    run = fk.error_fit_run(*obs, p0, c, 600)
+    st = run.state.cpu()
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 1}
+    loc = ef.fit_prep_plain(*obs, lt)
+    best_v, best_p, losses, want = fk.fit_model(loc, p0, c, 600,
+                                                run.grid[:2])
     assert st[fk.BEST_V].item() == best_v
     assert same(st[fk.BEST_PARAMS], best_p)
+    assert same(st, want)
+    assert st[fk.V].item() == losses[-1].item()
+
+
+@pytest.mark.parametrize("refused", ["past_max_blocks",
+                                     "cluster_past_the_card"])
+def test_kef_refused_launch_raises(cuda, monkeypatch, refused):
+    """A fit entry whose grid cannot run raises and counts nothing; the
+    plain step never runs in its place: more blocks than the entry's
+    limit (as a card that kept more resident would give; the C entry
+    refuses it), or the whole grid one thread-block cluster of 196
+    blocks, past the card's largest (cudaLaunchKernelEx refuses it)."""
+    from strelka_tpu_torch.models import error_fit as ef
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    lt = float(np.log(0.001))
+    if refused == "past_max_blocks":
+        cc = KEF_CASES["patterns_100k"]()
+        monkeypatch.setattr(fk, "resident_blocks",
+                            lambda dev: 2 * fk.MAX_BLOCKS)
+    else:
+        cc = KEF_CASES["patterns_50k"]()
+        monkeypatch.setattr(fk, "fit_grid", lambda n, resident: (
+            -(-n // fk.THREADS), 1, "cluster"))
+    fk.reset()
+    with pytest.raises(RuntimeError, match="error_fit_run launch failed"):
+        ef.fit_context(cc, lt, device=cuda)
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 0}
+    assert not any(fk.PLAIN_ON_CUDA.values())
+
+
+@pytest.mark.parametrize("case", ["smoke_size", "cluster_16"])
+def test_kef_relaunch_and_grid_regime_keep_the_bits(cuda, case):
+    """A FitRun launched again after reset() gives its first fit's bits,
+    also after the observations it was made from are dropped and their
+    memory written over (it holds them); the grid regime's cooperative
+    launch and counter barrier on the cluster regime's grid gives the
+    same bits (the same sums in the same order)."""
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    cc = KEF_CASES[case]()
+    obs, c = kef_inputs(cuda, cc, float(np.log(0.001)))
+    p0 = kef_p0(cuda)
+    run = fk.FitRun(*(o.clone() for o in obs), p0, c, 600)
+    assert run.grid[2] == "cluster"
+    run.launch()
+    first = run.state.clone()
+    junk = [torch.full_like(o, float("nan")) for o in obs for _ in range(4)]
+    run.reset()
+    run.launch()
+    assert same(run.state, first)
+    other = fk.FitRun(*obs, p0, c, 600, grid=(*run.grid[:2], "grid"))
+    other.launch()
+    assert same(other.state, first)
+    del junk
 
 
 @pytest.mark.parametrize("name", ["fit_indel_indy",

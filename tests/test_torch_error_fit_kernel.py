@@ -1,10 +1,11 @@
 """KE-F's arithmetic (strelka_tpu_torch/ops/fit_kernels.py: the torch
 model of csrc/error_fit_step.cu) against the JAX package's fit on the
 CPU, on counts from tests/test_torch_error_fit.py's seeded generator,
-and the dispatch of models/error_fit.fit_context (the plain step on the
-CPU, KE-F elsewhere, no fallback). The kernel itself runs on a card
-only: tests/test_torch_cuda.py holds it against this model and the plain
-step there.
+the fit entry's grid (fit_grid) and host operands (FitRun), and the
+dispatch of models/error_fit.fit_context (the plain step on the CPU,
+KE-F's fit entry elsewhere, no fallback). The kernel itself runs on a
+card only: tests/test_torch_cuda.py holds it against this model and the
+plain step there.
 
 Bounds, tests/test_torch_error_fit.py's and the reason beside each:
 - the loss within LOSS_RTOL: the per-locus values are the plain
@@ -235,7 +236,7 @@ def test_model_fit_matches_jax(case):
     loc = tef.fit_prep_plain(*host(tc), lt)
     p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
                       dtype=torch.float64)
-    _, p, losses = fk.fit_model(loc, p0, consts(lt), 600)
+    _, p, losses, _ = fk.fit_model(loc, p0, consts(lt), 600)
     assert losses.shape == (600,) and bool(torch.isfinite(losses).all())
     li = float(tef._rate_smoother(p[0], tef.MAX_LOG_RATE))
     ld = float(tef._rate_smoother(p[1], tef.MAX_LOG_RATE))
@@ -257,18 +258,18 @@ def test_model_fit_matches_jax(case):
 
 
 def test_grid_sum_order_and_grids():
-    """step_grid covers N with at most MAX_BLOCKS blocks and no empty
+    """fit_grid covers N with at most MAX_BLOCKS blocks and no empty
     block; grid_sum's partials add to its totals in block order and
     stay within a sum's rounding bound of the exact sums, at one locus a
     thread and at several (the 50,000-pattern size and past it)."""
     for n in (1, 255, 256, 257, 50_000, fk.THREADS * fk.MAX_BLOCKS + 1,
               10**6):
-        blocks, per = fk.step_grid(n)
+        blocks, per, _ = fk.fit_grid(n)
         assert blocks * per * fk.THREADS >= n > (blocks - 1) * per * \
             fk.THREADS
         assert blocks <= fk.MAX_BLOCKS
     rng = np.random.default_rng(3)
-    for n, grid in ((700, fk.step_grid(700)), (5000, (3, 7))):
+    for n, grid in ((700, fk.fit_grid(700)[:2]), (5000, (3, 7))):
         x = rng.normal(size=(2, n)) * np.exp(rng.normal(0, 4, (2, n)))
         tot, part = fk.grid_sum(torch.from_numpy(x), *grid)
         assert part.shape == (grid[0], 2)
@@ -308,13 +309,14 @@ def test_cpu_fit_never_reaches_the_wrapper(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a CPU fit reached KE-F's wrapper")
     monkeypatch.setattr(fk, "error_fit_prep", boom)
-    monkeypatch.setattr(fk, "error_fit_step", boom)
+    monkeypatch.setattr(fk, "error_fit_run", boom)
+    monkeypatch.setattr(fk, "FitRun", boom)
     fk.reset()
     rng = np.random.default_rng(7)
     _, tc = both_counts(rng, 200, 20, 1e-2, 1.0)
     got = tef.fit_context(tc, -6.0, n_steps=25, device="cpu")
     assert got.acceptable
-    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_step": 0}
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 0}
     assert fk.PLAIN_ON_CUDA == {"error_fit_prep": 0, "error_fit_step": 0}
 
 
@@ -328,6 +330,7 @@ def test_device_fit_without_a_built_kernel_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(tef.devmod, "resolve",
                         lambda device=None: torch.device("meta"))
     monkeypatch.setattr(fk, "_BOUND", {})
+    monkeypatch.setattr(fk, "_RESIDENT", {})
     from strelka_tpu_torch import _build
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
@@ -340,34 +343,193 @@ def test_device_fit_without_a_built_kernel_raises(monkeypatch, tmp_path):
         tef.fit_context(tc, -6.0, n_steps=5, device="cuda")
     assert not calls
     assert tef.FIT_STATS == before
-    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_step": 0}
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 0}
 
 
-def test_wrappers_reject_what_the_kernel_does_not_take():
+def test_wrappers_reject_what_the_kernel_does_not_take(monkeypatch):
+    """The prep and fit wrappers raise on what the kernel does not take
+    before any build: a wrong dtype, shape or layout, N = 0, too few
+    constants, n_steps < 1."""
+    def boom(*a, **k):
+        raise AssertionError("a rejected call reached the build")
+    monkeypatch.setattr(fk, "function", boom)
     _, tc = edge_counts()
     ref, alt, inst = host(tc)
     c = consts()
     fk.reset()
-    with pytest.raises(ValueError, match="float64"):
-        fk.error_fit_prep(ref, alt.float(), inst, c)
-    with pytest.raises(ValueError, match="shape"):
-        fk.error_fit_prep(ref, alt[:, :5].contiguous(), inst, c)
-    with pytest.raises(ValueError, match="contiguous"):
-        fk.error_fit_prep(ref, alt.T.contiguous().T, inst, c)
-    with pytest.raises(ValueError, match="constants"):
-        fk.error_fit_prep(ref, alt, inst, c[:-1])
-    loc = tef.fit_prep_plain(ref, alt, inst, LT)
     p0 = torch.zeros(3, dtype=torch.float64)
-    bufs = fk.StepBuffers(loc, p0, c, 4)
-    for t in (0, 5):
-        with pytest.raises(ValueError, match="step"):
-            fk.error_fit_step(bufs, t)
-    with pytest.raises(ValueError, match="loc"):
-        fk.StepBuffers(loc[:11], p0, c, 4)
-    with pytest.raises(ValueError, match="float64"):
-        fk.StepBuffers(loc.float(), p0, c, 4)
-    with pytest.raises(ValueError, match="contiguous"):
-        fk.StepBuffers(loc.T.contiguous().T, p0, c, 4)
-    with pytest.raises(ValueError, match="constants"):
-        fk.StepBuffers(loc, p0, c[:-1], 4)
-    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_step": 0}
+    for call in (fk.error_fit_prep,
+                 lambda r, a, i, k: fk.FitRun(r, a, i, p0, k, 4)):
+        with pytest.raises(ValueError, match="float64"):
+            call(ref, alt.float(), inst, c)
+        with pytest.raises(ValueError, match="shape"):
+            call(ref, alt[:, :5].contiguous(), inst, c)
+        with pytest.raises(ValueError, match="shape"):
+            call(ref, alt, inst[:-1].contiguous(), c)
+        with pytest.raises(ValueError, match="contiguous"):
+            call(ref, alt.T.contiguous().T, inst, c)
+        with pytest.raises(ValueError, match="N >= 1"):
+            call(ref[:0], alt[:0], inst[:0], c)
+        with pytest.raises(ValueError, match="N >= 1"):
+            call(ref[:, None], alt, inst, c)
+        with pytest.raises(ValueError, match="constants"):
+            call(ref, alt, inst, c[:-1])
+    for n_steps in (0, -1):
+        with pytest.raises(ValueError, match="n_steps"):
+            fk.error_fit_run(ref, alt, inst, p0, c, n_steps)
+    assert fk.LAUNCHES == {"error_fit_prep": 0, "error_fit_run": 0}
+
+
+@pytest.mark.parametrize("grid,ok", [
+    ((2, 1, "grid"), True), ((2, 1, "cluster"), True),
+    ((20, 1, "cluster"), True), ((1, 5, "global"), True),
+    ((1, 1, "cluster"), False), ((2, 5, "grid"), False),
+    ((2, 1, "global"), False), ((fk.MAX_BLOCKS + 1, 1, "grid"), True),
+    ((0, 1, "grid"), False), ((2, 1, "tiles"), False)])
+def test_fit_run_takes_a_grid(monkeypatch, grid, ok):
+    """FitRun with a grid in place of fit_grid's (to measure a regime, or
+    to have the card refuse one) on 300 loci, with no build or card
+    query: one that covers the loci in a regime of the entry ("global"
+    just past ON_CHIP_PER loci a thread) binds with its cluster flag and
+    buffers; any other raises. More than MAX_BLOCKS blocks, or a grid
+    that the card cannot place, is the launch's to refuse."""
+    def boom(*a, **k):
+        raise AssertionError("FitRun with a grid asked the card")
+    monkeypatch.setattr(fk, "function", boom)
+    monkeypatch.setattr(fk, "resident_blocks", boom)
+    tc = fk.synthetic_counts(4, 900, 200)
+    ref, alt, inst = (x[:300].contiguous() for x in host(tc))
+    p0 = torch.zeros(3, dtype=torch.float64)
+    if not ok:
+        with pytest.raises(ValueError, match="grid"):
+            fk.FitRun(ref, alt, inst, p0, consts(), 3, grid=grid)
+        return
+    run = fk.FitRun(ref, alt, inst, p0, consts(), 3, grid=grid)
+    blocks, per, regime = grid
+    assert run.grid == grid
+    assert run._args[4:8] == [blocks, per, 3, int(regime == "cluster")]
+    assert (run.partials is None) == (regime == "cluster")
+    assert (run.loc is None) == (regime != "global")
+
+
+# fit_grid's edge sizes on a card of `resident` blocks: one locus a
+# thread, a cluster up to CLUSTER_MAX blocks, the on-chip limit
+# (resident * THREADS * ON_CHIP_PER) and past it
+def _edges(resident):
+    limit = resident * fk.THREADS * fk.ON_CHIP_PER
+    return [(resident, n) for n in (1, 255, 256, 257, fk.THREADS * 16,
+                                    fk.THREADS * 16 + 1, limit - 1, limit,
+                                    limit + 1, 10**6)]
+
+
+@pytest.mark.parametrize("resident,n", _edges(fk.MAX_BLOCKS) + _edges(132))
+def test_fit_grid_edges(resident, n):
+    """fit_grid covers n (blocks * per * 256 >= n) with no empty block
+    and at most `resident` blocks, at the fewest loci a thread that
+    allows; its regime: a cluster up to CLUSTER_MAX blocks, the loci on
+    chip up to ON_CHIP_PER a thread (n up to the limit), else global."""
+    blocks, per, regime = fk.fit_grid(n, resident)
+    t = fk.THREADS
+    assert blocks * per * t >= n > (blocks - 1) * per * t
+    assert blocks <= resident
+    assert per == max(1, -(-n // (t * resident)))
+    limit = resident * t * fk.ON_CHIP_PER
+    want = ("global" if n > limit else
+            "cluster" if blocks <= fk.CLUSTER_MAX else "grid")
+    assert regime == want
+    if n <= t * fk.CLUSTER_MAX:
+        assert (blocks, per, regime) == (-(-n // t), 1, "cluster")
+
+
+def synthetic_both(seed, n, ref_max):
+    """(jax counts, torch counts) of fit_kernels.synthetic_counts' seeded
+    loci, deduplicated by both packages."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, ref_max, n)
+    alt = rng.poisson(rng.choice([0.3, 2.0, 6.0], (n, 1)), (n, 6))
+    return jef.dedupe_counts(ref, alt), tef.dedupe_counts(ref, alt)
+
+
+@pytest.mark.parametrize("n,ref_max,resident", [(1500, 60, 1),
+                                                (1500, 60, 2),
+                                                (3000, 100, 2)])
+def test_fit_model_on_fit_grid_matches_jax(n, ref_max, resident):
+    """A 600-step fit through fit_model on fit_grid(N, resident) for a
+    card of one or two resident blocks (several loci a thread, on chip
+    and past it: the orders of large contexts on the H100) on 1,423 and
+    2,830 seeded patterns against the JAX package's fit_context, within
+    RATE_RTOL (test_model_fit_matches_jax's sharp bound: these optima are
+    sharp); the state holds the best step and the last."""
+    jc, tc = synthetic_both(5, n, ref_max)
+    lt = float(np.log(0.001))
+    want = jef.fit_context(jc, lt)
+    loc = tef.fit_prep_plain(*host(tc), lt)
+    grid = fk.fit_grid(loc.shape[1], resident)
+    assert grid[1] > 1
+    p0 = torch.tensor([np.log(1e-3), np.log(1e-3), np.log(0.5)],
+                      dtype=torch.float64)
+    best_v, p, losses, state = fk.fit_model(loc, p0, consts(lt), 600,
+                                            grid[:2])
+    assert float(state[fk.BEST_V]) == best_v == float(losses.min())
+    assert torch.equal(state[fk.BEST_PARAMS], p)
+    assert float(state[fk.V]) == float(losses[-1])
+    li = float(tef._rate_smoother(p[0], tef.MAX_LOG_RATE))
+    ld = float(tef._rate_smoother(p[1], tef.MAX_LOG_RATE))
+    ln = float(tef._rate_smoother(p[2], tef.MAX_LOG_LOCUS_RATE))
+    got = dict(log_error_rate=(li + ld) / 2.0, log_noisy_locus_rate=ln,
+               log_insert_rate=li, log_delete_rate=ld)
+    for f in RATES:
+        assert got[f] == pytest.approx(getattr(want, f), rel=RATE_RTOL,
+                                       abs=0), f
+
+
+@pytest.mark.parametrize("n,resident,regime", [
+    (300, fk.MAX_BLOCKS, "cluster"), (5000, fk.MAX_BLOCKS, "grid"),
+    (1300, 1, "global")])
+def test_fit_run_operands_by_regime(monkeypatch, n, resident, regime):
+    """FitRun's host side, on CPU tensors with the card's parts stubbed:
+    the grid from fit_grid(N, resident_blocks), the start parameters and
+    zero moments, the bias table of Python's ** and the barrier's zero
+    counters in one buffer, the partials past the cluster regime and loc
+    in the global regime; each launch passes them to the C entry in its
+    argument order (the cluster flag by the regime); it holds the
+    observations, and reset() puts the start back."""
+    monkeypatch.setattr(fk, "resident_blocks", lambda dev: resident)
+    launched = []
+    monkeypatch.setattr(fk, "_launch",
+                        lambda name, dev, args: launched.append((name, args)))
+    tc = fk.synthetic_counts(4, 3 * n, 200)
+    ref, alt, inst = (x[:n].contiguous() for x in host(tc))
+    c = consts()
+    p0 = torch.tensor([-5.0, -6.0, -1.0], dtype=torch.float64)
+    run = fk.error_fit_run(ref, alt, inst, p0, c, 7)
+    blocks, per, got = run.grid
+    assert (got, run.grid) == (regime, fk.fit_grid(n, resident))
+    assert torch.equal(run.state[fk.PARAMS], p0)
+    assert not run.state[3:].any()
+    b1, b2 = c[fk.CONSTS.index("b1")], c[fk.CONSTS.index("b2")]
+    bias = run._io[fk.STATE:fk.STATE + 14].view(7, 2)
+    assert bias.tolist() == [[1 - b1 ** t, 1 - b2 ** t] for t in range(1, 8)]
+    assert run._io[-1].item() == 0.0
+    assert (run.partials is None) == (regime == "cluster")
+    if run.partials is not None:
+        assert run.partials.shape == (2, blocks, fk.SUMS)
+    assert (run.loc is None) == (regime != "global")
+    if run.loc is not None:
+        assert run.loc.shape == (len(fk.ROWS), n)
+    run.launch()
+    assert [name for name, _ in launched] == ["error_fit_run"] * 2
+    args = launched[0][1]
+    assert args[:8] == [ref.data_ptr(), alt.data_ptr(), inst.data_ptr(), n,
+                        blocks, per, 7, int(regime == "cluster")]
+    assert list(args[8]) == [float(x) for x in c]
+    assert all(a is b for a, b in zip(run._obs, (ref, alt, inst)))
+    start = run._io.clone()
+    run._io.normal_()
+    run.reset()
+    assert torch.equal(run._io, start)
+    assert args[9:] == [bias.data_ptr(), run.state.data_ptr(),
+                        None if run.loc is None else run.loc.data_ptr(),
+                        None if run.partials is None
+                        else run.partials.data_ptr(),
+                        run._io[-1:].data_ptr()]
