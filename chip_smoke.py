@@ -165,16 +165,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 15. error estimation: germline --estimate-sequence-error on phase 4's
    contig's first CONT_MB Mb, cuda then cpu: the allele counts' npz
    arrays equal, the model's rates within ERR_FLAT_RTOL, every record
-   equal, K1's launches counted on the cuda run; then tools
-   estimate-parameters <npz> indelIndy, cuda against cpu within
-   ERR_FIT_RTOL, on three of the counts' contexts. The cuda run fits
+   equal, K1's launches counted on the cuda run (phase 15c runs tools
+   estimate-parameters on three of the counts' contexts). The cuda run fits
    through KE-F's fit entry (csrc/error_fit_step.cu): launched once a
    fit, its prep entry and the plain step no time, and a torch.profiler
    trace of a short fit holding one kernel launch. It logs the
    counting's host wall, the fit's wall, Adam steps, each context's
    pattern count, launches a fit (the trace), stream ms, each run's
-   wall, and the zoo's fit behind estimate-parameters (kernels, copies
-   and device ms a step, traced);
+   wall, and the zoo's plain fit on the card (indelIndy's autograd
+   fit, KZ's before-number: kernels, copies and device ms a step,
+   traced);
 15b. KE-F on the first two contexts that phase 15's cuda run fitted
    (kept as the CLI made them, StreamTimer.kept) and on a seeded
    synthetic context of over 100,000 patterns (the grid regime): the
@@ -196,6 +196,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step) as a graph of a whole fit's 600 launches after a reset of its
    state, in turns with the fit entry's ms a step, and its 600 launches
    from the host; the prep timed as before.
+15c. tools estimate-parameters on three of phase 15's counts' contexts
+   for each model name that fits on the device (ZOO_NAMES: indelIndy,
+   indelBinomialMixture, indelBetaBinomial*, indelIndyNoOverlap*,
+   indelBinomialMixtureNoOverlap*), cuda then cpu (the binomial
+   mixtures' cpu side on the first context, for the time), the
+   counters set to 0 just before each run and read just after: on cuda
+   KZ (csrc/error_zoo_fit.cu) launched once a context and start, its
+   plain version and every other kernel no time; every record's field
+   within ERR_FIT_RTOL of the cpu's. Then KZ's kernels alone: each
+   family's fit start bit for bit with zoo_kernels.zoo_fit_model on the
+   three contexts and the KEF_SYNTHETIC context (the grid regime; its
+   own steps on the first context, ZOO_CHECK_STEPS past it),
+   timed on the first and the synthetic one from its start (ms a fit, us
+   a step) with its bound (zoo_kernels.fit_work), chain floor (the
+   kernel on one locus), registers and regime, one launch traced and a
+   whole fit traced (one launch a start); KZ-4's, KZ-3's and KZ-B's
+   kernels-line families (indy, indy_noovl, beta_binomial) also against
+   the plain version on the card (ERR_FIT_RTOL) and timed there.
 Phases 12-15 log each run's size, wall and stream ms by device phase.
 16. denovo: per-sample mode on phase 10's gVCFs (sample 1 the proband)
    and multi-sample mode on its variants.vcf.gz (host code): every input
@@ -2185,11 +2203,11 @@ def entry_registers(report: dict, kernel: str) -> int:
 
 
 def ptxas_report() -> dict:
-    """KG-H's, KG-SB's, KG-R's, KS-G's, KS-P's and KE-F's registers and spills
-    (nvcc -Xptxas -v on their sources, the build's flags; a source's the
-    most of its kernels) and the FP64 SASS instructions (D* ops, by
-    cuobjdump) of one call of exp, log, log1p and a division, from a
-    probe built the same way: seven nvcc at once, the first call only."""
+    """KG-H's, KG-SB's, KG-R's, KS-G's, KS-P's, KE-F's and KZ's registers
+    and spills (nvcc -Xptxas -v on their sources, the build's flags; a
+    source's the most of its kernels) and the FP64 SASS instructions (D*
+    ops, by cuobjdump) of one call of exp, log, log1p and a division, from
+    a probe built the same way: eight nvcc at once, the first call only."""
     if _PTXAS:
         return _PTXAS
     import re
@@ -2201,7 +2219,8 @@ def ptxas_report() -> dict:
         f.write(FP64_PROBE)
     srcs = {k: os.path.join(_build.CSRC, f"{k}.cu")
             for k in ("snv_hist_tile", "snv_strand_bias", "snv_rna_tile",
-                      "somatic_grid", "somatic_posterior", "error_fit_step")}
+                      "somatic_grid", "somatic_posterior", "error_fit_step",
+                      "error_zoo_fit")}
     srcs["fp64_probe"] = probe
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",
                                                        "-Xcompiler",
@@ -2724,7 +2743,8 @@ def launches_during(fn):
     after: (fn's result, the wall s, {"k1", "k1h", "k1h_simt", "kx",
     "score", "snv", "somatic", "snv_kernels", "snv_plain"} in the layout
     of the workers' STRELKA_TPU_LAUNCH_STATS dumps, and "fit_kernels",
-    "fit_plain" (KE-F's entries and their plain versions) and
+    "fit_plain" (KE-F's entries and their plain versions), "zoo_kernels",
+    "zoo_plain" (KZ's kernels and the autograd fits on the card) and
     "host_hist": the (qscore, base) histograms counted on the host
     meanwhile, which the dumps do not hold)."""
     from strelka_tpu_torch.models import snv_digt as sd
@@ -2733,6 +2753,7 @@ def launches_during(fn):
     from strelka_tpu_torch.ops import score_variants as sv
     from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.ops import snv_kernels as snk
+    from strelka_tpu_torch.ops import zoo_kernels as zk
     from strelka_tpu_torch.pipeline import realign_batch as rb
     sk.LAUNCHES = 0
     sk.LAUNCHES_HIGHEST = 0
@@ -2743,6 +2764,7 @@ def launches_during(fn):
     ss.LAUNCH_STATS.clear()
     snk.reset()
     fk.reset()
+    zk.reset()
     rb.LAUNCH_STATS = {}
     # the host's (qscore, base) histograms, which a card path counts on
     # the card instead
@@ -2769,6 +2791,8 @@ def launches_during(fn):
                   "snv_plain": dict(snk.PLAIN_ON_CUDA),
                   "fit_kernels": dict(fk.LAUNCHES),
                   "fit_plain": dict(fk.PLAIN_ON_CUDA),
+                  "zoo_kernels": dict(zk.LAUNCHES),
+                  "zoo_plain": dict(zk.PLAIN_ON_CUDA),
                   "host_hist": host_hist[0]}
         rb.LAUNCH_STATS = None
     return out, wall, counts
@@ -3367,21 +3391,23 @@ def fit_launches_per_fit(torch, ef, cc, log_theta, steps=20) -> dict:
 
 
 def zoo_step_profile(torch, ez, cc, steps=(20, 40)) -> dict:
-    """The zoo's fit behind tools estimate-parameters' indelIndy
-    (error_zoo.fit_indel_indy) on the card, a step's device work: the
-    kernels, copies and device ms that torch.profiler traces in fits of
-    steps[0] and steps[1] Adam steps, their difference over the steps
-    between (the fit's set-up and its last loss cancel)."""
+    """The plain version of the zoo's fit behind tools
+    estimate-parameters' indelIndy (error_zoo.fit_indel_indy with
+    plain=True: the autograd fit, KZ's before-number) on the card, a
+    step's device work: the kernels, copies and device ms that
+    torch.profiler traces in fits of steps[0] and steps[1] Adam steps,
+    their difference over the steps between (the fit's set-up and its
+    last loss cancel)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
-    ez.fit_indel_indy(cc, steps=steps[0], device="cuda")
+    ez.fit_indel_indy(cc, steps=steps[0], device="cuda", plain=True)
     torch.cuda.synchronize()
     seen = []
     for n in steps:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ez.fit_indel_indy(cc, steps=n, device="cuda")
+            ez.fit_indel_indy(cc, steps=n, device="cuda", plain=True)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = [(e.name(), e.duration_ns()) for e in
@@ -3392,7 +3418,8 @@ def zoo_step_profile(torch, ez, cc, steps=(20, 40)) -> dict:
                      sum(d for _, d in ev) / 1e6, wall))
     k = steps[1] - steps[0]
     (k0, c0, ms0, w0), (k1, c1, ms1, w1) = seen
-    return {"fit": "error_zoo.fit_indel_indy", "patterns": len(cc.ref_obs),
+    return {"fit": "error_zoo.fit_indel_indy(plain=True)",
+            "patterns": len(cc.ref_obs),
             "steps": list(steps), "kernels_per_step": (k1 - k0) / k,
             "copies_per_step": (c1 - c0) / k,
             "device_ms_per_step": (ms1 - ms0) / k,
@@ -3415,9 +3442,10 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     """Phase 15: germline --estimate-sequence-error, cuda then cpu (the
     launch counters set to 0 just before the cuda run and read just
     after); the counts' npz arrays equal, the model's rates within
-    ERR_FLAT_RTOL, every record equal; then tools estimate-parameters on
-    ERR_CONTEXTS of the counts, cuda against cpu within ERR_FIT_RTOL.
-    Returns the cuda run's launch counts."""
+    ERR_FLAT_RTOL, every record equal; KE-F's launches a fit traced, and
+    the zoo's plain fit a step traced (zoo_step_profile). Returns the cuda
+    run's launch counts, its first fitted contexts (phase 15b's) and
+    ERR_CONTEXTS of the counts [(key, counts)] (phase 15c's)."""
     from strelka_tpu_torch.__main__ import main as torch_main
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import score_kernel as sk
@@ -3492,12 +3520,7 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
             outs["cuda"], outs["cpu"], ("variants.vcf.gz",
                                         "genome.S1.vcf.gz"),
             "error estimation: cuda against cpu")
-    # tools estimate-parameters on ERR_CONTEXTS of the counts, each
-    # device's JSON from its stdout
     full = ac.load_context_counts(os.path.join(outs[devices[0]], npz))
-    sub = os.path.join(workdir, "error_contexts.npz")
-    ac.save_context_counts(sub, {k: full[k] for k in ERR_CONTEXTS
-                                 if k in full})
     if cuda:
         from strelka_tpu_torch.models import error_zoo as ez
         row["fit_launches"] = fit_launches_per_fit(
@@ -3507,32 +3530,8 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
             fail(f"phase 15: a fit's trace holds {per_fit} kernel launches, "
                  f"not 1")
         row["zoo_step"] = zoo_step_profile(torch, ez, full[(1, 1)])
-    est = {}
-    for device in devices:
-        t0 = time.perf_counter()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = torch_main(["tools", "estimate-parameters", sub,
-                             "indelIndy", "--device", device])
-        if rc != 0:
-            fail(f"tools estimate-parameters --device {device} exited {rc}")
-        est[device] = json.loads(buf.getvalue())
-        row[f"estimate_parameters_{device}_wall_s"] = (
-            time.perf_counter() - t0)
-    if cuda:
-        worst = 0.0
-        if list(est["cuda"]) != list(est["cpu"]):
-            fail("phase 15: estimate-parameters contexts differ")
-        for ctx, want in est["cpu"].items():
-            for k, v in want.items():
-                worst = max(worst, abs(est["cuda"][ctx][k] - v) / abs(v))
-        if worst > ERR_FIT_RTOL:
-            fail(f"phase 15: estimate-parameters differs by {worst:.3g} "
-                 f"relative, over {ERR_FIT_RTOL}")
-        row["estimate_parameters_max_rel_diff"] = worst
-    row["estimate_parameters_contexts"] = len(est["cpu"])
     log("error: " + json.dumps(row))
-    return counts, kept
+    return counts, kept, [(k, full[k]) for k in ERR_CONTEXTS if k in full]
 
 
 def check_fit_kernels(counts, run) -> None:
@@ -3894,6 +3893,302 @@ def phase_fit_kernel(np, torch, dev, cuda: bool, kept, rehearse: bool,
     kef_context(np, torch, dev, cuda, "synthetic", cc, float(np.log(0.001)),
                 regs, parent, iters)
     return rows[0]
+
+
+# phase 15c: the model names of tools estimate-parameters that fit on the
+# device, by their ops/zoo_kernels family (indelModel1* is host numpy)
+ZOO_NAMES = {
+    "indelIndy": "indy",
+    "indelBinomialMixture": "binom_mixture",
+    "indelBetaBinomialInsert": "beta_binomial",
+    "indelBetaBinomialDelete": "beta_binomial",
+    "indelIndyNoOverlapInsert": "indy_noovl",
+    "indelIndyNoOverlapDelete": "indy_noovl",
+    "indelBinomialMixtureNoOverlapInsert": "binom_mixture_noovl",
+    "indelBinomialMixtureNoOverlapDelete": "binom_mixture_noovl"}
+# each family's fit (error_zoo's function, its insert flag if it takes one)
+# and its steps a start
+ZOO_FITS = {"indy": ("fit_indel_indy", (), 600),
+            "binom_mixture": ("fit_indel_binom_mixture", (), 1500),
+            "beta_binomial": ("fit_indel_beta_binomial", (True,), 600),
+            "indy_noovl": ("fit_indel_indy_noovl", (True,), 600),
+            "binom_mixture_noovl": ("fit_indel_binom_mixture_noovl", (True,),
+                                    1500)}
+# the family whose row a kernel's entry in the kernels line takes (its
+# family without a clean locus)
+ZOO_ROWS = {"KZ-4": "indy", "KZ-3": "indy_noovl", "KZ-B": "beta_binomial"}
+# the steps of phase 15c's bit checks with zoo_fit_model past the first
+# context (there a fit's own steps): the model runs a few hundred torch
+# ops a step on the card, about 5 ms on an H100, so full fits on every
+# context took 150 of the phase's 218 s
+ZOO_CHECK_STEPS = 60
+# the mangled template arguments of a KZ kernel's three regimes
+ZOO_REGIMES = (("cluster", "SyncE0ELb1E"), ("grid", "SyncE1ELb1E"),
+               ("global", "SyncE1ELb0E"))
+
+
+def merge_counts(counts):
+    """launches_during's counts of several runs, summed key by key."""
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            if isinstance(v, dict):
+                d = out.setdefault(k, {})
+                for kk, vv in v.items():
+                    d[kk] = d.get(kk, 0) + vv
+            else:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def zoo_tool(torch_main, path, name, device):
+    """tools estimate-parameters <path> <name> --device <device> in this
+    process, the launch counters set to 0 just before and read just
+    after: (its JSON from stdout, the wall s, the counts)."""
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return torch_main(["tools", "estimate-parameters", path, name,
+                               "--device", device])
+    rc, wall, counts = launches_during(run)
+    if rc != 0:
+        fail(f"tools estimate-parameters {name} --device {device} exited "
+             f"{rc}")
+    return json.loads(buf.getvalue()), wall, counts
+
+
+def zoo_registers(report, f) -> dict:
+    """A KZ kernel's registers by regime from ptxas_report's entries."""
+    name = {"KZ-4": "zoo_fit4_kernel", "KZ-3": "zoo_fit3_kernel",
+            "KZ-B": "zoo_fitb_kernel"}[f.kernel]
+    clean = "" if f.kernel == "KZ-B" else f"ILb{int(f.clean)}E"
+    out = {}
+    for regime, tail in ZOO_REGIMES:
+        hits = [v for k, v in report["registers_by_entry"].items()
+                if name + clean in k and tail in k]
+        out[regime] = hits[0] if len(hits) == 1 else None
+    return out
+
+
+def kz_context(np, torch, dev, cuda: bool, family, label, cc, regs,
+               timed: bool, plain: bool, check_steps=None) -> dict:
+    """Phase 15c's kernels alone on one context: a fit start of family's
+    KZ kernel (its first start, theta free, insertions) of check_steps
+    Adam steps (default the fit's own) bit for bit with zoo_fit_model on
+    the card at the kernel's grid; where `timed`, the fit of its own
+    steps timed from its start (ms a fit, us a step) with its bound
+    (zoo_kernels.fit_work), chain floor (the kernel on the context's most
+    frequent pattern), registers and regime, one launch traced and the
+    family's whole fit traced (one launch a start); where `plain`, the
+    family's fit through the kernel against the plain version's on the
+    card (the autograd fit, timed by host clock). Returns the row."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    f = zk.FAMILIES[family]
+    fn, args, steps = ZOO_FITS[family]
+    check = check_steps or steps
+    p = ez.IndelPatterns.build(cc, dev)
+    obs = (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2)
+    n = len(cc.ref_obs)
+    x0 = ez.fit_starts(family)[0]
+    c = ez.kernel_consts(family, False)
+    if cuda:
+        run = zk.ZooRun(family, obs, x0, c, check, False, True)
+        grid = run.grid
+        run.launch()
+        st = run.state.cpu()
+    else:
+        grid = fk.fit_grid(n, fk.MAX_BLOCKS, f.on_chip_per)
+    want, _ = zk.zoo_fit_model(family, obs, x0, c, check, False, True,
+                               grid=grid[:2])
+    info = {"family": family, "kernel": f.kernel, "case": label,
+            "patterns": n, "steps": steps, "checked_steps": check,
+            "grid": list(grid)}
+    if cuda:
+        info["model_same_bits"] = same_bits(torch, st, want)
+        if not info["model_same_bits"]:
+            fail(f"phase 15c {label}: {f.kernel}'s {family} fit differs "
+                 f"from zoo_fit_model's state on the card")
+    else:
+        st = want.cpu()
+    if not bool(torch.isfinite(st).all()):
+        fail(f"phase 15c {label}: {family}'s fit state is not finite")
+    at = zk.state_slots(f)
+    info["final_loss"] = float(st[at["final"]])
+    if not timed:
+        log(f"kz {family} {label}: " + json.dumps(info))
+        return info
+    large = 0
+    if f.kernel == "KZ-B":
+        # betaln's branch at the final parameters, a locus
+        r = zk._scalars(f, st[at["params"]], dict(zip(zk.CONSTS, c)), False)
+        k = p.alt_obs[:, :3].sum(dim=1).cpu()
+        large = int((torch.maximum(k + r["alpha"], p.ref_obs.cpu()
+                                   + r["beta"]) >= 8).sum())
+        info["betaln_algdiv_loci"] = large
+    nbytes, ops = zk.fit_work(family, n, steps, large)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F64_OPS_PER_S * 1e3
+    row = {"shape": [n, steps], "bytes": int(nbytes), "f32_ops": 0,
+           "f64_ops": int(ops), "library_ms": None,
+           "library_note": f"no PyTorch call computes it: a zoo model's "
+                           f"loss, its gradient and Adam, {steps} steps"}
+    row["bound_ms"], row["bound_by"] = ((tb, "bytes") if tb >= to
+                                        else (to, "operations"))
+    fit_args = (cc, *args)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        if check != steps:
+            run = zk.ZooRun(family, obs, x0, c, steps, False, True)
+        row["ms"] = row["device_ms"] = kef_fit_ms(torch, run)
+        row["device_ms_from"] = ("CUDA events around each of 5 launches of "
+                                 "the fit start, each from its start")
+        run.reset()
+        row["trace"] = profile_call(torch, run.launch)
+        fit_trace = profile_call(torch, lambda: getattr(ez, fn)(
+            *fit_args, device=dev))
+        starts = len(ez.fit_starts(family))
+        if fit_trace["launches"] != starts:
+            fail(f"phase 15c: a traced {family} fit holds "
+                 f"{fit_trace['launches']} launches, not {starts}")
+        row["fit_trace_launches"] = fit_trace["launches"]
+        m = int(np.argmax(cc.instance_count))
+        floor = zk.ZooRun(family, tuple(o[m:m + 1].contiguous()
+                                        for o in obs), x0, c, steps, False,
+                          True)
+        row["chain_floor_ms"] = kef_fit_ms(torch, floor)
+        row["chain_floor_share"] = row["chain_floor_ms"] / row["ms"]
+        row["registers"] = zoo_registers(regs, f)
+        row["spill_store_bytes"] = regs["spill_store_bytes"]
+        row["regime"] = grid[2]
+    else:
+        row["ms"] = time_ms(torch, cuda, lambda: zk.zoo_fit_model(
+            family, obs, x0, c, 2, False, True, grid=grid[:2]), 1,
+            warm=0) * steps / 2
+    row["device_us_a_step"] = row["ms"] * 1e3 / steps
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    device_share(row)
+    row["max_abs_err"] = 0.0
+    if plain:
+        t0 = time.perf_counter()
+        pfit = getattr(ez, fn)(*fit_args, device=dev, plain=True)
+        sync()
+        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        row["plain_ms_from"] = ("host clock around the plain fit on the "
+                                "card (plain=True, every start), "
+                                "synchronized")
+        kfit = getattr(ez, fn)(*fit_args, device=dev)
+        rel = {k: abs(kfit[k] - v) / abs(v) for k, v in pfit.items()}
+        row["plain_max_rel_diff_by_field"] = rel
+        row["max_abs_err"] = max(abs(kfit[k] - v) for k, v in pfit.items())
+        if max(rel.values()) > ERR_FIT_RTOL:
+            fail(f"phase 15c {label}: the {family} fit through "
+                 f"{f.kernel} is off the plain version's: {rel}")
+    row.update(info)
+    log(f"kz {family} {label}: " + json.dumps(row))
+    return row
+
+
+def phase_zoo(np, torch, dev, cuda: bool, ctxs, workdir, rehearse: bool):
+    """Phase 15c: tools estimate-parameters on phase 15's contexts
+    (ctxs, ERR_CONTEXTS of its counts) for each model name that fits on
+    the device (ZOO_NAMES), cuda then cpu, the launch counters set to 0
+    just before each run and read just after: on cuda KZ's kernel
+    launched once a context and start, no other kernel and no plain fit;
+    the records equal in contexts and keys and every field within
+    ERR_FIT_RTOL of the cpu's (the binomial mixtures' cpu side on the
+    first context alone, for the time). Then KZ's kernels alone
+    (kz_context): each family on the three contexts and on the
+    KEF_SYNTHETIC context, bit for bit with zoo_fit_model, timed on the
+    first context and the synthetic one (the bit checks past the first
+    context of ZOO_CHECK_STEPS steps), the kernels line's families
+    against the plain version. Returns (the cuda runs' counts summed, the
+    kernels line's rows by kernel)."""
+    from strelka_tpu_torch.__main__ import main as torch_main
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    from strelka_tpu_torch.pipeline import allele_counts as ac
+    if not ctxs:
+        fail("phase 15c: phase 15 counted none of ERR_CONTEXTS")
+    sub = os.path.join(workdir, "error_contexts.npz")
+    ac.save_context_counts(sub, dict(ctxs))
+    sub1 = os.path.join(workdir, "error_context_first.npz")
+    ac.save_context_counts(sub1, dict(ctxs[:1]))
+    row = {"contexts": [list(k) for k, _ in ctxs],
+           "patterns": [len(cc.ref_obs) for _, cc in ctxs], "names": {}}
+    devices = ["cuda", "cpu"] if cuda else ["cpu"]
+    path_counts = []
+    for name, family in ZOO_NAMES.items():
+        f = zk.FAMILIES[family]
+        starts = len(ez.fit_starts(family))
+        info = {"family": family, "kernel": f.kernel, "starts": starts}
+        est = {}
+        for device in devices:
+            path = sub1 if device == "cpu" and starts > 1 else sub
+            est[device], wall, c = zoo_tool(torch_main, path, name, device)
+            info[f"{device}_wall_s"] = wall
+            info[f"{device}_contexts"] = len(est[device])
+            if device != devices[0]:
+                continue
+            path_counts.append(c)
+            check_path_launches(f"estimate-parameters {name}", c, cuda,
+                                k1_expected=False)
+            if (any(c["snv_kernels"].values())
+                    or any(c["fit_kernels"].values())):
+                fail(f"phase 15c: estimate-parameters {name} launched "
+                     f"{c['snv_kernels']} {c['fit_kernels']}")
+            if cuda:
+                want = {k: (len(ctxs) * starts if k == f.kernel else 0)
+                        for k in zk.LAUNCHES}
+                if c["zoo_kernels"] != want:
+                    fail(f"phase 15c: estimate-parameters {name} launched "
+                         f"{c['zoo_kernels']}, its fits need {want}")
+                if any(c["zoo_plain"].values()):
+                    fail(f"phase 15c: estimate-parameters {name} ran the "
+                         f"plain fit on the card: {c['zoo_plain']}")
+                info["launches"] = c["zoo_kernels"][f.kernel]
+        if cuda:
+            worst: dict = {}
+            for ctx, want in est["cpu"].items():
+                got = est["cuda"].get(ctx)
+                if got is None or list(got) != list(want):
+                    fail(f"phase 15c: estimate-parameters {name}'s {ctx} "
+                         f"differs in its keys, cuda against cpu")
+                for k, v in want.items():
+                    worst[k] = max(worst.get(k, 0.0),
+                                   abs(got[k] - v) / abs(v))
+            bad = {k: w for k, w in worst.items() if w > ERR_FIT_RTOL}
+            if bad:
+                fail(f"phase 15c: estimate-parameters {name} differs, cuda "
+                     f"against cpu, over {ERR_FIT_RTOL}: {bad}")
+            info["max_rel_diff_by_field"] = worst
+        row["names"][name] = info
+        log(f"zoo {name}: " + json.dumps(info))
+    regs = ptxas_report()["error_zoo_fit"] if cuda else None
+    seed, n, ref_max = KEF_SYNTHETIC
+    if rehearse:
+        n, ref_max = 5000, 50
+    syn = fk.synthetic_counts(seed, n, ref_max)
+    if not rehearse and len(syn.ref_obs) < 100_000:
+        fail(f"phase 15c: the synthetic context has {len(syn.ref_obs)} "
+             f"patterns, under 100,000")
+    cases = [(f"phase 15 context {k[0]},{k[1]}", cc) for k, cc in ctxs]
+    cases.append(("synthetic", syn))
+    rows = {}
+    for family in ZOO_FITS:
+        for i, (label, cc) in enumerate(cases):
+            first = i == 0
+            r = kz_context(np, torch, dev, cuda, family, label, cc, regs,
+                           first or label == "synthetic",
+                           first and family in ZOO_ROWS.values(),
+                           None if first else ZOO_CHECK_STEPS)
+            if first and family in ZOO_ROWS.values():
+                rows[zk.FAMILIES[family].kernel] = r
+    log("zoo: " + json.dumps(row))
+    return merge_counts(path_counts), rows
 
 
 NOISE_MB = 0.4     # phase 17's span: the panel's normals and the --region
@@ -4604,9 +4899,9 @@ def main(argv=None) -> int:
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
         "tools estimate-parameters")
     t0 = time.perf_counter()
-    error, kept15 = phase_error(np, torch, cuda, fa, bam, n_reads, cont_mb,
-                                workdir, [*base_args, "--region", region,
-                                          "--estimate-sequence-error"])
+    error, kept15, ctxs15 = phase_error(
+        np, torch, cuda, fa, bam, n_reads, cont_mb, workdir,
+        [*base_args, "--region", region, "--estimate-sequence-error"])
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     log("== phase 15b: KE-F's fit entry on phase 15's first fits and a "
         "synthetic context vs fit_model and the plain step")
@@ -4616,6 +4911,13 @@ def main(argv=None) -> int:
         os.path.abspath(opts.parent_csrc) if opts.parent_csrc else None)
     del kept15
     log(f"phase 15b took {time.perf_counter() - t0:.1f} s")
+    log("== phase 15c: tools estimate-parameters' zoo fits, cuda then cpu; "
+        "KZ's kernels vs zoo_fit_model and the plain version")
+    t0 = time.perf_counter()
+    zoo_counts, zoo_rows = phase_zoo(np, torch, dev, cuda, ctxs15, workdir,
+                                     rehearse)
+    del ctxs15
+    log(f"phase 15c took {time.perf_counter() - t0:.1f} s")
 
     log("== phase 16: denovo on phase 10's trio, per-sample and "
         "multi-sample")
@@ -4649,7 +4951,8 @@ def main(argv=None) -> int:
              "germline_jobs": jobs_g, "somatic_jobs": jobs_s,
              "germline_joint": joint, "cram": cram, "germline_evs": evs,
              "germline_continuous": continuous, "germline_rna": rna,
-             "germline_error_estimation": error, **mesh_paths,
+             "germline_error_estimation": error,
+             "tools_estimate_parameters": zoo_counts, **mesh_paths,
              "simulators": sim_counts}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4843,6 +5146,44 @@ def main(argv=None) -> int:
                 "turns_ms_a_step", "prev_fit_ms_host_loop",
                 "cluster_ms_a_step", "grid_regime_ms_a_step",
                 "fit_entry_wall_s") if k in krow},
+        })
+    # KZ's three kernels: their launches on every path (tools
+    # estimate-parameters' alone), their rows from phase 15c at phase 15's
+    # first context
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    for name, family in ZOO_ROWS.items():
+        krow = zoo_rows[name]
+        by = {p: c.get("zoo_kernels", {}).get(name, 0)
+              for p, c in paths.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "strelka_tpu_torch/csrc/error_zoo_fit.cu",
+            "replaces": zk.REPLACES,
+            "launches": sum(by.values()),
+            "launches_by_path": by,
+            "max_abs_err": krow["max_abs_err"],
+            "tolerance": f"bit for bit with zoo_fit_model; against the "
+                         f"plain version every field {ERR_FIT_RTOL} "
+                         f"relative",
+            "family": family,
+            "shape": krow["shape"],
+            "ms": krow["ms"],
+            "device_ms": krow.get("device_ms"),
+            "plain_ms": krow["plain_ms"],
+            "library_ms": None,
+            "library_note": krow["library_note"],
+            "bound_ms": krow["bound_ms"],
+            "bound_by": krow["bound_by"],
+            "bound_share": krow["bound_share"],
+            "device_bound_share": krow.get("device_bound_share"),
+            "trace": krow.get("trace"),
+            **{k: krow[k] for k in (
+                "registers", "spill_store_bytes", "grid", "regime",
+                "patterns", "steps", "model_same_bits", "device_us_a_step",
+                "chain_floor_ms", "chain_floor_share", "fit_trace_launches",
+                "plain_ms_from", "plain_max_rel_diff_by_field",
+                "betaln_algdiv_loci") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

@@ -26,36 +26,17 @@
 //   memory, bit for bit with models/error_fit.fit_prep_plain (the tested
 //   form of the fit entry's prep; on no CLI path).
 //
-// The sum over loci runs in one fixed order with no float atomics:
-// thread t of block b adds the terms of loci (b * per + i) * 256 + t,
-// i = 0..per-1, from 0.0 (a locus past N adds +0.0); a warp folds its
-// lanes by xor shuffles (16, 8, 4, 2, 1); thread 0 adds the 8 warps' sums
-// in warp order into the block's partial; every block then adds all the
-// blocks' partials in block order and runs the scalar tail itself (the
-// rates' chains, smooth_grad, Adam and the next step's smoother, the
-// three parameters on three lanes of warp 0, then the best step and the
-// next step's rates), so every block holds the same bits and no second
-// barrier broadcasts the parameters. ops/fit_kernels.fit_model is this order
-// written in torch ops; fit_grid picks (blocks, per) and the regime:
-//
-// - cluster: up to 16 blocks (fit_kernels.CLUSTER_MAX; 1-2 at the
-//   CLI's 93-275 patterns), the whole grid one thread-block cluster; a
-//   block's partial in its shared memory, read by the others through
-//   distributed shared memory after barrier.cluster (cooperative_groups'
-//   cluster.sync; a block barrier where the grid is one block);
-// - grid: more blocks, a cooperative launch (every block co-resident, or
-//   the launch is refused), the partials in global memory and one
-//   hand-written barrier a step on an integer counter (the step's target
-//   t * blocks; no -rdc);
-// - global: where N is past what the co-resident grid holds on chip
-//   (more than kOnChipPer loci a thread), the loci go to loc in global
-//   memory once and are read from there (through L2) every step, with
-//   the grid regime's barrier.
-//
-// The partials go to one of two buffers by the step's parity: a block
-// writes a buffer again only after every block has passed the next
-// barrier, by which time every block has read it, so one barrier a step
-// is enough.
+// The sum over loci runs in one fixed order with no float atomics, and
+// the fit runs in one of three regimes (cluster, grid, global), as
+// csrc/fit_grid.cuh sets out: that header holds the fit's loop, its sums,
+// barriers and Adam, and this file the loss (the ErrorFit policy). Each
+// block runs the scalar tail itself (the rates' chains, smooth_grad, Adam
+// and the next step's smoother, the three parameters on three lanes of
+// warp 0, then the best step and the next step's rates).
+// ops/fit_kernels.fit_model is this order written in torch ops; fit_grid
+// picks (blocks, per) and the regime (cluster up to 16 blocks, 1-2 at the
+// CLI's 93-275 patterns; grid past it; global past kOnChipPer loci a
+// thread).
 //
 // Every elementwise value is the plain version's: products that meet a
 // sum are __dmul_rn, sums __dadd_rn/__dsub_rn (nvcc contracts a*b + c
@@ -72,31 +53,31 @@
 // locus's transcendentals, the folds, the barrier and the scalar tail.
 // The design takes the host, the launches and the loci's reloads out of
 // it: one launch a fit, the loci on chip, one barrier a step.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
 
-#include "snv_math.cuh"
-
-namespace cg = cooperative_groups;
+#include "fit_grid.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// (inside this namespace, so that they hide CUDA's dadd and dmul of
+// another signature)
+using fitgrid::dadd;
+using fitgrid::dmul;
+using fitgrid::dsub;
+using fitgrid::sgn;
+
+constexpr int kThreads = fitgrid::kThreads;
 constexpr int kSums = 6;          // loss, d/dli, d/dld, d/dlr, g1, g2
 constexpr int kRows = 12;         // loc's rows
 constexpr int kState = 17;        // the state buffer's doubles
-constexpr unsigned kAll = 0xffffffffu;
-// the fit entry's grid: at most kMaxBlocks blocks (two an SM on the
-// H100's 132; the stage of partials), kOnChipPer loci a thread held in
-// shared memory (96 KB a block, so two blocks share an SM); the cluster
-// regime's size is the card's to refuse (16 on the H100, a non-portable
-// size past 8)
-constexpr int kMaxBlocks = 264;
-constexpr int kOnChipPer = 4;
-constexpr size_t kLocusBytes = kRows * sizeof(double);
+// the fit entry's loci a thread on chip (96 KB a block, so two blocks
+// share an SM); at most fitgrid::kMaxBlocks blocks; the cluster regime's
+// size is the card's to refuse (16 on the H100, a non-portable size past
+// 8)
+constexpr int kOnChipPer = fitgrid::on_chip_per(kRows);
+static_assert(kOnChipPer == 4, "KE-F holds 4 loci a thread on chip");
 
 // loc's rows
 enum Row {
@@ -119,35 +100,6 @@ enum Slot {
     kParams = 0, kMu = 3, kNu = 6, kBestV = 9, kBestParams = 10, kV = 13,
     kGrad = 14
 };
-
-__device__ __forceinline__ double dmul(double a, double b) {
-    return __dmul_rn(a, b);
-}
-__device__ __forceinline__ double dadd(double a, double b) {
-    return __dadd_rn(a, b);
-}
-__device__ __forceinline__ double dsub(double a, double b) {
-    return __dsub_rn(a, b);
-}
-
-// torch.sign of a float64: 1, -1, else 0 (a zero or a NaN)
-__device__ __forceinline__ double sgn(double x) {
-    return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : 0.0);
-}
-
-// logsumexp of four terms as special.logsumexp: the max (0 where it is
-// not finite), the exps of the differences summed in index order; sets
-// e (the exps), s (their sum) and returns log|s| + max
-__device__ __forceinline__ double lse4(const double (&t)[4], double (&e)[4],
-                                      double& s) {
-    double m = snv::nan_max(snv::nan_max(snv::nan_max(t[0], t[1]), t[2]),
-                            t[3]);
-    m = snv::is_finite(m) ? m : 0.0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) e[k] = exp(dsub(t[k], m));
-    s = dadd(dadd(dadd(e[0], e[1]), e[2]), e[3]);
-    return dadd(log(fabs(s)), m);
-}
 
 // _rate_smoother's values: a, x = a - trigger, b (after the log1p
 // branch), d = b - max and the output c
@@ -259,7 +211,7 @@ __device__ __forceinline__ void prep_locus(const double* __restrict__ ref_obs,
     vals[kHomPre] = hom_pre;
     vals[kHetPre] = het_pre;
     vals[kAltPre] = alt_pre;
-    vals[kClean] = lse4(t, e, s);
+    vals[kClean] = fitgrid::lse<4>(t, e, s);
     vals[kInst] = inst[j];
 }
 
@@ -279,7 +231,7 @@ __device__ __forceinline__ void locus_terms(const double (&v)[kRows],
                      dmul(lr, v[kRef])), c.prior[2]);
     t[3] = dadd(dadd(dadd(v[kAltPre], dmul(li, v[kRemIns2])),
                      dmul(ld, v[kRemDel2])), c.prior[3]);
-    const double noisy = lse4(t, e, s);
+    const double noisy = fitgrid::lse<4>(t, e, s);
     const double x1 = dadd(lcl, v[kClean]);
     const double x2 = dadd(ln, noisy);
     const double d = dsub(x1, x2);
@@ -321,253 +273,119 @@ error_fit_prep_kernel(const double* __restrict__ ref_obs,
     for (int k = 0; k < kRows; ++k) loc[k * n + j] = v[k];
 }
 
-// the fit entry's regimes (fit_grid's)
-enum Sync { kCluster, kGrid };
-
-struct FitArgs {
+// The fit entry's loss, a fit_grid.cuh policy: the observations' three
+// pointers, prep_locus's rows, locus_terms's six sums, and the tail: the
+// three parameters' chains side by side on lanes 0-2, Adam, the next
+// step's smoothers, then the best step and the next step's rates on lane 0
+struct Obs {
     const double* ref_obs;
     const double* alt_obs;
     const double* inst;
-    long long n;
-    int per, n_steps;
-    const double* bias;     // [n_steps, 2]
-    double* state;          // [kState]
-    double* loc;            // [12, n], the global regime's
-    double* partials;       // [2, blocks, 6], the grid regimes'
-    unsigned* arrivals;     // [2] the grid barrier's arrivals and
-                            // exits, 0 at launch and left at 0
 };
 
-// thread 0 of every block: arrive at step t's barrier (after this
-// block's partial is written) and wait for all `blocks`; then the block
-__device__ __forceinline__ void grid_barrier(unsigned* arrivals,
-                                             unsigned target) {
-    if (threadIdx.x == 0) {
-        __threadfence();
-        atomicAdd(arrivals, 1u);
-        unsigned seen;
-        do {
-            asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                         : "=r"(seen) : "l"(arrivals) : "memory");
-        } while (seen < target);
-        __threadfence();
+struct ErrorFit {
+    using Obs = ::Obs;
+    using Consts = ::Consts;
+    using Scalars = Rates;
+    // kParams and kState here are the policy's: the state's slots are
+    // Slot's (Slot::kParams)
+    static constexpr int kRows = ::kRows, kSums = ::kSums, kParams = 3;
+    static constexpr int kState = ::kState;
+    static constexpr bool kFinalLoss = false;
+
+    static __device__ __forceinline__ void prep(const Obs& o, long long j,
+                                                const Consts& c,
+                                                double (&v)[kRows]) {
+        prep_locus(o.ref_obs, o.alt_obs, o.inst, j, c, v);
     }
-    __syncthreads();
-}
+
+    static __device__ __forceinline__ void terms(const double (&v)[kRows],
+                                                 const Rates& r,
+                                                 const Consts& c,
+                                                 double (&out)[kSums]) {
+        locus_terms(v, r.s[0].c, r.s[1].c, r.lr, r.s[2].c, r.lcl, c, out);
+    }
+
+    // the parameters and moments from the state buffer; step 1's rates
+    static __device__ __forceinline__ void start(const double* state,
+                                                 double* st, Rates& r,
+                                                 const Consts& c) {
+#pragma unroll
+        for (int k = 0; k < kBestV; ++k) st[k] = state[k];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            r.s[i] = smooth(st[Slot::kParams + i], trigger(i, c),
+                            max_log(i, c));
+            r.e[i] = exp(r.s[i].c);
+        }
+        rate_logs(r);
+    }
+
+    // the three parameters' chains side by side, parameter i on lane i:
+    // the rates' chain (log(1 - e_li - e_ld) for li and ld, log1p(-e_ln)
+    // for ln), the smoother's backward, Adam (the bias corrections of t)
+    // and the next step's smoother and exp; then the best step: the
+    // first, then a strict v < best (a NaN never wins)
+    static __device__ __forceinline__ void step(int t,
+                                                const double (&tot)[kSums],
+                                                double* st, const Rates& r,
+                                                Rates& next, int lane,
+                                                double c1, double c2,
+                                                const Consts& c) {
+        if (lane < 3) {
+            const int i = lane;
+            const bool locus = i == 2;
+            const double trig = trigger(i, c), mx = max_log(i, c);
+            const double q = -((locus ? tot[4] : tot[3])
+                               / (locus ? dadd(r.u, 1.0) : r.vr));
+            const double gi = dadd(
+                i == 0 ? tot[1] : (i == 1 ? tot[2] : tot[5]),
+                dmul(q, r.e[i]));
+            const double g = smooth_grad(r.s[i], trig, mx, gi);
+            double mu = st[kMu + i], nu = st[kNu + i];
+            const double np = fitgrid::adam(g, mu, nu,
+                                            st[Slot::kParams + i], c1, c2,
+                                            c.lr, c.b1, c.b2, c.omb1, c.omb2,
+                                            c.eps);
+            st[kMu + i] = mu;
+            st[kNu + i] = nu;
+            st[Slot::kParams + i] = np;
+            st[kGrad + i] = g;
+            next.s[i] = smooth(np, trig, mx);
+            next.e[i] = exp(next.s[i].c);
+        }
+        __syncwarp();
+        if (lane == 0) {
+            const double v = -tot[0];
+            st[kV] = v;
+            if (t == 1 || v < st[kBestV]) {
+                st[kBestV] = v;
+#pragma unroll
+                for (int i = 0; i < 3; ++i)
+                    st[kBestParams + i] = st[Slot::kParams + i];
+            }
+            rate_logs(next);
+        }
+    }
+
+    static __device__ __forceinline__ void finish(const double (&)[kSums],
+                                                  double*, int) {}
+};
+
+using fitgrid::kCluster;
+using fitgrid::kGrid;
+using fitgrid::Sync;
+using FitArgs = fitgrid::FitArgs<Obs>;
 
 template <Sync kSync, bool kOnChip>
 __global__ void __launch_bounds__(kThreads, 2)
 error_fit_run_kernel(FitArgs a, Consts c) {
-    extern __shared__ double on_chip[];          // [12][per * 256]
-    constexpr int kStage = kMaxBlocks * kSums;
-    __shared__ double warp_sums[kSums][kWarps];
-    __shared__ double xpart[2][kSums];           // the cluster's partials
-    __shared__ double stage[kStage];             // every block's, in order
-    __shared__ double st[kState];                // the state, warp 0's
-    __shared__ Rates rs[2];                      // step t's in rs[t & 1]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const unsigned blocks = gridDim.x;
-    const int per = a.per;
-    const long long n = a.n;
-    const long long first = static_cast<long long>(blockIdx.x) * per
-                            * kThreads + tid;
-    // this thread's loci, once a fit: on chip, or in loc past it
-    double* rows = kOnChip ? on_chip : a.loc;
-    const long long stride = kOnChip ? static_cast<long long>(per) * kThreads
-                                     : n;
-    for (int i = 0; i < per; ++i) {
-        const long long j = first + static_cast<long long>(i) * kThreads;
-        if (j < n) {
-            double v[kRows];
-            prep_locus(a.ref_obs, a.alt_obs, a.inst, j, c, v);
-            const long long at = kOnChip ? i * kThreads + tid : j;
-#pragma unroll
-            for (int k = 0; k < kRows; ++k) rows[k * stride + at] = v[k];
-        }
-    }
-    if (tid == 0) {
-#pragma unroll
-        for (int k = 0; k < kBestV; ++k) st[k] = a.state[k];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            rs[1].s[i] = smooth(st[kParams + i], trigger(i, c),
-                                max_log(i, c));
-            rs[1].e[i] = exp(rs[1].s[i].c);
-        }
-        rate_logs(rs[1]);
-    }
-    __syncthreads();
-
-    for (int t = 1; t <= a.n_steps; ++t) {
-        const int par = t & 1;
-        double c1 = 0.0, c2 = 0.0;
-        if (tid < 3) {
-            c1 = a.bias[2 * (t - 1)];
-            c2 = a.bias[2 * (t - 1) + 1];
-        }
-        const Rates& r = rs[par];
-        const double li = r.s[0].c, ld = r.s[1].c, lr = r.lr, ln = r.s[2].c,
-                     lcl = r.lcl;
-        double acc[kSums];
-#pragma unroll
-        for (int k = 0; k < kSums; ++k) acc[k] = 0.0;
-        for (int i = 0; i < per; ++i) {
-            const long long j = first + static_cast<long long>(i) * kThreads;
-            double term[kSums];
-            if (j < n) {
-                const long long at = kOnChip ? i * kThreads + tid : j;
-                double v[kRows];
-#pragma unroll
-                for (int k = 0; k < kRows; ++k) v[k] = rows[k * stride + at];
-                locus_terms(v, li, ld, lr, ln, lcl, c, term);
-            } else {
-#pragma unroll
-                for (int k = 0; k < kSums; ++k) term[k] = 0.0;
-            }
-#pragma unroll
-            for (int k = 0; k < kSums; ++k) acc[k] = dadd(acc[k], term[k]);
-        }
-#pragma unroll
-        for (int off = 16; off; off >>= 1)
-#pragma unroll
-            for (int k = 0; k < kSums; ++k)
-                acc[k] = dadd(acc[k], __shfl_xor_sync(kAll, acc[k], off));
-        if (lane == 0)
-#pragma unroll
-            for (int k = 0; k < kSums; ++k) warp_sums[k][warp] = acc[k];
-        __syncthreads();
-        if (tid == 0) {
-#pragma unroll
-            for (int k = 0; k < kSums; ++k) {
-                double s = warp_sums[k][0];
-#pragma unroll
-                for (int w = 1; w < kWarps; ++w) s = dadd(s, warp_sums[k][w]);
-                if constexpr (kSync == kCluster)
-                    xpart[par][k] = s;
-                else
-                    a.partials[(static_cast<long long>(par) * blocks
-                                + blockIdx.x) * kSums + k] = s;
-            }
-        }
-        // the step's barrier, then every block's partials into the stage
-        if constexpr (kSync == kCluster) {
-            cg::cluster_group cluster = cg::this_cluster();
-            if (blocks > 1)
-                cluster.sync();
-            else
-                __syncthreads();
-            for (unsigned i = tid; i < blocks * kSums; i += kThreads)
-                stage[i] = *cluster.map_shared_rank(&xpart[par][i % kSums],
-                                                    i / kSums);
-        } else {
-            grid_barrier(a.arrivals, static_cast<unsigned>(t) * blocks);
-            const double* part = a.partials
-                                 + static_cast<long long>(par) * blocks
-                                   * kSums;
-            for (unsigned i = tid; i < blocks * kSums; i += kThreads)
-                stage[i] = __ldcg(part + i);
-        }
-        __syncthreads();
-        if (warp == 0) {
-            // the partials in block order, a sum a lane
-            double s = 0.0;
-            if (lane < kSums) {
-                s = stage[lane];
-                for (unsigned b = 1; b < blocks; ++b)
-                    s = dadd(s, stage[b * kSums + lane]);
-            }
-            double tot[kSums];
-#pragma unroll
-            for (int k = 0; k < kSums; ++k) tot[k] = __shfl_sync(kAll, s, k);
-            // the three parameters' chains side by side, parameter i on
-            // lane i: the rates' chain (log(1 - e_li - e_ld) for li and
-            // ld, log1p(-e_ln) for ln), the smoother's backward, Adam
-            // (special.Adam's order, the bias corrections of t) and the
-            // next step's smoother and exp
-            if (lane < 3) {
-                const int i = lane;
-                const bool locus = i == 2;
-                const double trig = trigger(i, c), mx = max_log(i, c);
-                const double q = -((locus ? tot[4] : tot[3])
-                                   / (locus ? dadd(r.u, 1.0) : r.vr));
-                const double gi = dadd(
-                    i == 0 ? tot[1] : (i == 1 ? tot[2] : tot[5]),
-                    dmul(q, r.e[i]));
-                const double g = smooth_grad(r.s[i], trig, mx, gi);
-                const double mu = __fma_rn(g, c.omb1,
-                                           dmul(st[kMu + i], c.b1));
-                const double nu = __fma_rn(dmul(g, g), c.omb2,
-                                           dmul(st[kNu + i], c.b2));
-                const double nu_hat = nu / c2;
-                const double upd = mu / dmul(c1, dadd(__dsqrt_rn(nu_hat),
-                                                      c.eps));
-                const double np = __fma_rn(upd, -c.lr, st[kParams + i]);
-                st[kMu + i] = mu;
-                st[kNu + i] = nu;
-                st[kParams + i] = np;
-                st[kGrad + i] = g;
-                Rates& next = rs[par ^ 1];
-                next.s[i] = smooth(np, trig, mx);
-                next.e[i] = exp(next.s[i].c);
-            }
-            __syncwarp();
-            if (lane == 0) {
-                const double v = -tot[0];
-                st[kV] = v;
-                // the best step: the first, then a strict v < best (a
-                // NaN never wins)
-                if (t == 1 || v < st[kBestV]) {
-                    st[kBestV] = v;
-#pragma unroll
-                    for (int i = 0; i < 3; ++i)
-                        st[kBestParams + i] = st[kParams + i];
-                }
-                rate_logs(rs[par ^ 1]);
-            }
-        }
-        __syncthreads();
-    }
-    if constexpr (kSync == kCluster) {
-        // no block leaves while another may still read its partials
-        cg::this_cluster().sync();
-    } else if (tid == 0) {
-        // the last block out sets the counters back to 0 for the next
-        // launch: every block has left its last wait by then
-        if (atomicAdd(a.arrivals + 1, 1u) == blocks - 1) {
-            a.arrivals[0] = 0u;
-            a.arrivals[1] = 0u;
-        }
-    }
-    if (blockIdx.x == 0 && tid == 0)
-#pragma unroll
-        for (int k = 0; k < kState; ++k) a.state[k] = st[k];
+    fitgrid::fit_body<ErrorFit, kSync, kOnChip>(a, c);
 }
 
-size_t on_chip_bytes(int per) { return per * kThreads * kLocusBytes; }
-
-// the fit entry's attributes: dynamic shared memory up to kOnChipPer loci
-// a thread, the shared-memory carveout at its most, clusters past 8 (as
-// far as the card takes them)
-cudaError_t configure() {
-    const int dyn = static_cast<int>(on_chip_bytes(kOnChipPer));
-    cudaError_t e = cudaSuccess;
-    auto set = [&](auto kernel) {
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                cudaSharedmemCarveoutMaxShared);
-    };
-    set(&error_fit_run_kernel<kCluster, true>);
-    set(&error_fit_run_kernel<kGrid, true>);
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(&error_fit_run_kernel<kCluster, true>,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                 1);
-    return e;
-}
+const fitgrid::Kernels<Obs, Consts> kRun = {
+    &error_fit_run_kernel<kCluster, true>, &error_fit_run_kernel<kGrid, true>,
+    &error_fit_run_kernel<kGrid, false>};
 
 }  // namespace
 
@@ -591,25 +409,12 @@ int error_fit_prep_launch(const void* ref_obs, const void* alt_obs,
 }
 
 // The fit entry's co-resident blocks on the current card, at most
-// kMaxBlocks: the occupancy of its grid kernels (on chip at kOnChipPer
-// loci a thread, and the global regime's) times the SMs. Returns a
-// cudaError_t.
+// fitgrid::kMaxBlocks: the occupancy of its grid kernels (on chip at
+// kOnChipPer loci a thread, and the global regime's) times the SMs.
+// Returns a cudaError_t.
 int error_fit_resident_blocks(int* out) {
-    int dev = 0, sms = 0, on_chip = 0, global = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = configure();
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &on_chip, error_fit_run_kernel<kGrid, true>, kThreads,
-            on_chip_bytes(kOnChipPer));
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &global, error_fit_run_kernel<kGrid, false>, kThreads, 0);
-    const int per_sm = on_chip < global ? on_chip : global;
-    *out = per_sm * sms < kMaxBlocks ? per_sm * sms : kMaxBlocks;
-    return static_cast<int>(e);
+    return fitgrid::resident_blocks(
+        kRun, kOnChipPer * kThreads * kRows * sizeof(double), out);
 }
 
 // One whole fit: ref_obs [N], alt_obs [N, 6], inst [N] float64 on one
@@ -617,10 +422,10 @@ int error_fit_resident_blocks(int* out) {
 // (1 - b1**s, 1 - b2**s for s = 1..n_steps); state [17] float64
 // (ops/fit_kernels.STATE: the parameters and Adam's moments in, every
 // slot out). The grid: `blocks` blocks of 256 threads, `per` loci a
-// thread (blocks * per * 256 >= N, blocks <= kMaxBlocks), the loci on
-// chip where per <= kOnChipPer; `cluster` 1: the grid one thread-block
-// cluster (on chip only; the card refuses a size it cannot place), else
-// a cooperative launch (the card refuses a grid that is not
+// thread (blocks * per * 256 >= N, blocks <= fitgrid::kMaxBlocks), the
+// loci on chip where per <= kOnChipPer; `cluster` 1: the grid one
+// thread-block cluster (on chip only; the card refuses a size it cannot
+// place), else a cooperative launch (the card refuses a grid that is not
 // co-resident), with partials [2, blocks, 6] float64 scratch and
 // arrivals two uint32 at 0 (left at 0); loc [12, N] float64 scratch
 // where per > kOnChipPer. Launches on `stream`; returns a cudaError_t.
@@ -629,53 +434,18 @@ int error_fit_run_launch(const void* ref_obs, const void* alt_obs,
                          int n_steps, int cluster, const double* consts,
                          const void* bias, void* state, void* loc,
                          void* partials, void* arrivals, void* stream) {
-    const bool on_chip = per <= kOnChipPer;
-    if (n < 1 || blocks < 1 || blocks > kMaxBlocks || per < 1
-        || n_steps < 1
-        || static_cast<long long>(blocks) * per * kThreads < n
-        || (cluster && !on_chip)
-        || (!cluster && (partials == nullptr || arrivals == nullptr))
-        || (!on_chip && loc == nullptr))
-        return static_cast<int>(cudaErrorInvalidValue);
     Consts c;
     std::memcpy(&c, consts, sizeof c);
-    cudaError_t e = configure();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const FitArgs args{static_cast<const double*>(ref_obs),
-                       static_cast<const double*>(alt_obs),
-                       static_cast<const double*>(inst), n, per, n_steps,
+    const FitArgs args{Obs{static_cast<const double*>(ref_obs),
+                           static_cast<const double*>(alt_obs),
+                           static_cast<const double*>(inst)},
+                       n, per, n_steps,
                        static_cast<const double*>(bias),
                        static_cast<double*>(state), static_cast<double*>(loc),
                        static_cast<double*>(partials),
                        static_cast<unsigned*>(arrivals)};
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = on_chip ? on_chip_bytes(per) : 0;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    if (cluster) {
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = static_cast<unsigned>(blocks);
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-    } else {
-        attr[0].id = cudaLaunchAttributeCooperative;
-        attr[0].val.cooperative = 1;
-    }
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if (cluster)
-        e = cudaLaunchKernelEx(&cfg, error_fit_run_kernel<kCluster, true>,
-                               args, c);
-    else if (on_chip)
-        e = cudaLaunchKernelEx(&cfg, error_fit_run_kernel<kGrid, true>, args,
-                               c);
-    else
-        e = cudaLaunchKernelEx(&cfg, error_fit_run_kernel<kGrid, false>,
-                               args, c);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
+    return fitgrid::launch(kRun, args, c, blocks, cluster, kRows,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,7 +24,11 @@ ops on the fit's device with the JAX package's association order, the
 gradients come from torch.autograd, and the optimizer is optax's Adam
 in optax's order (utils/special.Adam). A theta given as a float (the
 locked DEFAULT_LOG_THETA) folds on the host, as XLA folds the JAX
-package's constant.
+package's constant. That is the plain version of an indel fit
+(_fit_plain), which _fit runs on the CPU; on any other device _fit runs
+KZ (ops/zoo_kernels: csrc/error_zoo_fit.cu), a whole fit start in one
+launch, and raises where it cannot: nothing falls back. The SNV fits,
+which no entry point calls, run the plain version on any device.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import device as devmod
+from ..ops import zoo_kernels as zk
 from ..utils.special import Adam, betaln, log_sigmoid, logaddexp, logsumexp
 
 LN2 = float(np.log(2.0))
@@ -307,11 +312,14 @@ def snv_indy_lhood(sp: SnvPatterns, ln_err_q, ln_theta):
 # Adam fits
 # ---------------------------------------------------------------------------
 
-def _fit(loss_fn, x0: np.ndarray, steps: int = 600, lr: float = 0.05,
-         device=None) -> tuple[np.ndarray, float]:
-    """`steps` Adam steps on loss_fn from x0 on `device`; returns the
-    final parameters (host f64) and the loss there."""
-    x = torch.as_tensor(np.asarray(x0, np.float64), device=_dev(device))
+def _fit_plain(loss_fn, x0: np.ndarray, steps: int = 600, lr: float = 0.05,
+               device=None) -> tuple[np.ndarray, float]:
+    """`steps` Adam steps on loss_fn from x0 on `device` through
+    torch.autograd (the plain version); returns the final parameters
+    (host f64) and the loss there."""
+    dev = _dev(device)
+    zk.count_plain(dev)
+    x = torch.as_tensor(np.asarray(x0, np.float64), device=dev)
     opt = Adam(x, lr)
     for _ in range(steps):
         xg = x.detach().requires_grad_(True)
@@ -322,9 +330,49 @@ def _fit(loss_fn, x0: np.ndarray, steps: int = 600, lr: float = 0.05,
     return x.cpu().numpy(), final
 
 
+def kernel_consts(family: str, lock_theta: bool, lr: float = 0.05):
+    """The CONSTS doubles of ops/zoo_kernels for `family`'s fit: the
+    genotype constants and ln 2, the clean locus's ln rates (log(1 -
+    rate) of the 4-state mixture, log1p(-rate) of the NoOverlap one), a
+    locked theta's priors folded on the host as the plain version folds
+    them, ln of each parameter's limit and Adam's."""
+    four = zk.FAMILIES[family].kernel == "KZ-4"
+    lc = float(np.log(CLEAN_LOCUS_INDEL_RATE))
+    lcr = (float(np.log(1.0 - CLEAN_LOCUS_INDEL_RATE)) if four
+           else math.log1p(-math.exp(lc)))
+    priors = (_priors(DEFAULT_LOG_THETA, four) if lock_theta
+              else (0.0, 0.0, 0.0, 0.0))
+    lims = [float(np.log(x)) for x in _LIMITS[family]]
+    lims += [0.0] * (4 - len(lims))
+    b1, b2 = Adam.B1, Adam.B2
+    return (LOG_HOM_ALT, LOG_HOM_REF, LOG_HET, LN2, lc, lcr, *priors, *lims,
+            lr, b1, b2, 1 - b1, 1 - b2, Adam.EPS)
+
+
+def _fit(loss_fn, x0: np.ndarray, steps: int, family: str,
+         p: IndelPatterns, lock_theta: bool, is_insert: bool = True,
+         lr: float = 0.05, device=None,
+         plain: bool = False) -> tuple[np.ndarray, float]:
+    """`steps` Adam steps from x0 on `device`: the plain version
+    (_fit_plain on loss_fn) on the CPU or where `plain`, else one launch
+    of `family`'s KZ kernel on p (its observations on the card), which
+    raises where it cannot build, load or launch. Returns the final
+    parameters (host f64) and the loss there."""
+    dev = _dev(device)
+    if plain or dev.type == "cpu":
+        return _fit_plain(loss_fn, x0, steps, lr, dev)
+    run = zk.zoo_fit(family, (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2),
+                     x0, kernel_consts(family, lock_theta, lr), steps,
+                     lock_theta, is_insert)
+    st = run.state.cpu()
+    at = zk.state_slots(zk.FAMILIES[family])
+    return st[at["params"]].numpy(), float(st[at["final"]])
+
+
 def fit_indel_indy(counts, lock_theta: bool = False, steps: int = 600,
-                   device=None):
-    """ML fit of {insert rate, delete rate, theta}."""
+                   device=None, plain: bool = False):
+    """ML fit of {insert rate, delete rate, theta}; `plain`: the plain
+    version on any device (_fit)."""
     p = IndelPatterns.build(counts, device)
 
     def loss(x):
@@ -333,8 +381,8 @@ def fit_indel_indy(counts, lock_theta: bool = False, steps: int = 600,
         lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[2], 0.3)
         return -indel_indy_lhood(p, li, ld, lt)
 
-    x0 = [_bounded_init(1e-4, 0.5)] * 2 + [_bounded_init(1e-4, 0.3)]
-    x, neg = _fit(loss, np.array(x0), steps, device=device)
+    x, neg = _fit(loss, fit_starts("indy")[0], steps, "indy", p, lock_theta,
+                  device=device, plain=plain)
     return {
         "insert_rate": _host_bounded(x[0], 0.5),
         "delete_rate": _host_bounded(x[1], 0.5),
@@ -344,12 +392,14 @@ def fit_indel_indy(counts, lock_theta: bool = False, steps: int = 600,
 
 
 def fit_indel_binom_mixture(counts, lock_theta: bool = False,
-                            steps: int = 1500, device=None):
+                            steps: int = 1500, device=None,
+                            plain: bool = False):
     """ML fit of {insert rate, delete rate, noisy-locus rate, theta}.
 
     Multi-start on the noisy-locus rate (the mixture surface is
     bimodal: all-noisy recovers the indy model; the minimizer can get
-    trapped on either side)."""
+    trapped on either side): the start of lower final loss, the first on
+    a tie. `plain` as fit_indel_indy's."""
     p = IndelPatterns.build(counts, device)
 
     def loss(x):
@@ -360,10 +410,9 @@ def fit_indel_binom_mixture(counts, lock_theta: bool = False,
         return -indel_binom_mixture_lhood(p, li, ld, ln, lt)
 
     best = None
-    for noisy0 in (0.9, 1e-2):
-        x0 = np.array([_bounded_init(1e-4, 0.5), _bounded_init(1e-4, 0.5),
-                       _bounded_init(noisy0, 1.0), _bounded_init(1e-4, 0.3)])
-        xi, negi = _fit(loss, x0, steps, device=device)
+    for x0 in fit_starts("binom_mixture"):
+        xi, negi = _fit(loss, x0, steps, "binom_mixture", p, lock_theta,
+                        device=device, plain=plain)
         if best is None or negi < best[1]:
             best = (xi, negi)
     x, neg = best
@@ -378,12 +427,42 @@ def fit_indel_binom_mixture(counts, lock_theta: bool = False,
 
 MAX_CONCENTRATION = 2000.0
 
+# each indel fit's parameter limits in x's order (_ln_bounded's), theta's
+# last, by its ops/zoo_kernels family
+_LIMITS = {"indy": (0.5, 0.5, 0.3), "binom_mixture": (0.5, 0.5, 1.0, 0.3),
+           "beta_binomial": (0.5, MAX_CONCENTRATION, 0.3),
+           "indy_noovl": (0.5, 0.3), "binom_mixture_noovl": (0.5, 1.0, 0.3)}
+# the binomial mixtures' noisy-locus starts (the mixture surface is
+# bimodal), in the order they run
+NOISY_STARTS = (0.9, 1e-2)
+
+
+def fit_starts(family: str) -> list[np.ndarray]:
+    """The starts in x of `family`'s fit, in _LIMITS' order: rates at
+    1e-4, the concentration at 100, theta at 1e-4, and one start a
+    NOISY_STARTS rate for the binomial mixtures."""
+    rate, theta = _bounded_init(1e-4, 0.5), _bounded_init(1e-4, 0.3)
+    if family == "indy":
+        return [np.array([rate, rate, theta])]
+    if family == "binom_mixture":
+        return [np.array([rate, rate, _bounded_init(n0, 1.0), theta])
+                for n0 in NOISY_STARTS]
+    if family == "beta_binomial":
+        return [np.array([rate, _bounded_init(100.0, MAX_CONCENTRATION),
+                          theta])]
+    if family == "indy_noovl":
+        return [np.array([rate, theta])]
+    if family == "binom_mixture_noovl":
+        return [np.array([rate, _bounded_init(n0, 1.0), theta])
+                for n0 in NOISY_STARTS]
+    raise ValueError(f"unknown zoo family: {family}")
+
 
 def fit_indel_beta_binomial(counts, is_insert: bool,
                             lock_theta: bool = False, steps: int = 600,
-                            device=None):
+                            device=None, plain: bool = False):
     """ML fit of the beta-binomial {mean, concentration, theta} for one
-    indel type."""
+    indel type; `plain` as fit_indel_indy's."""
     p = IndelPatterns.build(counts, device)
 
     def loss(x):
@@ -392,10 +471,9 @@ def fit_indel_beta_binomial(counts, is_insert: bool,
         lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[2], 0.3)
         return -indel_beta_binom_lhood(p, lm, lc, is_insert, lt)
 
-    x0 = np.array([_bounded_init(1e-4, 0.5),
-                   _bounded_init(100.0, MAX_CONCENTRATION),
-                   _bounded_init(1e-4, 0.3)])
-    x, neg = _fit(loss, x0, steps, device=device)
+    x, neg = _fit(loss, fit_starts("beta_binomial")[0], steps,
+                  "beta_binomial", p, lock_theta,
+                  is_insert, device=device, plain=plain)
     return {
         "mean": _host_bounded(x[0], 0.5),
         "concentration": _host_bounded(x[1], MAX_CONCENTRATION),
@@ -418,7 +496,7 @@ def fit_snv_indy(sp: SnvPatterns, lock_theta: bool = False,
         lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[Q], 0.3)
         return -snv_indy_lhood(sp, le, lt)
 
-    x, neg = _fit(loss, x0, steps, device=device)
+    x, neg = _fit_plain(loss, x0, steps, device=device)
     rates = _host_bounded(x[:Q], 0.5)
     return {
         "qual_levels": [int(q) for q in sp.qual_levels],
@@ -479,8 +557,9 @@ def indel_binom_mixture_noovl_lhood(p: IndelPatterns, ln_indel, ln_noisy,
 
 def fit_indel_indy_noovl(counts, is_insert: bool,
                          lock_theta: bool = False, steps: int = 600,
-                         device=None):
-    """ML fit of {indel rate, theta} for one indel type."""
+                         device=None, plain: bool = False):
+    """ML fit of {indel rate, theta} for one indel type; `plain` as
+    fit_indel_indy's."""
     p = IndelPatterns.build(counts, device)
 
     def loss(x):
@@ -488,8 +567,8 @@ def fit_indel_indy_noovl(counts, is_insert: bool,
         lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[1], 0.3)
         return -indel_indy_noovl_lhood(p, li, is_insert, lt)
 
-    x0 = np.array([_bounded_init(1e-4, 0.5), _bounded_init(1e-4, 0.3)])
-    x, neg = _fit(loss, x0, steps, device=device)
+    x, neg = _fit(loss, fit_starts("indy_noovl")[0], steps, "indy_noovl", p,
+                  lock_theta, is_insert, device=device, plain=plain)
     return {
         "indel_rate": _host_bounded(x[0], 0.5),
         "theta": 1e-4 if lock_theta else _host_bounded(x[1], 0.3),
@@ -499,10 +578,11 @@ def fit_indel_indy_noovl(counts, is_insert: bool,
 
 def fit_indel_binom_mixture_noovl(counts, is_insert: bool,
                                   lock_theta: bool = False,
-                                  steps: int = 1500, device=None):
+                                  steps: int = 1500, device=None,
+                                  plain: bool = False):
     """ML fit of {indel rate, noisy-locus rate, theta} for one indel
     type; multi-start on the noisy-locus rate (bimodal surface, see
-    fit_indel_binom_mixture)."""
+    fit_indel_binom_mixture); `plain` as fit_indel_indy's."""
     p = IndelPatterns.build(counts, device)
 
     def loss(x):
@@ -512,11 +592,9 @@ def fit_indel_binom_mixture_noovl(counts, is_insert: bool,
         return -indel_binom_mixture_noovl_lhood(p, li, ln, is_insert, lt)
 
     best = None
-    for noisy0 in (0.9, 1e-2):
-        x0 = np.array([_bounded_init(1e-4, 0.5),
-                       _bounded_init(noisy0, 1.0),
-                       _bounded_init(1e-4, 0.3)])
-        xi, negi = _fit(loss, x0, steps, device=device)
+    for x0 in fit_starts("binom_mixture_noovl"):
+        xi, negi = _fit(loss, x0, steps, "binom_mixture_noovl", p,
+                        lock_theta, is_insert, device=device, plain=plain)
         if best is None or negi < best[1]:
             best = (xi, negi)
     x, neg = best
@@ -587,7 +665,7 @@ def fit_snv_binom_mixture(sp: SnvPatterns, lock_theta: bool = False,
                       + [float(np.log(1.0)),
                          _bounded_init(noisy0, 1.0),
                          _bounded_init(1e-4, 0.3)])
-        xi, negi = _fit(loss, x0, steps, device=device)
+        xi, negi = _fit_plain(loss, x0, steps, device=device)
         if best is None or negi < best[1]:
             best = (xi, negi)
     x, neg = best

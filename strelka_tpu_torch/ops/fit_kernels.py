@@ -117,22 +117,25 @@ def function(name: str):
     return _BOUND[name]
 
 
-def fit_grid(n: int, resident: int = MAX_BLOCKS) -> tuple[int, int, str]:
+def fit_grid(n: int, resident: int = MAX_BLOCKS,
+             on_chip_per: int = ON_CHIP_PER) -> tuple[int, int, str]:
     """(blocks, loci a thread, regime) of error_fit_run over n loci on a
     card that keeps `resident` of its blocks at once (resident_blocks):
     one locus a thread up to `resident` blocks, more a thread past them,
     no empty block. The regime: "cluster" up to CLUSTER_MAX blocks (the
     grid one thread-block cluster), "grid" past it (a cooperative launch
     with a barrier on a counter), both with the loci in shared memory;
-    "global" past ON_CHIP_PER loci a thread (n > resident * THREADS *
-    ON_CHIP_PER, 270,336 on the H100), the loci read from global memory
-    every step."""
+    "global" past on_chip_per loci a thread (ON_CHIP_PER for KE-F: n >
+    resident * THREADS * ON_CHIP_PER, 270,336 on the H100), the loci
+    read from global memory every step. csrc/fit_grid.cuh runs the same
+    grids for KZ (ops/zoo_kernels), whose kernels hold other numbers of
+    loci a thread on chip."""
     if n < 1 or resident < 1:
         raise ValueError(f"fit_grid: wants n >= 1 and resident >= 1, got "
                          f"{n}, {resident}")
     per = max(1, -(-n // (THREADS * resident)))
     blocks = -(-n // (THREADS * per))
-    if per > ON_CHIP_PER:
+    if per > on_chip_per:
         regime = "global"
     else:
         regime = "cluster" if blocks <= CLUSTER_MAX else "grid"
@@ -239,6 +242,21 @@ def _check_grid(name, grid, n: int) -> None:
                          f"loci in a regime of the entry")
 
 
+def start_io(params, state: int, n_steps: int, b1: float, b2: float):
+    """The host buffer that a csrc/fit_grid.cuh fit starts from: its state
+    [state] (the parameters params first, zero past them: Adam's moments),
+    the bias corrections [n_steps, 2] (1 - b1**t, 1 - b2**t by Python's
+    **, as special.Adam takes them) and the barrier's two uint32 counters
+    at 0 (one float64)."""
+    p = torch.as_tensor(params, dtype=torch.float64).cpu()
+    io = torch.zeros(state + 2 * n_steps + 1, dtype=torch.float64)
+    io[:p.numel()] = p
+    io[state:state + 2 * n_steps] = torch.tensor(
+        [x for t in range(1, n_steps + 1) for x in (1 - b1 ** t, 1 - b2 ** t)],
+        dtype=torch.float64)
+    return io
+
+
 class FitRun:
     """One fit's operands of KE-F's fit entry on the observations' card,
     checked, allocated and bound once, holding the observations; launch()
@@ -276,12 +294,7 @@ class FitRun:
             raise ValueError(f"{name}: {n_steps} steps of {blocks} blocks "
                              f"overflow the barrier's counter")
         c = dict(zip(CONSTS, consts))
-        io = torch.zeros(STATE + 2 * n_steps + 1, dtype=torch.float64)
-        io[PARAMS] = torch.as_tensor(params, dtype=torch.float64).cpu()
-        io[STATE:STATE + 2 * n_steps] = torch.tensor(
-            [x for t in range(1, n_steps + 1)
-             for x in (1 - c["b1"] ** t, 1 - c["b2"] ** t)],
-            dtype=torch.float64)
+        io = start_io(params, STATE, n_steps, c["b1"], c["b2"])
         self._start, io = io, io.to(dev, copy=True)
         self.dev, self.n_steps = dev, n_steps
         # the launch reads these through their addresses
@@ -328,7 +341,8 @@ def error_fit_run(ref_obs, alt_obs, inst, params, consts,
 # --------------------------------------------------------------------------
 
 def grid_sum(terms, n_blocks: int, per: int):
-    """The sums of terms [K, N] over N in error_fit_run's order: thread
+    """The sums of terms [K, N] over N in error_fit_run's order (and
+    every csrc/fit_grid.cuh fit's): thread
     t of block b adds loci (b * per + i) * THREADS + t from 0.0 (+0.0 past
     N), a warp's lanes fold by halves (xor shuffles), a block adds its
     warps in order, then the blocks in order. Returns (totals [K],
@@ -453,7 +467,12 @@ def adam_model(params, mu, nu, g, t: int, consts):
     """KE-F's Adam step t (1-based) as torch ops: (params, mu, nu) after
     it, with 1 - b1**t and 1 - b2**t by Python's ** as the host's table
     holds them (special.Adam's order; its FMAs exact)."""
-    c = dict(zip(CONSTS, consts))
+    return adam_update(params, mu, nu, g, t, dict(zip(CONSTS, consts)))
+
+
+def adam_update(params, mu, nu, g, t: int, c: dict):
+    """csrc/fit_grid.cuh's Adam step t as torch ops, with the constants
+    lr, b1, b2, omb1, omb2 and eps of the dict c (adam_model's)."""
     c1, c2 = 1 - c["b1"] ** t, 1 - c["b2"] ** t
     mu = sp.fma(g, c["omb1"], mu * c["b1"])
     nu = sp.fma(g * g, c["omb2"], nu * c["b2"])

@@ -12,7 +12,9 @@ against a single-process one, the error-model fits (the emulated
 FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
 KE-F (the error fit, one launch a fit) against its plain step and its
 torch model at the CLI's sizes, a 16-block cluster, 50,000 and 100,000
-patterns and past what the card holds on chip,
+patterns and past what the card holds on chip, KZ (the zoo's fits behind
+tools estimate-parameters, one launch a fit start) against its torch
+model bit for bit in every regime and against the plain version,
 and the engine mesh: K1 sharded over a mesh that repeats cuda:0 against
 one launch, a launch on cuda:1 against one on cuda:0 (with two cards),
 the SNV and somatic chunks split over the mesh, and --mesh on the CLI.
@@ -1374,6 +1376,148 @@ def test_error_zoo_fit_on_card_matches_cpu(cuda, name):
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k] == pytest.approx(v, rel=FIT_RTOL, abs=0), k
+
+
+# KZ (csrc/error_zoo_fit.cu: the zoo's fits, one launch a fit start)
+# against its torch model (ops/zoo_kernels.zoo_fit_model) bit for bit on
+# the card, and against the plain version (the autograd fit) within
+# FIT_RTOL: the fits keep their last step, so the sums' order moves
+# their fields by ulps
+KZ_CASES = {
+    "tool_size": lambda: indel_counts(2, 2000, 30, 1e-2, 0.5),
+    "cluster_16": lambda: fit_kernels.synthetic_counts(9, 4500, 60),
+    "patterns_100k": lambda: fit_kernels.synthetic_counts(9, 130_000, 500)}
+# the tool's fitted model names: (fit function, positional args, family)
+KZ_FITS = {
+    "indelIndy": ("fit_indel_indy", (), "indy"),
+    "indelBinomialMixture": ("fit_indel_binom_mixture", (),
+                             "binom_mixture"),
+    "indelBetaBinomialInsert": ("fit_indel_beta_binomial", (True,),
+                                "beta_binomial"),
+    "indelBetaBinomialDelete": ("fit_indel_beta_binomial", (False,),
+                                "beta_binomial"),
+    "indelIndyNoOverlapInsert": ("fit_indel_indy_noovl", (True,),
+                                 "indy_noovl"),
+    "indelIndyNoOverlapDelete": ("fit_indel_indy_noovl", (False,),
+                                 "indy_noovl"),
+    "indelBinomialMixtureNoOverlapInsert": (
+        "fit_indel_binom_mixture_noovl", (True,), "binom_mixture_noovl"),
+    "indelBinomialMixtureNoOverlapDelete": (
+        "fit_indel_binom_mixture_noovl", (False,), "binom_mixture_noovl")}
+
+
+def kz_run(cuda, family, cc, steps, lock, is_insert, grid=None):
+    """(a ZooRun of family's first start on cc after its launch, its
+    observations)."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    p = ez.IndelPatterns.build(cc, cuda)
+    obs = (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2)
+    run = zk.ZooRun(family, obs, ez.fit_starts(family)[0],
+                    ez.kernel_consts(family, lock), steps, lock, is_insert,
+                    grid=grid)
+    run.launch()
+    return run, obs
+
+
+@pytest.mark.parametrize("case", list(KZ_CASES))
+@pytest.mark.parametrize("family", ["indy", "binom_mixture", "indy_noovl",
+                                    "binom_mixture_noovl", "beta_binomial"])
+def test_kz_bit_for_bit_with_the_model_on_card(cuda, family, case):
+    """A whole fit start in one launch of KZ's kernel keeps zoo_fit_model's
+    state bit for bit on the card at the grid it used (the parameters,
+    Adam's moments, the last step's loss and gradient, the final loss):
+    the tool's full steps at its size, fewer past it; theta free and
+    locked, deletions for the NoOverlap and beta-binomial families."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    cc = KZ_CASES[case]()
+    steps = 600 if case == "tool_size" else 40
+    for lock in (False, True):
+        zk.reset()
+        run, obs = kz_run(cuda, family, cc, steps, lock, False)
+        st = run.state.cpu()
+        assert zk.LAUNCHES[zk.FAMILIES[family].kernel] == 1
+        assert sum(zk.LAUNCHES.values()) == 1
+        want, losses = zk.zoo_fit_model(
+            family, obs, ez.fit_starts(family)[0],
+            ez.kernel_consts(family, lock), steps, lock, False,
+            grid=run.grid[:2])
+        assert same(st, want), (lock, run.grid)
+        assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.parametrize("family", ["binom_mixture", "beta_binomial",
+                                    "binom_mixture_noovl"])
+def test_kz_grid_and_global_regimes_keep_the_bits(cuda, family):
+    """The grid regime (a cooperative launch and its counter barrier) on
+    the cluster regime's grid, and the global regime (the loci read from
+    global memory) forced past the family's on-chip loci a thread, each
+    bit for bit with zoo_fit_model on its grid; a ZooRun launched again
+    after reset() gives its first bits."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    f = zk.FAMILIES[family]
+    cc = KZ_CASES["cluster_16"]()
+    n = len(cc.ref_obs)
+    per = f.on_chip_per + 1
+    for grid in ((16, 1, "grid"), (-(-n // (256 * per)), per, "global")):
+        run, obs = kz_run(cuda, family, cc, 30, False, True, grid=grid)
+        first = run.state.clone()
+        want, _ = zk.zoo_fit_model(family, obs, ez.fit_starts(family)[0],
+                                   ez.kernel_consts(family, False), 30,
+                                   False, True, grid=grid[:2])
+        assert same(first, want), grid
+        run.reset()
+        run.launch()
+        assert same(run.state, first), grid
+
+
+@pytest.mark.parametrize("name", list(KZ_FITS))
+def test_kz_fit_matches_plain_fit_on_card(cuda, name):
+    """Each of the tool's fitted model names on the card through KZ (one
+    launch a fit start, the plain version no time) against the plain
+    version on the card (plain=True) and on the CPU: every field within
+    FIT_RTOL; a second run gives the same bits."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    fn, args, family = KZ_FITS[name]
+    f = zk.FAMILIES[family]
+    starts = len(ez.fit_starts(family))
+    cc = indel_counts(2, 2000, 30, 1e-2, 0.5)
+    steps = 300
+    zk.reset()
+    got = getattr(ez, fn)(cc, *args, steps=steps, device=cuda)
+    assert zk.LAUNCHES[f.kernel] == starts
+    assert sum(zk.LAUNCHES.values()) == starts
+    assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
+    again = getattr(ez, fn)(cc, *args, steps=steps, device=cuda)
+    assert again == got
+    plain = getattr(ez, fn)(cc, *args, steps=steps, device=cuda, plain=True)
+    assert zk.PLAIN_ON_CUDA == {"zoo_fit": starts}
+    cpu = getattr(ez, fn)(cc, *args, steps=steps, device="cpu")
+    for want in (plain, cpu):
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=FIT_RTOL, abs=0), k
+
+
+def test_kz_refused_launch_raises(cuda, monkeypatch):
+    """A fit whose grid the card cannot place raises and counts nothing:
+    the whole grid one thread-block cluster of 196 blocks, past the
+    card's largest (cudaLaunchKernelEx refuses it); the plain version
+    never runs in its place."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    cc = fit_kernels.synthetic_counts(9, 60_000, 300)
+    monkeypatch.setattr(fit_kernels, "fit_grid",
+                        lambda n, resident, per=4: (-(-n // 256), 1,
+                                                    "cluster"))
+    zk.reset()
+    with pytest.raises(RuntimeError, match="KZ-4 launch failed"):
+        ez.fit_indel_indy(cc, steps=5, device=cuda)
+    assert zk.LAUNCHES == {"KZ-4": 0, "KZ-3": 0, "KZ-B": 0}
+    assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
 
 
 # --- the engine mesh (parallel/mesh.py) on the card -------------------------
