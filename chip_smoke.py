@@ -151,7 +151,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    first CONT_MB Mb (host code: no K1, no SNV tile), cuda then cpu,
    every record equal;
 14. RNA: germline --rna --disable-evs on phase 4's contig's first
-   RNA_MB Mb (2 of its 4, for the time limit), cuda then cpu, every
+   RNA_MB Mb (1 of its 4, for the time limit), cuda then cpu, every
    record equal; the SNV tiles' launches and stream ms on the card (the
    het-VF extension there): KG-R (csrc/snv_rna_tile.cu) once a genotype
    tile tally and KG-SB once a strand-bias tally, no plain version
@@ -197,23 +197,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    state, in turns with the fit entry's ms a step, and its 600 launches
    from the host; the prep timed as before.
 15c. tools estimate-parameters on three of phase 15's counts' contexts
-   for each model name that fits on the device (ZOO_NAMES: indelIndy,
+   and on its whole counts file (its contexts and patterns logged) for
+   each model name that fits on the device (ZOO_NAMES: indelIndy,
    indelBinomialMixture, indelBetaBinomial*, indelIndyNoOverlap*,
-   indelBinomialMixtureNoOverlap*), cuda then cpu (the binomial
-   mixtures' cpu side on the first context, for the time), the
-   counters set to 0 just before each run and read just after: on cuda
-   KZ (csrc/error_zoo_fit.cu) launched once a context and start, its
-   plain version and every other kernel no time; every record's field
-   within ERR_FIT_RTOL of the cpu's. Then KZ's kernels alone: each
-   family's fit start bit for bit with zoo_kernels.zoo_fit_model on the
-   three contexts and the KEF_SYNTHETIC context (the grid regime; its
-   own steps on the first context, ZOO_CHECK_STEPS past it),
-   timed on the first and the synthetic one from its start (ms a fit, us
-   a step) with its bound (zoo_kernels.fit_work), chain floor (the
-   kernel on one locus), registers and regime, one launch traced and a
-   whole fit traced (one launch a start); KZ-4's, KZ-3's and KZ-B's
-   kernels-line families (indy, indy_noovl, beta_binomial) also against
-   the plain version on the card (ERR_FIT_RTOL) and timed there.
+   indelBinomialMixtureNoOverlap*): on cuda here, the counters set to 0
+   just before each run and read just after, KZ
+   (csrc/error_zoo_fit.cu) launched zoo_kernels.tool_launches times
+   (one batched launch of its cluster starts, padded to the widest
+   cluster, plus one a start past the cluster),
+   its plain version and every other kernel no time; on cpu one job a
+   context and name in processes started after phase 15 (ZooCpuRuns; a
+   file's record is its contexts' records); every record's field within
+   ERR_FIT_RTOL of the cpu's. Then KZ's kernels
+   alone: each family's starts in a batched launch bit for bit with
+   zoo_kernels.zoo_fit_model on its grid on the three contexts and the
+   KEF_SYNTHETIC context (the grid regime; its own steps on the first
+   context, ZOO_CHECK_STEPS past it), and with --parent-csrc with the
+   parent's kernel where the grid is the parent's; timed on the first
+   and the synthetic one from its start (ms a fit, us a step; the
+   parent's in turns) with its bound (zoo_kernels.fit_work), chain floor
+   (the kernel on one locus; the parent's in turns), registers and
+   regime (a start alone in the cluster regime is a batched launch of
+   one: the tool's kernel), one launch traced and a whole fit traced
+   (the tool's launches for one context); KZ-4's, KZ-3's and KZ-B's kernels-line families
+   (indy, indy_noovl, beta_binomial) also against the plain version on
+   the card (ERR_FIT_RTOL) and timed there; KZ's grid rule timed (a
+   16-block cluster against the grid regime at ZOO_RULE_SIZES seeded
+   patterns, in turns); a tool run's launches timed whole (the tool's
+   padded launch, launches by cluster width, each start alone; in
+   turns).
 Phases 12-15 log each run's size, wall and stream ms by device phase.
 16. denovo: per-sample mode on phase 10's gVCFs (sample 1 the proband)
    and multi-sample mode on its variants.vcf.gz (host code): every input
@@ -275,6 +287,7 @@ import gzip
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2964,9 +2977,10 @@ def worker_report(out, n, cuda: bool) -> list[dict]:
 
 JOBS = 4
 CONT_MB = 1.0   # phase 13's region (continuous-VF is host code)
-# phase 14's region: the contig's first 2 Mb (4 Mb until phases 16-19
-# came, when a smoke from git archive took 1078.7 s of its 1200 s)
-RNA_MB = 2.0
+# phase 14's region: the contig's first 1 Mb (4 Mb until phases 16-19
+# came, when a smoke from git archive took 1078.7 s of its 1200 s; 2 Mb
+# until phase 15c grew, when one took 1231.6 s on a slower machine)
+RNA_MB = 1.0
 # phase 15's bounds, the tests' (tests/test_torch_error_fit.py FLAT_RTOL:
 # the fit keeps its least-loss step, and an ulp can pick another among
 # steps whose losses tie; tests/test_torch_error_zoo.py FIT_RTOL: the
@@ -3444,8 +3458,9 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
     after); the counts' npz arrays equal, the model's rates within
     ERR_FLAT_RTOL, every record equal; KE-F's launches a fit traced, and
     the zoo's plain fit a step traced (zoo_step_profile). Returns the cuda
-    run's launch counts, its first fitted contexts (phase 15b's) and
-    ERR_CONTEXTS of the counts [(key, counts)] (phase 15c's)."""
+    run's launch counts, its first fitted contexts (phase 15b's),
+    ERR_CONTEXTS of the counts [(key, counts)] and the counts file's path
+    (phase 15c's)."""
     from strelka_tpu_torch.__main__ import main as torch_main
     from strelka_tpu_torch.models import error_fit as ef
     from strelka_tpu_torch.ops import score_kernel as sk
@@ -3520,7 +3535,8 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
             outs["cuda"], outs["cpu"], ("variants.vcf.gz",
                                         "genome.S1.vcf.gz"),
             "error estimation: cuda against cpu")
-    full = ac.load_context_counts(os.path.join(outs[devices[0]], npz))
+    full_path = os.path.join(outs[devices[0]], npz)
+    full = ac.load_context_counts(full_path)
     if cuda:
         from strelka_tpu_torch.models import error_zoo as ez
         row["fit_launches"] = fit_launches_per_fit(
@@ -3531,7 +3547,8 @@ def phase_error(np, torch, cuda: bool, fa, bam, n_reads, mb, workdir,
                  f"not 1")
         row["zoo_step"] = zoo_step_profile(torch, ez, full[(1, 1)])
     log("error: " + json.dumps(row))
-    return counts, kept, [(k, full[k]) for k in ERR_CONTEXTS if k in full]
+    return (counts, kept, [(k, full[k]) for k in ERR_CONTEXTS if k in full],
+            full_path)
 
 
 def check_fit_kernels(counts, run) -> None:
@@ -3920,11 +3937,165 @@ ZOO_ROWS = {"KZ-4": "indy", "KZ-3": "indy_noovl", "KZ-B": "beta_binomial"}
 # the steps of phase 15c's bit checks with zoo_fit_model past the first
 # context (there a fit's own steps): the model runs a few hundred torch
 # ops a step on the card, about 5 ms on an H100, so full fits on every
-# context took 150 of the phase's 218 s
+# context took 150 s of a 218 s phase
 ZOO_CHECK_STEPS = 60
-# the mangled template arguments of a KZ kernel's three regimes
-ZOO_REGIMES = (("cluster", "SyncE0ELb1E"), ("grid", "SyncE1ELb1E"),
-               ("global", "SyncE1ELb0E"))
+# a KZ kernel's entries by regime: the cluster regime's is
+# zoo_batch_kernel<P> (a tool run's batched launch, and a start alone),
+# the grid regimes' zoo_grid_kernel<P, on chip>
+ZOO_REGIMES = (("cluster", "zoo_batch_kernel", None),
+               ("grid", "zoo_grid_kernel", "1"),
+               ("global", "zoo_grid_kernel", "0"))
+# KZ's grid rule measured: a step of each family in a 16-block cluster
+# against the grid regime at these first patterns of the KEF_SYNTHETIC
+# context (two, five and 27 loci a thread in the cluster; the rule was set
+# from these and 8,192-36,864, PERF.md section 6)
+ZOO_RULE_SIZES = (5_000, 20_000, 107_434)
+# the cpu side's tool runs: one job a context and model name, in this
+# many spawned processes (the card's machine has 8 cores)
+ZOO_CPU_WORKERS = 6
+
+
+def zoo_cpu_job(path: str, name: str):
+    """tools estimate-parameters <path> <name> --device cpu in this
+    process with one torch thread: (its JSON, its wall s around the
+    call). ZooCpuRuns runs it in a spawned process."""
+    import torch
+    torch.set_num_threads(1)
+    from strelka_tpu_torch.__main__ import main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["tools", "estimate-parameters", path, name, "--device",
+                   "cpu"])
+    wall = time.perf_counter() - t0
+    if rc not in (0, None):
+        raise RuntimeError(f"estimate-parameters {name} --device cpu on "
+                           f"{path} returned {rc}")
+    return json.loads(buf.getvalue()), wall
+
+
+class ZooCpuRuns:
+    """Phase 15c's --device cpu side, started as soon as phase 15's counts
+    file exists: tools estimate-parameters for each ZOO_NAMES name on each
+    context of the file alone (a file of its own: the cpu path fits each
+    context on its own, so a file's record is its contexts' records), one
+    job a context and name, the costliest first (patterns x steps x
+    starts), in ZOO_CPU_WORKERS spawned processes while phases 15b and
+    15c run on the card. get(keys, name) waits for the jobs of the
+    contexts `keys` and returns (the file's JSON of those contexts, the
+    sum of their walls s). The processes end with close(), or are
+    terminated at exit where the smoke fails first."""
+
+    def __init__(self, workdir: str, counts: dict):
+        import atexit
+        import multiprocessing
+        from strelka_tpu_torch.models import error_zoo as ez
+        from strelka_tpu_torch.pipeline import allele_counts as ac
+        cost = []
+        for k, cc in counts.items():
+            path = os.path.join(workdir, f"error_context_{k[0]}_{k[1]}.npz")
+            ac.save_context_counts(path, {k: cc})
+            for name, family in ZOO_NAMES.items():
+                cost.append((len(cc.ref_obs) * ez.STEPS[family]
+                             * len(ez.fit_starts(family)), k, name, path))
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            ZOO_CPU_WORKERS)
+        atexit.register(self.pool.terminate)
+        self.jobs = {(k, name): self.pool.apply_async(zoo_cpu_job,
+                                                      (path, name))
+                     for _, k, name, path in sorted(cost, reverse=True)}
+
+    def get(self, keys, name: str):
+        out, wall = {}, 0.0
+        for k in sorted(keys):
+            got, w = self.jobs[(k, name)].get()
+            out.update(got)
+            wall += w
+        return out, wall
+
+    def close(self) -> None:
+        self.pool.close()
+        self.pool.join()
+
+
+def fit_diff(field: str, got: float, want: float) -> float:
+    """A tool record's field against the cpu's: relative, and for the log
+    likelihood relative to at least one nat (floored_by_the_nat says
+    where that floor decides). A context with next to no
+    indel evidence (phase 15's whole file holds several: no alt count at
+    all) fits to a log likelihood of -1e-3 to -1e-5 nat, a sum of betaln
+    and log terms of values near 1, while its parameters still drift;
+    there two sum orders differ by 3e-13 to 1e-12 nat, up to 2.5e-10 of
+    the value (KZ's arithmetic against the port's cpu path, and the JAX
+    package against the port's cpu path alike)."""
+    d = abs(got - want)
+    return d / max(abs(want), 1.0) if field == "log_lhood" else d / abs(want)
+
+
+def floored_by_the_nat(field: str, got: float, want: float) -> bool:
+    """Whether fit_diff holds the field within ERR_FIT_RTOL only by the
+    log likelihood's one-nat floor (relative to its own value it is
+    over)."""
+    return (field == "log_lhood" and fit_diff(field, got, want)
+            <= ERR_FIT_RTOL and abs(got - want) > ERR_FIT_RTOL * abs(want))
+
+
+def zoo_files(workdir, ctxs, full_path) -> dict:
+    """Phase 15c's counts files: ERR_CONTEXTS of phase 15's counts
+    (`ctxs`) saved as their own file, and phase 15's whole file."""
+    from strelka_tpu_torch.pipeline import allele_counts as ac
+    if not ctxs:
+        fail("phase 15c: phase 15 counted none of ERR_CONTEXTS")
+    sub = os.path.join(workdir, "error_contexts.npz")
+    ac.save_context_counts(sub, dict(ctxs))
+    return {"3 contexts": sub, "whole file": full_path}
+
+
+def start_parent_kz(parent_csrc):
+    """The parent commit's KZ (its csrc/error_zoo_fit.cu, unpacked as
+    parent_kgh's) built with the port's flags into build/parent/ in the
+    background: (the nvcc process, the library's path)."""
+    from strelka_tpu_torch import _build
+    out = os.path.join(HERE, "build", "parent")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "liberror_zoo_fit.so")
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+         os.path.join(parent_csrc, "error_zoo_fit.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def finish_parent_kz(torch, started):
+    """start_parent_kz's build, waited for: launch(run) runs a ZooRun's
+    fit start through the parent's one-launch entry on the current
+    stream, counted nowhere (that entry takes every regime, its cluster
+    one as a flag after n_steps, where the port's takes the grid regimes
+    only)."""
+    import ctypes
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    proc, lib = started
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc of the parent's KZ failed:\n{text}")
+    fn = ctypes.CDLL(lib).zoo_fit_launch
+    fn.restype = ctypes.c_int
+    types = list(zk._ARGTYPES["zoo_fit_launch"])
+    fn.argtypes = types[:11] + [ctypes.c_int] + types[11:]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch(run):
+        blocks, per, regime = run.grid
+        rc = fn(*zk._c_args(run.family), *(o.data_ptr() for o in run._obs),
+                len(run._obs[0]), blocks, per, run.n_steps,
+                int(regime == "cluster"), run.host, *run.flags,
+                run.bias.data_ptr(), run.state.data_ptr(), ptr(run.loc),
+                ptr(run.partials), run.arrivals.data_ptr(),
+                torch.cuda.current_stream(run.dev).cuda_stream)
+        if rc != 0:
+            fail(f"the parent's KZ launch failed: CUDA error {rc}")
+    return launch
 
 
 def merge_counts(counts):
@@ -3959,71 +4130,134 @@ def zoo_tool(torch_main, path, name, device):
 
 
 def zoo_registers(report, f) -> dict:
-    """A KZ kernel's registers by regime from ptxas_report's entries."""
-    name = {"KZ-4": "zoo_fit4_kernel", "KZ-3": "zoo_fit3_kernel",
-            "KZ-B": "zoo_fitb_kernel"}[f.kernel]
-    clean = "" if f.kernel == "KZ-B" else f"ILb{int(f.clean)}E"
+    """A KZ kernel's registers by regime (ZOO_REGIMES) from
+    ptxas_report's entries: its policy's mangled name (3Kz4ILb0E: Kz4<
+    false>), then for the grid kernel its on-chip flag."""
+    policy = {"KZ-4": "3Kz4", "KZ-3": "3Kz3", "KZ-B": "3KzB"}[f.kernel] + (
+        "" if f.kernel == "KZ-B" else f"ILb{int(f.clean)}E")
     out = {}
-    for regime, tail in ZOO_REGIMES:
+    for regime, entry, on_chip in ZOO_REGIMES:
+        pat = re.compile(entry + r"INS_" + re.escape(policy)
+                         + (r"E*Lb" + on_chip + "E" if on_chip else r"E*v"))
         hits = [v for k, v in report["registers_by_entry"].items()
-                if name + clean in k and tail in k]
+                if pat.search(k)]
         out[regime] = hits[0] if len(hits) == 1 else None
     return out
 
 
+def kz_in_turns(torch, run, parent, reps=3):
+    """A ZooRun's whole fit from its start (kef_fit_ms, `reps` launches
+    a round) and, where `parent` (finish_parent_kz's launch), the
+    parent's kernel on the same operands, in turns: kernel, parent,
+    parent, kernel. Returns (ms, the parent's ms or None, each round)."""
+    class Parent:
+        def reset(self):
+            run.reset()
+
+        def launch(self):
+            parent(run)
+    order = (run, Parent(), Parent(), run) if parent else (run,)
+    ms = [kef_fit_ms(torch, r, reps) for r in order]
+    if not parent:
+        return ms[0], None, ms
+    return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2, ms
+
+
+def kz_batch_bits(torch, dev, family, cases, parent) -> dict:
+    """Every fit start of family's tool runs (ZooBatch, theta free,
+    insertions) bit for bit with zoo_fit_model on its grid: the first of
+    `cases` ([(label, counts)]) at the family's own steps, the others
+    together at ZOO_CHECK_STEPS; where a start's grid is the parent's
+    (fit_kernels.fit_grid's) and `parent` is given, also bit for bit
+    with the parent's kernel launched alone on it. Returns the checks."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    f = zk.FAMILIES[family]
+    x0s = ez.fit_starts(family)
+    c = ez.kernel_consts(family, False)
+    resident = zk.resident_blocks(f, dev)
+    out = {"starts_same_bits": 0, "parent_same_bits": 0, "grids": []}
+    for part, steps in ((cases[:1], ZOO_FITS[family][2]),
+                        (cases[1:], ZOO_CHECK_STEPS)):
+        if not part:
+            continue
+        batch = zk.ZooBatch(family, [ez._host_obs(cc) for _, cc in part],
+                            x0s, c, steps, False, True, dev)
+        batch.launch()
+        got = batch.states.cpu()
+        for i, w in enumerate(batch.work):
+            o = tuple(t[w.offset:w.offset + w.n] for t in batch.obs)
+            want, _ = zk.zoo_fit_model(family, o, x0s[w.start], c, steps,
+                                       False, True, grid=w.grid[:2])
+            label = part[w.context][0]
+            if not same_bits(torch, got[i], want):
+                fail(f"phase 15c {label}: {f.kernel}'s {family} start "
+                     f"{w.start} in a batched launch differs from "
+                     f"zoo_fit_model's state on its grid {w.grid}")
+            out["starts_same_bits"] += 1
+            out["grids"].append([label, w.start, list(w.grid)])
+            if parent and w.grid == fk.fit_grid(w.n, resident,
+                                                f.on_chip_per):
+                run = zk.ZooRun(family, o, x0s[w.start], c, steps, False,
+                                True, grid=w.grid)
+                parent(run)
+                if not same_bits(torch, got[i], run.state):
+                    fail(f"phase 15c {label}: {f.kernel}'s {family} start "
+                         f"{w.start} differs from the parent's kernel on "
+                         f"the same grid {w.grid}")
+                out["parent_same_bits"] += 1
+    return out
+
+
 def kz_context(np, torch, dev, cuda: bool, family, label, cc, regs,
-               timed: bool, plain: bool, check_steps=None) -> dict:
-    """Phase 15c's kernels alone on one context: a fit start of family's
-    KZ kernel (its first start, theta free, insertions) of check_steps
-    Adam steps (default the fit's own) bit for bit with zoo_fit_model on
-    the card at the kernel's grid; where `timed`, the fit of its own
-    steps timed from its start (ms a fit, us a step) with its bound
+               plain: bool, parent, bits=None) -> dict:
+    """Phase 15c's timings of family's KZ kernel on one context: a fit
+    start (its first start, theta free, insertions) of its own steps
+    timed from its start (ms a fit, us a step), with the parent's kernel
+    in turns where `parent` is given, with its bound
     (zoo_kernels.fit_work), chain floor (the kernel on the context's most
-    frequent pattern), registers and regime, one launch traced and the
-    family's whole fit traced (one launch a start); where `plain`, the
-    family's fit through the kernel against the plain version's on the
-    card (the autograd fit, timed by host clock). Returns the row."""
+    frequent pattern, the parent's in turns), registers and regime, one
+    launch traced and the family's whole fit traced (the tool's launches
+    for one context: zk.tool_launches); where `plain`, the family's fit
+    through the kernel against the plain version's on the card (the
+    autograd fit, timed by host clock); `bits`, kz_batch_bits' checks.
+    Returns the row."""
     from strelka_tpu_torch.models import error_zoo as ez
     from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.ops import zoo_kernels as zk
     f = zk.FAMILIES[family]
     fn, args, steps = ZOO_FITS[family]
-    check = check_steps or steps
     p = ez.IndelPatterns.build(cc, dev)
     obs = (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2)
     n = len(cc.ref_obs)
     x0 = ez.fit_starts(family)[0]
     c = ez.kernel_consts(family, False)
+    info = {"family": family, "kernel": f.kernel, "case": label,
+            "patterns": n, "steps": steps}
+    if bits is not None:
+        info["model_same_bits"] = bits["starts_same_bits"] > 0
+        info["batched_bit_checks"] = {k: bits[k] for k in (
+            "starts_same_bits", "parent_same_bits")}
+    large = 0
     if cuda:
-        run = zk.ZooRun(family, obs, x0, c, check, False, True)
+        run = zk.ZooRun(family, obs, x0, c, steps, False, True)
         grid = run.grid
         run.launch()
         st = run.state.cpu()
     else:
-        grid = fk.fit_grid(n, fk.MAX_BLOCKS, f.on_chip_per)
-    want, _ = zk.zoo_fit_model(family, obs, x0, c, check, False, True,
-                               grid=grid[:2])
-    info = {"family": family, "kernel": f.kernel, "case": label,
-            "patterns": n, "steps": steps, "checked_steps": check,
-            "grid": list(grid)}
-    if cuda:
-        info["model_same_bits"] = same_bits(torch, st, want)
-        if not info["model_same_bits"]:
-            fail(f"phase 15c {label}: {f.kernel}'s {family} fit differs "
-                 f"from zoo_fit_model's state on the card")
-    else:
-        st = want.cpu()
+        grid = zk.kz_grid(n, fk.MAX_BLOCKS, f)
+        st, _ = zk.zoo_fit_model(family, obs, x0, c, steps, False, True,
+                                 grid=grid[:2])
+    info["grid"] = list(grid)
     if not bool(torch.isfinite(st).all()):
         fail(f"phase 15c {label}: {family}'s fit state is not finite")
     at = zk.state_slots(f)
     info["final_loss"] = float(st[at["final"]])
-    if not timed:
-        log(f"kz {family} {label}: " + json.dumps(info))
-        return info
-    large = 0
     if f.kernel == "KZ-B":
         # betaln's branch at the final parameters, a locus
-        r = zk._scalars(f, st[at["params"]], dict(zip(zk.CONSTS, c)), False)
+        r = zk._scalars(f, st[at["params"]].cpu(), dict(zip(zk.CONSTS, c)),
+                        False)
         k = p.alt_obs[:, :3].sum(dim=1).cpu()
         large = int((torch.maximum(k + r["alpha"], p.ref_obs.cpu()
                                    + r["beta"]) >= 8).sum())
@@ -4034,32 +4268,45 @@ def kz_context(np, torch, dev, cuda: bool, family, label, cc, regs,
     row = {"shape": [n, steps], "bytes": int(nbytes), "f32_ops": 0,
            "f64_ops": int(ops), "library_ms": None,
            "library_note": f"no PyTorch call computes it: a zoo model's "
-                           f"loss, its gradient and Adam, {steps} steps"}
+                           f"loss, its gradient and Adam, {steps} steps",
+           "bound_note": "a fit is a chain of its steps, each waiting on "
+                         "the last: far below the operations bound at "
+                         "any size"}
     row["bound_ms"], row["bound_by"] = ((tb, "bytes") if tb >= to
                                         else (to, "operations"))
     fit_args = (cc, *args)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
-        if check != steps:
-            run = zk.ZooRun(family, obs, x0, c, steps, False, True)
-        row["ms"] = row["device_ms"] = kef_fit_ms(torch, run)
-        row["device_ms_from"] = ("CUDA events around each of 5 launches of "
-                                 "the fit start, each from its start")
+        ms, pms, rounds = kz_in_turns(torch, run, parent)
+        row["ms"] = row["device_ms"] = ms
+        row["device_ms_from"] = ("CUDA events around each of 3 launches of "
+                                 "the fit start a round, each from its "
+                                 "start")
+        if pms is not None:
+            row["parent_ms"] = pms
+            row["turns_ms"] = rounds
+            row["parent_us_a_step"] = pms * 1e3 / steps
         run.reset()
         row["trace"] = profile_call(torch, run.launch)
         fit_trace = profile_call(torch, lambda: getattr(ez, fn)(
             *fit_args, device=dev))
-        starts = len(ez.fit_starts(family))
-        if fit_trace["launches"] != starts:
+        want = zk.tool_launches(family, [n], len(ez.fit_starts(family)),
+                                zk.resident_blocks(f, dev))
+        if fit_trace["launches"] != want:
             fail(f"phase 15c: a traced {family} fit holds "
-                 f"{fit_trace['launches']} launches, not {starts}")
+                 f"{fit_trace['launches']} launches, not {want}")
         row["fit_trace_launches"] = fit_trace["launches"]
         m = int(np.argmax(cc.instance_count))
         floor = zk.ZooRun(family, tuple(o[m:m + 1].contiguous()
                                         for o in obs), x0, c, steps, False,
                           True)
-        row["chain_floor_ms"] = kef_fit_ms(torch, floor)
-        row["chain_floor_share"] = row["chain_floor_ms"] / row["ms"]
+        fms, fpms, _ = kz_in_turns(torch, floor, parent)
+        row["chain_floor_ms"] = fms
+        row["chain_floor_share"] = fms / ms
+        row["chain_floor_us_a_step"] = fms * 1e3 / steps
+        if fpms is not None:
+            row["parent_chain_floor_ms"] = fpms
+            row["parent_chain_floor_us_a_step"] = fpms * 1e3 / steps
         row["registers"] = zoo_registers(regs, f)
         row["spill_store_bytes"] = regs["spill_store_bytes"]
         row["regime"] = grid[2]
@@ -4091,48 +4338,165 @@ def kz_context(np, torch, dev, cuda: bool, family, label, cc, regs,
     return row
 
 
-def phase_zoo(np, torch, dev, cuda: bool, ctxs, workdir, rehearse: bool):
-    """Phase 15c: tools estimate-parameters on phase 15's contexts
-    (ctxs, ERR_CONTEXTS of its counts) for each model name that fits on
-    the device (ZOO_NAMES), cuda then cpu, the launch counters set to 0
-    just before each run and read just after: on cuda KZ's kernel
-    launched once a context and start, no other kernel and no plain fit;
-    the records equal in contexts and keys and every field within
-    ERR_FIT_RTOL of the cpu's (the binomial mixtures' cpu side on the
-    first context alone, for the time). Then KZ's kernels alone
-    (kz_context): each family on the three contexts and on the
-    KEF_SYNTHETIC context, bit for bit with zoo_fit_model, timed on the
-    first context and the synthetic one (the bit checks past the first
-    context of ZOO_CHECK_STEPS steps), the kernels line's families
-    against the plain version. Returns (the cuda runs' counts summed, the
-    kernels line's rows by kernel)."""
+def cut_counts(cc, n):
+    """The first n patterns of a context's counts."""
+    from strelka_tpu_torch.models.error_fit import ContextCounts
+    return ContextCounts(cc.ref_obs[:n], cc.alt_obs[:n],
+                         cc.instance_count[:n])
+
+
+def kz_rule(torch, dev, syn) -> dict:
+    """KZ's grid rule measured: at each of ZOO_RULE_SIZES first patterns
+    of the synthetic context, a whole fit start of each family (its own
+    steps) in one 16-block cluster at ceil(n / 4096) loci a thread (where
+    that is on chip: at most the family's on_chip_per) and in the grid
+    regime (fit_kernels.fit_grid), in turns (cluster, grid, grid,
+    cluster; 3 launches a round from the start), us a step; beside each
+    the grid that kz_grid picks. Returns {family: [rows]}."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import fit_kernels as fk
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    out: dict = {}
+    for size in ZOO_RULE_SIZES:
+        cc = cut_counts(syn, size)
+        n = len(cc.ref_obs)
+        p = ez.IndelPatterns.build(cc, dev)
+        obs = (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2)
+        for family in ZOO_FITS:
+            f = zk.FAMILIES[family]
+            steps = ZOO_FITS[family][2]
+            x0 = ez.fit_starts(family)[0]
+            c = ez.kernel_consts(family, False)
+            resident = zk.resident_blocks(f, dev)
+            per = -(-n // (fk.THREADS * zk.CLUSTER_MAX))
+            grids = {"grid": fk.fit_grid(n, resident, f.on_chip_per)}
+            if per <= f.on_chip_per:
+                grids["cluster"] = (-(-n // (fk.THREADS * per)), per,
+                                    "cluster")
+            runs = {k: zk.ZooRun(family, obs, x0, c, steps, False, True,
+                                 grid=g) for k, g in grids.items()}
+            order = (["cluster", "grid", "grid", "cluster"]
+                     if "cluster" in runs else ["grid", "grid"])
+            ms: dict = {}
+            for k in order:
+                ms.setdefault(k, []).append(kef_fit_ms(torch, runs[k], 3))
+            row = {"patterns": n, "steps": steps,
+                   "rule": list(zk.kz_grid(n, resident, f)),
+                   "cluster_loci_a_thread": per}
+            for k, g in grids.items():
+                row[f"{k}_grid"] = list(g)
+                row[f"{k}_us_a_step"] = sum(ms[k]) / len(ms[k]) * 1e3 / steps
+                row[f"{k}_rounds_ms"] = ms[k]
+            if "cluster" not in grids:
+                row["cluster_note"] = (f"{per} loci a thread, past the "
+                                       f"family's {f.on_chip_per} on chip")
+            out.setdefault(family, []).append(row)
+            log(f"kz rule {family}: " + json.dumps(row))
+    return out
+
+
+def kz_batches(torch, dev, files) -> dict:
+    """A tool run's KZ launches timed whole, for each family on each of
+    `files` ({label: contexts}): the tool's ZooBatch (its cluster starts
+    in one launch padded to the widest cluster), its cluster starts in
+    one ZooBatch a cluster width, one after another (the plan that
+    padding was measured against), and each
+    start alone (ZooRun on its kz_grid, one after another: one launch
+    a start), in turns (tool, by width, alone, alone, by width, tool),
+    each from its start with the states reset outside the CUDA events;
+    ms a run and launches. Returns {label: {family: row}}."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+
+    class Seq:
+        """Runs (ZooBatch or ZooRun) launched one after another."""
+
+        def __init__(self, runs):
+            self.runs = runs
+            self.launches = sum(getattr(r, "launches", 1) for r in runs)
+
+        def reset(self):
+            for r in self.runs:
+                r.reset()
+
+        def launch(self):
+            for r in self.runs:
+                r.launch()
+    out: dict = {}
+    for label, ctxs in files.items():
+        obs = [ez._host_obs(cc) for cc in ctxs]
+        for family in ZOO_FITS:
+            x0s = ez.fit_starts(family)
+            c = ez.kernel_consts(family, False)
+            steps = ZOO_FITS[family][2]
+            batch = zk.ZooBatch(family, obs, x0s, c, steps, False, True, dev)
+            widths: dict = {}
+            for w in batch.work:
+                if w.grid[2] == "cluster":
+                    widths.setdefault(w.grid[0], set()).add(w.context)
+            ways = {"tool": batch, "by_width": Seq([
+                zk.ZooBatch(family, [obs[i] for i in sorted(idx)], x0s, c,
+                            steps, False, True, dev)
+                for _, idx in sorted(widths.items())]), "alone": Seq([
+                    zk.ZooRun(family, tuple(
+                        t[w.offset:w.offset + w.n] for t in batch.obs),
+                        x0s[w.start], c, steps, False, True, grid=w.grid)
+                    for w in batch.work])}
+            ms: dict = {}
+            for k in ("tool", "by_width", "alone", "alone", "by_width",
+                      "tool"):
+                ms.setdefault(k, []).append(kef_fit_ms(torch, ways[k], 2))
+            row = {k: {"ms": sum(v) / len(v), "rounds_ms": v,
+                       "launches": ways[k].launches} for k, v in ms.items()}
+            row["starts"] = len(batch.work)
+            row["widths"] = sorted(widths)
+            out.setdefault(label, {})[family] = row
+            log(f"kz batch {label} {family}: " + json.dumps(row))
+    return out
+
+
+def phase_zoo(np, torch, dev, cuda: bool, ctxs, files, cpu_runs, workdir,
+              rehearse: bool, parent=None):
+    """Phase 15c: tools estimate-parameters on `files` (zoo_files: phase
+    15's ERR_CONTEXTS, and its whole counts file) for each model name
+    that fits on the device (ZOO_NAMES), on cuda in this process, the
+    launch counters set to 0 just before each run and read just after:
+    KZ launched zk.tool_launches times (its batched launch plus one a
+    large start), no other kernel and no plain fit; each record's
+    contexts, keys and fields within ERR_FIT_RTOL of the cpu's
+    (`cpu_runs`, ZooCpuRuns). Then KZ's kernels alone: each family's
+    starts in a batched launch bit for bit with zoo_fit_model
+    (kz_batch_bits) on ctxs and the KEF_SYNTHETIC context (and with the
+    parent's kernel, `parent`, where its grid is the parent's); each
+    family timed on the first context and the synthetic one (kz_context,
+    the parent's in turns), the kernels line's families against the
+    plain version; KZ's grid rule timed (kz_rule); a tool run's launches
+    timed: the tool's plan, by width and alone (kz_batches). Returns (the
+    cuda runs' counts summed, the kernels line's rows by kernel)."""
     from strelka_tpu_torch.__main__ import main as torch_main
     from strelka_tpu_torch.models import error_zoo as ez
     from strelka_tpu_torch.ops import fit_kernels as fk
     from strelka_tpu_torch.ops import zoo_kernels as zk
     from strelka_tpu_torch.pipeline import allele_counts as ac
-    if not ctxs:
-        fail("phase 15c: phase 15 counted none of ERR_CONTEXTS")
-    sub = os.path.join(workdir, "error_contexts.npz")
-    ac.save_context_counts(sub, dict(ctxs))
-    sub1 = os.path.join(workdir, "error_context_first.npz")
-    ac.save_context_counts(sub1, dict(ctxs[:1]))
-    row = {"contexts": [list(k) for k, _ in ctxs],
-           "patterns": [len(cc.ref_obs) for _, cc in ctxs], "names": {}}
-    devices = ["cuda", "cpu"] if cuda else ["cpu"]
+    loaded = {label: ac.load_context_counts(path)
+              for label, path in files.items()}
+    row = {label: {"contexts": [list(k) for k in sorted(c)],
+                   "patterns": [len(c[k].ref_obs) for k in sorted(c)]}
+           for label, c in loaded.items()}
+    log("zoo files: " + json.dumps(row))
+    row["names"] = {}
     path_counts = []
-    for name, family in ZOO_NAMES.items():
-        f = zk.FAMILIES[family]
-        starts = len(ez.fit_starts(family))
-        info = {"family": family, "kernel": f.kernel, "starts": starts}
-        est = {}
-        for device in devices:
-            path = sub1 if device == "cpu" and starts > 1 else sub
-            est[device], wall, c = zoo_tool(torch_main, path, name, device)
-            info[f"{device}_wall_s"] = wall
-            info[f"{device}_contexts"] = len(est[device])
-            if device != devices[0]:
-                continue
+    here = "cuda" if cuda else "cpu"
+    runs = {}
+    for label, path in files.items():
+        sizes = row[label]["patterns"]
+        for name, family in ZOO_NAMES.items():
+            f = zk.FAMILIES[family]
+            starts = len(ez.fit_starts(family))
+            info = {"file": label, "family": family, "kernel": f.kernel,
+                    "starts": starts}
+            got, wall, c = zoo_tool(torch_main, path, name, here)
+            info[f"{here}_wall_s" if cuda else "cpu_here_wall_s"] = wall
             path_counts.append(c)
             check_path_launches(f"estimate-parameters {name}", c, cuda,
                                 k1_expected=False)
@@ -4141,32 +4505,21 @@ def phase_zoo(np, torch, dev, cuda: bool, ctxs, workdir, rehearse: bool):
                 fail(f"phase 15c: estimate-parameters {name} launched "
                      f"{c['snv_kernels']} {c['fit_kernels']}")
             if cuda:
-                want = {k: (len(ctxs) * starts if k == f.kernel else 0)
+                launches = zk.tool_launches(family, sizes, starts,
+                                            zk.resident_blocks(f, dev))
+                want = {k: (launches if k == f.kernel else 0)
                         for k in zk.LAUNCHES}
                 if c["zoo_kernels"] != want:
-                    fail(f"phase 15c: estimate-parameters {name} launched "
-                         f"{c['zoo_kernels']}, its fits need {want}")
+                    fail(f"phase 15c: estimate-parameters {name} on {label} "
+                         f"launched {c['zoo_kernels']}, its run needs "
+                         f"{want}")
                 if any(c["zoo_plain"].values()):
                     fail(f"phase 15c: estimate-parameters {name} ran the "
                          f"plain fit on the card: {c['zoo_plain']}")
-                info["launches"] = c["zoo_kernels"][f.kernel]
-        if cuda:
-            worst: dict = {}
-            for ctx, want in est["cpu"].items():
-                got = est["cuda"].get(ctx)
-                if got is None or list(got) != list(want):
-                    fail(f"phase 15c: estimate-parameters {name}'s {ctx} "
-                         f"differs in its keys, cuda against cpu")
-                for k, v in want.items():
-                    worst[k] = max(worst.get(k, 0.0),
-                                   abs(got[k] - v) / abs(v))
-            bad = {k: w for k, w in worst.items() if w > ERR_FIT_RTOL}
-            if bad:
-                fail(f"phase 15c: estimate-parameters {name} differs, cuda "
-                     f"against cpu, over {ERR_FIT_RTOL}: {bad}")
-            info["max_rel_diff_by_field"] = worst
-        row["names"][name] = info
-        log(f"zoo {name}: " + json.dumps(info))
+                info["launches"] = launches
+                info["fit_starts"] = starts * len(sizes)
+            runs[(label, name)] = (got, info)
+    # KZ's kernels alone, while the cpu side's processes run
     regs = ptxas_report()["error_zoo_fit"] if cuda else None
     seed, n, ref_max = KEF_SYNTHETIC
     if rehearse:
@@ -4179,14 +4532,46 @@ def phase_zoo(np, torch, dev, cuda: bool, ctxs, workdir, rehearse: bool):
     cases.append(("synthetic", syn))
     rows = {}
     for family in ZOO_FITS:
-        for i, (label, cc) in enumerate(cases):
-            first = i == 0
+        bits = (kz_batch_bits(torch, dev, family, cases, parent) if cuda
+                else None)
+        if bits:
+            log(f"kz bits {family}: " + json.dumps(bits))
+        for label, cc in (cases[0], cases[-1]):
+            first = label == cases[0][0]
             r = kz_context(np, torch, dev, cuda, family, label, cc, regs,
-                           first or label == "synthetic",
-                           first and family in ZOO_ROWS.values(),
-                           None if first else ZOO_CHECK_STEPS)
+                           first and family in ZOO_ROWS.values(), parent,
+                           bits)
             if first and family in ZOO_ROWS.values():
                 rows[zk.FAMILIES[family].kernel] = r
+    if cuda:
+        row["rule"] = kz_rule(torch, dev, syn)
+        row["batches"] = kz_batches(torch, dev, {
+            label: [c[k] for k in sorted(c)] for label, c in loaded.items()})
+    # the cpu side: each record against this process's run
+    for (label, name), (got_all, info) in runs.items():
+        want_all, info["cpu_wall_s"] = cpu_runs.get(loaded[label], name)
+        info["contexts"] = len(want_all)
+        worst: dict = {}
+        if list(got_all) != list(want_all):
+            fail(f"phase 15c: estimate-parameters {name} on {label}: "
+                 f"contexts differ, {here} against cpu")
+        floored = 0
+        for ctx, want in want_all.items():
+            got = got_all[ctx]
+            if list(got) != list(want):
+                fail(f"phase 15c: estimate-parameters {name}'s {ctx} "
+                     f"differs in its keys, {here} against cpu")
+            for k, v in want.items():
+                worst[k] = max(worst.get(k, 0.0), fit_diff(k, got[k], v))
+                floored += floored_by_the_nat(k, got[k], v)
+        bad = {k: w for k, w in worst.items() if w > ERR_FIT_RTOL}
+        if bad:
+            fail(f"phase 15c: estimate-parameters {name} on {label} "
+                 f"differs, {here} against cpu, over {ERR_FIT_RTOL}: {bad}")
+        info["max_rel_diff_by_field"] = worst
+        info["log_lhood_held_by_the_nat_floor"] = floored
+        row["names"][f"{name} {label}"] = info
+        log(f"zoo {name} {label}: " + json.dumps(info))
     log("zoo: " + json.dumps(row))
     return merge_counts(path_counts), rows
 
@@ -4652,9 +5037,9 @@ def main(argv=None) -> int:
                          "(two or more); no result line")
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="a parent commit's strelka_tpu_torch/csrc (from "
-                         "git archive): its KG-H, KG-SB, KG-R and KE-F are "
-                         "built and timed beside this tree's in phases 3, "
-                         "4b, 14b and 15b")
+                         "git archive): its KG-H, KG-SB, KG-R, KE-F and KZ "
+                         "are built and timed beside this tree's in phases "
+                         "3, 4b, 14b, 15b and 15c")
     opts = ap.parse_args(argv)
     rehearse = opts.rehearse
 
@@ -4899,9 +5284,14 @@ def main(argv=None) -> int:
     log("== phase 15: germline --estimate-sequence-error, cuda then cpu; "
         "tools estimate-parameters")
     t0 = time.perf_counter()
-    error, kept15, ctxs15 = phase_error(
+    zoo_parent = (start_parent_kz(os.path.abspath(opts.parent_csrc))
+                  if cuda and opts.parent_csrc else None)
+    error, kept15, ctxs15, counts15 = phase_error(
         np, torch, cuda, fa, bam, n_reads, cont_mb, workdir,
         [*base_args, "--region", region, "--estimate-sequence-error"])
+    zoo_files15 = zoo_files(workdir, ctxs15, counts15)
+    from strelka_tpu_torch.pipeline import allele_counts as ac
+    zoo_cpu = ZooCpuRuns(workdir, ac.load_context_counts(counts15))
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     log("== phase 15b: KE-F's fit entry on phase 15's first fits and a "
         "synthetic context vs fit_model and the plain step")
@@ -4914,8 +5304,11 @@ def main(argv=None) -> int:
     log("== phase 15c: tools estimate-parameters' zoo fits, cuda then cpu; "
         "KZ's kernels vs zoo_fit_model and the plain version")
     t0 = time.perf_counter()
-    zoo_counts, zoo_rows = phase_zoo(np, torch, dev, cuda, ctxs15, workdir,
-                                     rehearse)
+    zoo_counts, zoo_rows = phase_zoo(
+        np, torch, dev, cuda, ctxs15, zoo_files15, zoo_cpu, workdir,
+        rehearse, finish_parent_kz(torch, zoo_parent) if zoo_parent
+        else None)
+    zoo_cpu.close()
     del ctxs15
     log(f"phase 15c took {time.perf_counter() - t0:.1f} s")
 
@@ -5183,7 +5576,10 @@ def main(argv=None) -> int:
                 "patterns", "steps", "model_same_bits", "device_us_a_step",
                 "chain_floor_ms", "chain_floor_share", "fit_trace_launches",
                 "plain_ms_from", "plain_max_rel_diff_by_field",
-                "betaln_algdiv_loci") if k in krow},
+                "betaln_algdiv_loci", "bound_note", "parent_ms",
+                "parent_us_a_step", "turns_ms", "chain_floor_us_a_step",
+                "parent_chain_floor_ms", "parent_chain_floor_us_a_step",
+                "batched_bit_checks") if k in krow},
         })
     if rehearse:
         log(json.dumps({"kernels": kernels}))

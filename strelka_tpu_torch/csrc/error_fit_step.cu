@@ -307,9 +307,11 @@ struct ErrorFit {
     }
 
     // the parameters and moments from the state buffer; step 1's rates
+    // (lane 0 of warp 0)
     static __device__ __forceinline__ void start(const double* state,
                                                  double* st, Rates& r,
-                                                 const Consts& c) {
+                                                 const Consts& c, int lane) {
+        if (lane != 0) return;
 #pragma unroll
         for (int k = 0; k < kBestV; ++k) st[k] = state[k];
 #pragma unroll

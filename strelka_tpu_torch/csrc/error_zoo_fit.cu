@@ -1,19 +1,25 @@
-// KZ: the error-model zoo's indel fits on Hopper (sm_90a), one launch a
-// fit start.
+// KZ: the error-model zoo's indel fits on Hopper (sm_90a): a tool run's
+// fit starts side by side, one thread-block cluster a fit start.
 //
 // Replaces strelka_tpu/models/error_zoo.py:294-297, the step that the
 // zoo's _fit jits (jax.value_and_grad of a model's negative log
 // likelihood, then optax.adam's update: one XLA program a step, no
 // Pallas), whose plain version in the port is models/error_zoo._fit_plain:
 // the loss as torch ops, torch.autograd's backward and utils/special.Adam,
-// some 350 kernels a step. `tools estimate-parameters` fits one context a
-// call with one of three kernels, each a fit_grid.cuh policy, so a fit
-// start is one launch: the loci's parameter-free values computed once and
-// held on chip, every step's loss and its gradient in closed form summed
-// over the loci in fit_grid.cuh's fixed order, Adam on the 2-4
-// parameters (theta's slot left as it is where theta is locked), the
-// last step kept (the zoo has no best-step rule), and after the last step
-// the loss once more at the final parameters, as _fit takes it:
+// some 350 kernels a step. Three kernels, each a fit_grid.cuh policy, run
+// a whole fit start in its blocks: the loci's parameter-free values
+// computed once and held on chip, every step's loss and its gradient in
+// closed form summed over the loci in fit_grid.cuh's fixed order, Adam on
+// the 2-4 parameters (theta's slot left as it is where theta is locked),
+// the last step kept (the zoo has no best-step rule), and after the last
+// step the loss once more at the final parameters, as _fit takes it.
+// `tools estimate-parameters` fits every context of a counts file at once
+// (ops/zoo_kernels.ZooBatch): its fit starts that a cluster of up to 16
+// blocks holds run side by side in one batched launch, padded to the
+// widest cluster (zoo_fit_batch_launch, fit_grid.cuh's batch_body: cluster
+// c runs start c of the work list; a start alone is a batch of one), the
+// larger ones one launch each (zoo_fit_launch, the grid regimes). The
+// kernels:
 //
 // - KZ-4 <kClean>: the 4-state genotype mixture {hom, het, no-indel,
 //   alt-het}: indelIndy (kClean false: ins, del, theta) and
@@ -50,10 +56,20 @@
 // version (tests/test_torch_zoo_kernel.py) and not bit for bit.
 // ops/zoo_kernels.zoo_fit_model is all of it in torch ops, bit for bit.
 //
+// Each step's tail (warp 0 of every block) spreads the next step's scalars
+// over the lanes: a parameter a lane (its gradient chain, Adam and
+// log_sigmoid), then combine's independent transcendentals a lane each
+// (log(wr), log(wc) and the no-indel prior's log(wt); KZ-B's lgamma or
+// algdiv and digamma of betaln(alpha, beta)'s arguments), gathered by
+// __shfl_sync into lane 0, which adds them in the order of one lane's
+// chain: each value is the same operation on the same operands, so no
+// bit moves.
+//
 // Bound on the H100: a fit reads the observations once and does a few
 // dozen to a few hundred float64 operations a locus a step
 // (ops/zoo_kernels.F64_PER_LOCUS); at the tool's contexts (10^2 to 10^5
-// patterns) the step's dependent chain decides the time, as for KE-F.
+// patterns) the step's dependent chain decides the time, as for KE-F, so
+// a tool run's fits go side by side rather than one after another.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -95,7 +111,7 @@ struct Obs {
 };
 
 // a step's parameter-dependent scalars, computed from the parameters by
-// the tail (bounded on lanes, combine on lane 0)
+// the tail (bounded a parameter a lane, then combine over the lanes)
 struct Scalars {
     double lnb[4];    // each parameter's ln limit + log_sigmoid(x)
     double dx[4];     // d lnb / d x
@@ -123,22 +139,35 @@ __device__ __forceinline__ void bounded(double x, double lim, double& lnb,
     e = exp(lnb);
 }
 
-// theta's priors from its slot (free theta) or the host's (locked)
+// the no-indel prior's weight from theta's slot: 1 - (1.5 theta +
+// theta^2) with the alt-het state, else 1 - 1.5 theta
 template <bool kAltHet>
-__device__ __forceinline__ void priors(Scalars& r, int slot,
-                                       const ZooConsts& c) {
+__device__ __forceinline__ double theta_weight(const Scalars& r, int slot) {
+    const double th = r.e[slot];
+    return kAltHet ? dsub(1.0, dadd(dmul(th, 1.5), dmul(th, th)))
+                   : dsub(1.0, dmul(th, 1.5));
+}
+
+// theta's priors from its slot, its weight wt and log(wt) (free theta), or
+// the host's (locked)
+__device__ __forceinline__ void priors(Scalars& r, int slot, double wt,
+                                       double log_wt, const ZooConsts& c) {
     if (c.lock_theta) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) r.prior[k] = c.prior[k];
         return;
     }
-    const double lt = r.lnb[slot], th = r.e[slot];
-    r.wt = kAltHet ? dsub(1.0, dadd(dmul(th, 1.5), dmul(th, th)))
-                   : dsub(1.0, dmul(th, 1.5));
+    const double lt = r.lnb[slot];
+    r.wt = wt;
     r.prior[0] = dsub(lt, c.ln2);
     r.prior[1] = lt;
-    r.prior[2] = log(r.wt);
+    r.prior[2] = log_wt;
     r.prior[3] = dmul(lt, 2.0);
+}
+
+// lane k's v: every lane of warp 0 calls it
+__device__ __forceinline__ double from_lane(double v, int k) {
+    return __shfl_sync(fitgrid::kAll, v, k);
 }
 
 // d loss / d ln theta from the prior sums (hom, het, no-indel, alt-het)
@@ -250,23 +279,35 @@ __device__ void algdiv(double a, double b, double& val, double& da,
     db = dsub(dsub(dw_db, dmul(a, rb)), du_db);
 }
 
-// special.betaln(x, y) and its partial derivatives in x and y
-__device__ void betaln(double x, double y, double& val, double& dx,
-                       double& dy) {
+// special.betaln(x, y)'s arguments: a = min, b = max, s = a + b, and its
+// branch (algdiv past b < 8, a NaN b included)
+struct BetaArgs {
+    double a, b, s;
+    bool large;
+};
+__device__ __forceinline__ BetaArgs beta_args(double x, double y) {
     const double a = snv::nan_min(x, y), b = snv::nan_max(x, y);
-    const double lga = lgamma(a);
+    return {a, b, dadd(a, b), !(b < 8.0)};
+}
+
+// betaln's value and partial derivatives in x and y from its parts: lgamma
+// (lg) and digamma (dg) of a, b and s (b's and s's on the small branch
+// alone), algdiv(a, b) and its partials (the large branch's)
+__device__ __forceinline__ void betaln_join(double x, double y,
+                                            const BetaArgs& g,
+                                            const double (&lg)[3],
+                                            const double (&dg)[3], double ad,
+                                            double ada, double adb,
+                                            double& val, double& dx,
+                                            double& dy) {
     double ga, gb;
-    if (b < 8.0) {
-        const double s = dadd(a, b);
-        val = dadd(lga, dsub(lgamma(b), lgamma(s)));
-        const double ps = digamma(s);
-        ga = dsub(digamma(a), ps);
-        gb = dsub(digamma(b), ps);
+    if (!g.large) {
+        val = dadd(lg[0], dsub(lg[1], lg[2]));
+        ga = dsub(dg[0], dg[2]);
+        gb = dsub(dg[1], dg[2]);
     } else {
-        double ad, ada, adb;
-        algdiv(a, b, ad, ada, adb);
-        val = dadd(lga, ad);
-        ga = dadd(digamma(a), ada);
+        val = dadd(lg[0], ad);
+        ga = dadd(dg[0], ada);
         gb = adb;
     }
     if (x == y) {
@@ -278,6 +319,24 @@ __device__ void betaln(double x, double y, double& val, double& dx,
         dx = gb;
         dy = ga;
     }
+}
+
+// special.betaln(x, y) and its partial derivatives in x and y, on one
+// thread, the branch taken alone
+__device__ void betaln(double x, double y, double& val, double& dx,
+                       double& dy) {
+    const BetaArgs g = beta_args(x, y);
+    double lg[3] = {lgamma(g.a), 0.0, 0.0}, dg[3] = {digamma(g.a), 0.0, 0.0};
+    double ad = 0.0, ada = 0.0, adb = 0.0;
+    if (g.large) {
+        algdiv(g.a, g.b, ad, ada, adb);
+    } else {
+        lg[1] = lgamma(g.b);
+        lg[2] = lgamma(g.s);
+        dg[1] = digamma(g.b);
+        dg[2] = digamma(g.s);
+    }
+    betaln_join(x, y, g, lg, dg, ad, ada, adb, val, dx, dy);
 }
 
 // the logsumexp's gradient: d mix / d t_k = (g / |s|) sign(s) e_k
@@ -319,7 +378,8 @@ __device__ __forceinline__ void alt_sums(const Obs& o, long long j,
 // layout (the parameters, Adam's moments, the last step's loss and
 // gradient, the final loss), start, the lanes' Adam and next scalars, and
 // finish. D supplies kP, chain(i, tot, r, c) (d loss / d lnb_i) and
-// combine(r, c) (the scalars past each parameter's own).
+// combine(r, c, lane) (warp 0: the scalars past each parameter's own, a
+// transcendental a lane, written by lane 0).
 template <class D, int kP_>
 struct ZooFit {
     using Obs = ::Obs;
@@ -334,11 +394,15 @@ struct ZooFit {
 
     static __device__ __forceinline__ void start(const double* state,
                                                  double* st, Scalars& r,
-                                                 const ZooConsts& c) {
-        for (int k = 0; k < 3 * kP_; ++k) st[k] = state[k];
-        for (int i = 0; i < kP_; ++i)
-            bounded(st[i], c.lim[i], r.lnb[i], r.dx[i], r.e[i]);
-        D::combine(r, c);
+                                                 const ZooConsts& c,
+                                                 int lane) {
+        for (int k = lane; k < 3 * kP_; k += 32) st[k] = state[k];
+        __syncwarp();
+        if (lane < kP_)
+            bounded(st[lane], c.lim[lane], r.lnb[lane], r.dx[lane],
+                    r.e[lane]);
+        __syncwarp();
+        D::combine(r, c, lane);
     }
 
     template <int kSums>
@@ -363,10 +427,8 @@ struct ZooFit {
             bounded(np, c.lim[i], next.lnb[i], next.dx[i], next.e[i]);
         }
         __syncwarp();
-        if (lane == 0) {
-            st[kV] = -tot[0];
-            D::combine(next, c);
-        }
+        if (lane == 0) st[kV] = -tot[0];
+        D::combine(next, c, lane);
     }
 
     template <int kSums>
@@ -485,15 +547,26 @@ struct Kz4 : ZooFit<Kz4<kClean>, kClean ? 4 : 3> {
                                  Base::kTheta);
     }
 
+    // log(wr) on lane 0, log(wc) on lane 1, log(wt) on the others: one
+    // log call a lane
     static __device__ __forceinline__ void combine(Scalars& r,
-                                                   const ZooConsts& c) {
-        r.wr = dsub(dsub(1.0, r.e[0]), r.e[1]);
-        r.lref = log(r.wr);
-        if constexpr (kClean) {
-            r.wc = dsub(1.0, r.e[2]);
-            r.lcl = log(r.wc);
+                                                   const ZooConsts& c,
+                                                   int lane) {
+        const double wr = dsub(dsub(1.0, r.e[0]), r.e[1]);
+        const double wc = kClean ? dsub(1.0, r.e[2]) : 1.0;
+        const double wt = theta_weight<true>(r, Base::kTheta);
+        const double lx = log(lane == 0 ? wr : (lane == 1 ? wc : wt));
+        const double lref = from_lane(lx, 0), lcl = from_lane(lx, 1);
+        const double lwt = from_lane(lx, 2);
+        if (lane == 0) {
+            r.wr = wr;
+            r.lref = lref;
+            if constexpr (kClean) {
+                r.wc = wc;
+                r.lcl = lcl;
+            }
+            priors(r, Base::kTheta, wt, lwt, c);
         }
-        priors<true>(r, Base::kTheta, c);
     }
 
     static __device__ __forceinline__ void step(int t,
@@ -586,15 +659,24 @@ struct Kz3 : ZooFit<Kz3<kClean>, kClean ? 3 : 2> {
                                   Base::kTheta);
     }
 
+    // log1p(-e_rate) on lane 0, log1p(-e_noisy) on lane 1, log(wt) on the
+    // others
     static __device__ __forceinline__ void combine(Scalars& r,
-                                                   const ZooConsts& c) {
-        r.wr = dadd(-r.e[0], 1.0);
-        r.lref = log1p(-r.e[0]);
-        if constexpr (kClean) {
-            r.wc = dadd(-r.e[1], 1.0);
-            r.lcl = log1p(-r.e[1]);
+                                                   const ZooConsts& c,
+                                                   int lane) {
+        const double wt = theta_weight<false>(r, Base::kTheta);
+        const double lx = lane < 2 ? log1p(-r.e[lane]) : log(wt);
+        const double lref = from_lane(lx, 0), lcl = from_lane(lx, 1);
+        const double lwt = from_lane(lx, 2);
+        if (lane == 0) {
+            r.wr = dadd(-r.e[0], 1.0);
+            r.lref = lref;
+            if constexpr (kClean) {
+                r.wc = dadd(-r.e[1], 1.0);
+                r.lcl = lcl;
+            }
+            priors(r, Base::kTheta, wt, lwt, c);
         }
-        priors<false>(r, Base::kTheta, c);
     }
 
     static __device__ __forceinline__ void step(int t,
@@ -672,12 +754,43 @@ struct KzB : ZooFit<KzB, 3> {
         return theta_chain<false>(tot[4], tot[5], tot[3], 0.0, r, kTheta);
     }
 
+    // betaln(alpha, beta)'s parts a lane: lgamma of a, b and s on lanes
+    // 0-2 (algdiv(a, b) on lane 1 in its large branch), digamma of a, b and
+    // s on lanes 3-5, the prior's log(wt) on the others
     static __device__ __forceinline__ void combine(Scalars& r,
-                                                   const ZooConsts& c) {
-        r.alpha = dmul(r.e[0], r.e[1]);
-        r.beta = dmul(r.e[1], dsub(1.0, r.e[0]));
-        betaln(r.alpha, r.beta, r.b0, r.db0a, r.db0b);
-        priors<false>(r, kTheta, c);
+                                                   const ZooConsts& c,
+                                                   int lane) {
+        const double alpha = dmul(r.e[0], r.e[1]);
+        const double beta = dmul(r.e[1], dsub(1.0, r.e[0]));
+        const double wt = theta_weight<false>(r, kTheta);
+        const BetaArgs g = beta_args(alpha, beta);
+        const int k = lane < 3 ? lane : lane - 3;
+        const double x = k == 0 ? g.a : (k == 1 ? g.b : g.s);
+        double v = 0.0, v1 = 0.0, v2 = 0.0;
+        if (lane == 1 && g.large)
+            algdiv(g.a, g.b, v, v1, v2);
+        else if (lane < 3)
+            v = lgamma(x);
+        else if (lane < 6)
+            v = digamma(x);
+        else
+            v = log(wt);
+        double lg[3], dg[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            lg[i] = from_lane(v, i);
+            dg[i] = from_lane(v, 3 + i);
+        }
+        const double ada = from_lane(v1, 1), adb = from_lane(v2, 1);
+        const double lwt = from_lane(v, 6);
+        if (lane == 0) {
+            r.alpha = alpha;
+            r.beta = beta;
+            // lane 1's value is algdiv's on the large branch
+            betaln_join(alpha, beta, g, lg, dg, lg[1], ada, adb, r.b0,
+                        r.db0a, r.db0b);
+            priors(r, kTheta, wt, lwt, c);
+        }
     }
 
     static __device__ __forceinline__ void step(int t,
@@ -694,65 +807,77 @@ struct KzB : ZooFit<KzB, 3> {
     }
 };
 
-using fitgrid::kCluster;
 using fitgrid::kGrid;
-using fitgrid::Sync;
 using FitArgs = fitgrid::FitArgs<Obs>;
 using Kernels = fitgrid::Kernels<Obs, ZooConsts>;
 
-template <bool kClean, Sync kSync, bool kOnChip>
+// a fit start past the cluster: the grid regimes, one launch a start
+template <class P, bool kOnChip>
 __global__ void __launch_bounds__(kThreads, 2)
-zoo_fit4_kernel(FitArgs a, ZooConsts c) {
-    fitgrid::fit_body<Kz4<kClean>, kSync, kOnChip>(a, c);
+zoo_grid_kernel(FitArgs a, ZooConsts c) {
+    fitgrid::fit_body<P, kGrid, kOnChip>(a, c);
 }
 
-template <bool kClean, Sync kSync, bool kOnChip>
+// the cluster regime: cluster c of a launch runs fit start c of the work
+// list
+template <class P>
 __global__ void __launch_bounds__(kThreads, 2)
-zoo_fit3_kernel(FitArgs a, ZooConsts c) {
-    fitgrid::fit_body<Kz3<kClean>, kSync, kOnChip>(a, c);
-}
-
-template <Sync kSync, bool kOnChip>
-__global__ void __launch_bounds__(kThreads, 2)
-zoo_fitb_kernel(FitArgs a, ZooConsts c) {
-    fitgrid::fit_body<KzB, kSync, kOnChip>(a, c);
+zoo_batch_kernel(fitgrid::BatchArgs<Obs> a, ZooConsts c) {
+    fitgrid::batch_body<P>(a, c);
 }
 
 template <class P>
 constexpr int kLayout[5] = {P::kRows, P::kSums, P::kParams, P::kState,
                             fitgrid::on_chip_per(P::kRows)};
 
+// a family's kernels: the batched launch's (the cluster regime), the
+// grid regimes' (fitgrid::Kernels, no cluster kernel) and the layout
+struct Zoo {
+    void (*batch)(fitgrid::BatchArgs<Obs>, ZooConsts);
+    Kernels k;
+    const int* layout;
+};
+
+template <class P>
+Zoo zoo() {
+    return {&zoo_batch_kernel<P>,
+            {nullptr, &zoo_grid_kernel<P, true>, &zoo_grid_kernel<P, false>},
+            kLayout<P>};
+}
+
 // kind 0: KZ-4, 1: KZ-3, 2: KZ-B; clean 0/1 (KZ-B: 0). Returns false on
 // another pair.
-bool pick(int kind, int clean, Kernels& k, const int*& layout) {
-    if (kind == 0 && clean == 0) {
-        k = {&zoo_fit4_kernel<false, kCluster, true>,
-             &zoo_fit4_kernel<false, kGrid, true>,
-             &zoo_fit4_kernel<false, kGrid, false>};
-        layout = kLayout<Kz4<false>>;
-    } else if (kind == 0 && clean == 1) {
-        k = {&zoo_fit4_kernel<true, kCluster, true>,
-             &zoo_fit4_kernel<true, kGrid, true>,
-             &zoo_fit4_kernel<true, kGrid, false>};
-        layout = kLayout<Kz4<true>>;
-    } else if (kind == 1 && clean == 0) {
-        k = {&zoo_fit3_kernel<false, kCluster, true>,
-             &zoo_fit3_kernel<false, kGrid, true>,
-             &zoo_fit3_kernel<false, kGrid, false>};
-        layout = kLayout<Kz3<false>>;
-    } else if (kind == 1 && clean == 1) {
-        k = {&zoo_fit3_kernel<true, kCluster, true>,
-             &zoo_fit3_kernel<true, kGrid, true>,
-             &zoo_fit3_kernel<true, kGrid, false>};
-        layout = kLayout<Kz3<true>>;
-    } else if (kind == 2 && clean == 0) {
-        k = {&zoo_fitb_kernel<kCluster, true>, &zoo_fitb_kernel<kGrid, true>,
-             &zoo_fitb_kernel<kGrid, false>};
-        layout = kLayout<KzB>;
-    } else {
+bool pick(int kind, int clean, Zoo& z) {
+    if (kind == 0 && clean == 0)
+        z = zoo<Kz4<false>>();
+    else if (kind == 0 && clean == 1)
+        z = zoo<Kz4<true>>();
+    else if (kind == 1 && clean == 0)
+        z = zoo<Kz3<false>>();
+    else if (kind == 1 && clean == 1)
+        z = zoo<Kz3<true>>();
+    else if (kind == 2 && clean == 0)
+        z = zoo<KzB>();
+    else
         return false;
-    }
     return true;
+}
+
+ZooConsts host_consts(const double* consts, int lock_theta, int is_insert) {
+    ZooConsts c;
+    std::memcpy(&c, consts, kDoubles * sizeof(double));
+    c.lock_theta = lock_theta;
+    c.is_insert = is_insert;
+    return c;
+}
+
+Obs host_obs(const void* ref_obs, const void* alt_obs, const void* inst,
+             const void* max1, const void* max2) {
+    return Obs{static_cast<const double*>(ref_obs),
+               static_cast<const double*>(alt_obs),
+               static_cast<const double*>(inst),
+               static_cast<const long long*>(max1),
+               static_cast<const long long*>(max2)};
 }
 
 }  // namespace
@@ -764,24 +889,20 @@ extern "C" {
 // thread held on chip. Returns a cudaError_t (invalid value for an
 // unknown kind or clean).
 int zoo_fit_layout(int kind, int clean, int* out) {
-    Kernels k;
-    const int* layout = nullptr;
-    if (!pick(kind, clean, k, layout))
-        return static_cast<int>(cudaErrorInvalidValue);
-    for (int i = 0; i < 5; ++i) out[i] = layout[i];
+    Zoo z;
+    if (!pick(kind, clean, z)) return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < 5; ++i) out[i] = z.layout[i];
     return 0;
 }
 
 // A kernel's co-resident blocks on the current card, at most
 // fitgrid::kMaxBlocks (fitgrid::resident_blocks). Returns a cudaError_t.
 int zoo_fit_resident_blocks(int kind, int clean, int* out) {
-    Kernels k;
-    const int* layout = nullptr;
-    if (!pick(kind, clean, k, layout))
-        return static_cast<int>(cudaErrorInvalidValue);
+    Zoo z;
+    if (!pick(kind, clean, z)) return static_cast<int>(cudaErrorInvalidValue);
     return fitgrid::resident_blocks(
-        k, static_cast<size_t>(layout[4]) * kThreads * layout[0]
-               * sizeof(double), out);
+        z.k, static_cast<size_t>(z.layout[4]) * kThreads * z.layout[0]
+                 * sizeof(double), out);
 }
 
 // One fit start: ref_obs [N], alt_obs [N, 6], inst [N] float64 and max1,
@@ -789,39 +910,64 @@ int zoo_fit_resident_blocks(int kind, int clean, int* out) {
 // (ops/zoo_kernels.CONSTS); lock_theta, is_insert 0/1; bias [n_steps, 2]
 // float64 (1 - b1**s, 1 - b2**s); state [kState] float64 (the parameters
 // and zero moments in; the parameters, moments, last step's loss and
-// gradient and the final loss out). The grid as error_fit_run_launch's:
+// gradient and the final loss out). The grid regimes, as
+// error_fit_run_launch's past its cluster: a cooperative launch of
 // `blocks` blocks of 256 threads, `per` loci a thread, on chip up to the
-// layout's loci a thread; `cluster` 1 one thread-block cluster, else a
-// cooperative launch with partials [2, blocks, sums] float64 and
-// arrivals two uint32 at 0; loc [rows, N] float64 past on chip.
-// Launches on `stream`; returns a cudaError_t.
+// layout's loci a thread, with partials [2, blocks, sums] float64 and
+// arrivals two uint32 at 0; loc [rows, N] float64 past on chip (a start
+// in the cluster regime goes through zoo_fit_batch_launch). Launches on
+// `stream`; returns a cudaError_t.
 int zoo_fit_launch(int kind, int clean, const void* ref_obs,
                    const void* alt_obs, const void* inst, const void* max1,
                    const void* max2, long long n, int blocks, int per,
-                   int n_steps, int cluster, const double* consts,
+                   int n_steps, const double* consts,
                    int lock_theta, int is_insert, const void* bias,
                    void* state, void* loc, void* partials, void* arrivals,
                    void* stream) {
-    Kernels k;
-    const int* layout = nullptr;
-    if (!pick(kind, clean, k, layout))
-        return static_cast<int>(cudaErrorInvalidValue);
-    ZooConsts c;
-    std::memcpy(&c, consts, kDoubles * sizeof(double));
-    c.lock_theta = lock_theta;
-    c.is_insert = is_insert;
-    const FitArgs args{Obs{static_cast<const double*>(ref_obs),
-                           static_cast<const double*>(alt_obs),
-                           static_cast<const double*>(inst),
-                           static_cast<const long long*>(max1),
-                           static_cast<const long long*>(max2)},
+    Zoo z;
+    if (!pick(kind, clean, z)) return static_cast<int>(cudaErrorInvalidValue);
+    const FitArgs args{host_obs(ref_obs, alt_obs, inst, max1, max2),
                        n, per, n_steps,
                        static_cast<const double*>(bias),
                        static_cast<double*>(state), static_cast<double*>(loc),
                        static_cast<double*>(partials),
                        static_cast<unsigned*>(arrivals)};
-    return fitgrid::launch(k, args, c, blocks, cluster, layout[0],
+    return fitgrid::launch(z.k, args, host_consts(consts, lock_theta,
+                                                  is_insert),
+                           blocks, 0, z.layout[0],
                            static_cast<cudaStream_t>(stream));
+}
+
+// A batched launch of fit starts side by side: the observations of every
+// context concatenated (ref_obs [N], alt_obs [N, 6], inst [N] float64,
+// max1, max2 [N] int64, N >= 1); work [items, 5] int64, a fit start a row
+// (fitgrid::BatchArgs: its first pattern, patterns, blocks, loci a thread
+// and state slot); `items` clusters of `width` blocks (<= 16), cluster c
+// running row c, each row's blocks <= width and loci a thread <= max_per
+// <= the layout's on-chip loci a thread, blocks * per * 256 covering its
+// patterns; consts, lock_theta, is_insert and bias as zoo_fit_launch's,
+// shared by every start; states [slots, kState] float64 (each start's
+// parameters and zero moments in, every slot out). Launches on `stream`;
+// returns a cudaError_t (invalid value for an unknown kind or clean or a
+// width, items or max_per out of range; the card refuses a cluster width
+// it cannot place).
+int zoo_fit_batch_launch(int kind, int clean, const void* ref_obs,
+                         const void* alt_obs, const void* inst,
+                         const void* max1, const void* max2,
+                         const void* work, int items, int width, int max_per,
+                         int n_steps, const double* consts, int lock_theta,
+                         int is_insert, const void* bias, void* states,
+                         void* stream) {
+    Zoo z;
+    if (!pick(kind, clean, z)) return static_cast<int>(cudaErrorInvalidValue);
+    const fitgrid::BatchArgs<Obs> args{
+        host_obs(ref_obs, alt_obs, inst, max1, max2),
+        static_cast<const long long*>(work), n_steps,
+        static_cast<const double*>(bias), static_cast<double*>(states)};
+    return fitgrid::launch_batch(z.batch, args,
+                                 host_consts(consts, lock_theta, is_insert),
+                                 items, width, max_per, z.layout[0],
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -23,6 +23,13 @@
 //   at the final parameters' scalars and P::finish (the loss there);
 // - the state (P::kState doubles) written once, at the end, by block 0.
 //
+// A batched launch (batch_body) runs a work list of fits side by side, one
+// thread-block cluster a fit: cluster c runs fit c of the list on its own
+// loci (a slice of the concatenated operands) and state. A fit's blocks
+// are its cluster's first ranks; where the launch's clusters are wider
+// than a fit's grid, the ranks past it hold no locus, add no partial to
+// the fit's sums and only meet the fit's barriers.
+//
 // The regimes (ops/fit_kernels.fit_grid picks one from N):
 // - cluster: up to 16 blocks, the whole grid one thread-block cluster; a
 //   block's partial in its shared memory, read by the others through
@@ -62,6 +69,8 @@ constexpr unsigned kAll = 0xffffffffu;
 // shared memory, so two blocks share an SM
 constexpr int kMaxBlocks = 264;
 constexpr size_t kOnChipBytes = 96 * 1024;
+// the H100's largest thread-block cluster (non-portable past 8)
+constexpr int kMaxCluster = 16;
 
 // loci a thread that a policy of kRows values a locus holds on chip
 constexpr int on_chip_per(int rows) {
@@ -119,6 +128,15 @@ __device__ __forceinline__ double adam(double g, double& mu, double& nu,
 
 enum Sync { kCluster, kGrid };
 
+// Where a fit's blocks sit: its first locus in the operands, this block's
+// rank among its blocks, the fit's blocks, and the blocks that meet at its
+// barrier (its cluster's; `blocks` but where a batched launch's clusters
+// are wider)
+struct Place {
+    long long base;
+    unsigned rank, blocks, width;
+};
+
 template <class Obs>
 struct FitArgs {
     Obs obs;                // the policy's operands
@@ -149,32 +167,37 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrivals,
     __syncthreads();
 }
 
-// The body of a fit kernel (a __global__ of 256 threads calls it). P:
+// The body of a fit kernel (a __global__ of 256 threads calls it) at
+// place `at`. P:
 //   Obs, Consts, Scalars; kRows, kSums (<= 32), kParams (<= 32), kState;
 //   kFinalLoss;
 //   prep(obs, j, consts, v[kRows]): locus j's parameter-free values;
 //   terms(v, scalars, consts, out[kSums]): a locus's terms at a step;
-//   start(state, st, scalars, consts): thread 0, before step 1: st from
-//     the state buffer, step 1's scalars;
+//   start(state, st, scalars, consts, lane): warp 0, before step 1: st
+//     from the state buffer, step 1's scalars;
 //   step(t, tot[kSums], st, scalars, next, lane, c1, c2, consts): warp
 //     0's tail of step t (the sums in tot): the state in st, the next
 //     step's scalars in next;
 //   finish(tot[kSums], st, lane): warp 0, after the final loss's pass.
 template <class P, Sync kSync, bool kOnChip>
 __device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
-                                         const typename P::Consts& c) {
+                                         const typename P::Consts& c,
+                                         const Place& at) {
     constexpr int kSums = P::kSums, kRows = P::kRows;
+    // every block's partials, in order: a cluster's up to kMaxCluster
+    constexpr int kStage = (kSync == kCluster ? kMaxCluster : kMaxBlocks)
+                           * kSums;
     extern __shared__ double on_chip[];          // [kRows][per * 256]
     __shared__ double warp_sums[kSums][kWarps];
     __shared__ double xpart[2][kSums];           // the cluster's partials
-    __shared__ double stage[kMaxBlocks * kSums]; // every block's, in order
+    __shared__ double stage[kStage];
     __shared__ double st[P::kState];             // the state, warp 0's
     __shared__ typename P::Scalars rs[2];        // step t's in rs[t & 1]
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const unsigned blocks = gridDim.x;
+    const unsigned blocks = at.blocks;
     const int per = a.per;
     const long long n = a.n;
-    const long long first = static_cast<long long>(blockIdx.x) * per
+    const long long first = static_cast<long long>(at.rank) * per
                             * kThreads + tid;
     // this thread's loci, once a fit: on chip, or in loc past it
     double* rows = kOnChip ? on_chip : a.loc;
@@ -184,13 +207,13 @@ __device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
         const long long j = first + static_cast<long long>(i) * kThreads;
         if (j < n) {
             double v[kRows];
-            P::prep(a.obs, j, c, v);
-            const long long at = kOnChip ? i * kThreads + tid : j;
+            P::prep(a.obs, at.base + j, c, v);
+            const long long to = kOnChip ? i * kThreads + tid : j;
 #pragma unroll
-            for (int k = 0; k < kRows; ++k) rows[k * stride + at] = v[k];
+            for (int k = 0; k < kRows; ++k) rows[k * stride + to] = v[k];
         }
     }
-    if (tid == 0) P::start(a.state, st, rs[1], c);
+    if (warp == 0) P::start(a.state, st, rs[1], c, lane);
     __syncthreads();
 
     const int last = a.n_steps + (P::kFinalLoss ? 1 : 0);
@@ -210,10 +233,10 @@ __device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
             const long long j = first + static_cast<long long>(i) * kThreads;
             double term[kSums];
             if (j < n) {
-                const long long at = kOnChip ? i * kThreads + tid : j;
+                const long long from = kOnChip ? i * kThreads + tid : j;
                 double v[kRows];
 #pragma unroll
-                for (int k = 0; k < kRows; ++k) v[k] = rows[k * stride + at];
+                for (int k = 0; k < kRows; ++k) v[k] = rows[k * stride + from];
                 P::terms(v, r, c, term);
             } else {
 #pragma unroll
@@ -241,13 +264,13 @@ __device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
                     xpart[par][k] = s;
                 else
                     a.partials[(static_cast<long long>(par) * blocks
-                                + blockIdx.x) * kSums + k] = s;
+                                + at.rank) * kSums + k] = s;
             }
         }
         // the step's barrier, then every block's partials into the stage
         if constexpr (kSync == kCluster) {
             cg::cluster_group cluster = cg::this_cluster();
-            if (blocks > 1)
+            if (at.width > 1)
                 cluster.sync();
             else
                 __syncthreads();
@@ -292,13 +315,55 @@ __device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
             a.arrivals[1] = 0u;
         }
     }
-    if (blockIdx.x == 0 && tid == 0)
+    if (at.rank == 0 && tid == 0)
 #pragma unroll
         for (int k = 0; k < P::kState; ++k) a.state[k] = st[k];
 }
 
+// fit_body of a launch that runs one fit on its whole grid
+template <class P, Sync kSync, bool kOnChip>
+__device__ __forceinline__ void fit_body(const FitArgs<typename P::Obs>& a,
+                                         const typename P::Consts& c) {
+    fit_body<P, kSync, kOnChip>(a, c,
+                                Place{0, blockIdx.x, gridDim.x, gridDim.x});
+}
+
+// A batched launch's operands: every fit's observations concatenated;
+// work [items, kWorkCols] int64, a fit a row: its first locus in obs, its
+// loci, its blocks, its loci a thread (on chip) and its state's slot in
+// states [slots, P::kState] (its start in, every slot out); the bias
+// corrections [n_steps, 2] of every fit
+constexpr int kWorkCols = 5;
+template <class Obs>
+struct BatchArgs {
+    Obs obs;
+    const long long* work;
+    int n_steps;
+    const double* bias;
+    double* states;
+};
+
+// The body of a batched fit kernel: cluster c of the launch runs fit c of
+// the work list in the cluster regime, its blocks the cluster's first
+// ranks
+template <class P>
+__device__ __forceinline__ void batch_body(
+    const BatchArgs<typename P::Obs>& a, const typename P::Consts& c) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned width = cluster.num_blocks();
+    const long long* w = a.work + kWorkCols * (blockIdx.x / width);
+    const FitArgs<typename P::Obs> f{
+        a.obs, w[1], static_cast<int>(w[3]), a.n_steps, a.bias,
+        a.states + w[4] * P::kState, nullptr, nullptr, nullptr};
+    fit_body<P, kCluster, true>(
+        f, c, Place{w[0], cluster.block_rank(), static_cast<unsigned>(w[2]),
+                    width});
+}
+
 // a fit kernel's three instantiations: <kCluster, true>, <kGrid, true>,
-// <kGrid, false>
+// <kGrid, false>; cluster null where the policy's cluster-regime fits run
+// through batch_body (launch_batch, one cluster a fit) and launch() takes
+// the grid regimes only
 template <class Obs, class Consts>
 struct Kernels {
     using Fn = void (*)(FitArgs<Obs>, Consts);
@@ -321,9 +386,9 @@ cudaError_t configure(const Kernels<Obs, Consts>& k, size_t dyn) {
                 fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                 cudaSharedmemCarveoutMaxShared);
     };
-    set(k.cluster);
+    if (k.cluster) set(k.cluster);
     set(k.grid);
-    if (e == cudaSuccess)
+    if (e == cudaSuccess && k.cluster)
         e = cudaFuncSetAttribute(
             k.cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
@@ -350,11 +415,55 @@ int resident_blocks(const Kernels<Obs, Consts>& k, size_t dyn, int* out) {
     return static_cast<int>(e);
 }
 
+// A batched launch on `stream`: `items` thread-block clusters of `width`
+// blocks, cluster c running fit c of a.work (each fit's blocks <= width,
+// its loci a thread <= max_per <= on_chip_per(rows), blocks * per * 256
+// covering its loci: the caller's to hold), the dynamic shared memory of
+// max_per loci a thread. The card refuses a cluster width it cannot
+// place; the clusters need no co-residency. Returns a cudaError_t.
+template <class Obs, class Consts>
+int launch_batch(void (*fn)(BatchArgs<Obs>, Consts), const BatchArgs<Obs>& a,
+                 const Consts& c, int items, int width, int max_per,
+                 int rows, cudaStream_t stream) {
+    const int cap = on_chip_per(rows);
+    if (items < 1 || width < 1 || width > kMaxCluster || max_per < 1
+        || max_per > cap || a.n_steps < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t row_bytes = static_cast<size_t>(rows) * sizeof(double);
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(cap * kThreads * row_bytes));
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(items) * width);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = max_per * kThreads * row_bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(width);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, fn, a, c);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // One whole fit on `stream`: `blocks` blocks of 256 threads, a.per loci a
 // thread (blocks * per * 256 >= n, blocks <= kMaxBlocks), the loci on
 // chip where per <= on_chip_per(rows) (row_bytes = rows * 8 a locus);
-// `cluster` 1: the grid one thread-block cluster (on chip only; the card
-// refuses a size it cannot place), else a cooperative launch (the card
+// `cluster` 1: the grid one thread-block cluster (on chip only, k.cluster
+// not null; the card refuses a size it cannot place), else a cooperative
+// launch (the card
 // refuses a grid that is not co-resident), with a.partials and
 // a.arrivals; a.loc where not on chip. Returns a cudaError_t.
 template <class Obs, class Consts>
@@ -366,7 +475,7 @@ int launch(const Kernels<Obs, Consts>& k, const FitArgs<Obs>& a,
     if (a.n < 1 || blocks < 1 || blocks > kMaxBlocks || a.per < 1
         || a.n_steps < 1
         || static_cast<long long>(blocks) * a.per * kThreads < a.n
-        || (cluster && !on_chip)
+        || (cluster && (!on_chip || k.cluster == nullptr))
         || (!cluster && (a.partials == nullptr || a.arrivals == nullptr))
         || (!on_chip && a.loc == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);

@@ -25,10 +25,13 @@ gradients come from torch.autograd, and the optimizer is optax's Adam
 in optax's order (utils/special.Adam). A theta given as a float (the
 locked DEFAULT_LOG_THETA) folds on the host, as XLA folds the JAX
 package's constant. That is the plain version of an indel fit
-(_fit_plain), which _fit runs on the CPU; on any other device _fit runs
-KZ (ops/zoo_kernels: csrc/error_zoo_fit.cu), a whole fit start in one
-launch, and raises where it cannot: nothing falls back. The SNV fits,
-which no entry point calls, run the plain version on any device.
+(_fit_plain), which fit_contexts runs on the CPU; on any other device
+fit_contexts runs KZ (ops/zoo_kernels.ZooBatch: csrc/error_zoo_fit.cu),
+every start of every context it is given side by side, and raises where
+it cannot: nothing falls back. tools estimate-parameters hands it all of
+a counts file's contexts at once; the per-context fit_indel_* functions
+are its one-context case. The SNV fits, which no entry point calls, run
+the plain version on any device.
 """
 from __future__ import annotations
 
@@ -349,46 +352,106 @@ def kernel_consts(family: str, lock_theta: bool, lr: float = 0.05):
             lr, b1, b2, 1 - b1, 1 - b2, Adam.EPS)
 
 
-def _fit(loss_fn, x0: np.ndarray, steps: int, family: str,
-         p: IndelPatterns, lock_theta: bool, is_insert: bool = True,
-         lr: float = 0.05, device=None,
-         plain: bool = False) -> tuple[np.ndarray, float]:
-    """`steps` Adam steps from x0 on `device`: the plain version
-    (_fit_plain on loss_fn) on the CPU or where `plain`, else one launch
-    of `family`'s KZ kernel on p (its observations on the card), which
-    raises where it cannot build, load or launch. Returns the final
-    parameters (host f64) and the loss there."""
-    dev = _dev(device)
+def _loss(family: str, p: IndelPatterns, lock_theta: bool,
+          is_insert: bool = True):
+    """The negative log likelihood of family's fit on p at x (torch), the
+    plain version's loss."""
+    def theta(x, i):
+        return DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[i], 0.3)
+    if family == "indy":
+        return lambda x: -indel_indy_lhood(
+            p, _ln_bounded(x[0], 0.5), _ln_bounded(x[1], 0.5), theta(x, 2))
+    if family == "binom_mixture":
+        return lambda x: -indel_binom_mixture_lhood(
+            p, _ln_bounded(x[0], 0.5), _ln_bounded(x[1], 0.5),
+            _ln_bounded(x[2], 1.0), theta(x, 3))
+    if family == "beta_binomial":
+        return lambda x: -indel_beta_binom_lhood(
+            p, _ln_bounded(x[0], 0.5), _ln_bounded(x[1], MAX_CONCENTRATION),
+            is_insert, theta(x, 2))
+    if family == "indy_noovl":
+        return lambda x: -indel_indy_noovl_lhood(
+            p, _ln_bounded(x[0], 0.5), is_insert, theta(x, 1))
+    if family == "binom_mixture_noovl":
+        return lambda x: -indel_binom_mixture_noovl_lhood(
+            p, _ln_bounded(x[0], 0.5), _ln_bounded(x[1], 1.0), is_insert,
+            theta(x, 2))
+    raise ValueError(f"unknown zoo family: {family}")
+
+
+def _host_obs(counts):
+    """A context's observations as KZ takes them, on the host: ref_obs,
+    alt_obs, inst float64 and the two most frequent alt slots int64."""
+    alt = np.asarray(counts.alt_obs, np.float64)
+    m1, m2 = _max_allele_masks(np.asarray(counts.alt_obs))
+    return (np.asarray(counts.ref_obs, np.float64), alt,
+            np.asarray(counts.instance_count, np.float64), m1, m2)
+
+
+def _fit_starts(family: str, counts_list, steps: int, lock_theta: bool,
+                is_insert: bool, dev: torch.device,
+                plain: bool) -> list:
+    """Every start (fit_starts) of family's fit on each context of
+    counts_list, `steps` Adam steps each: [[(the final parameters, host
+    f64; the loss there)] a start] a context. The plain version, start by
+    start, on the CPU or where `plain`; else KZ, every start of every
+    context in one ZooBatch on the card (launched, then one wait), which
+    raises where it cannot build, load or launch."""
+    x0s = fit_starts(family)
     if plain or dev.type == "cpu":
-        return _fit_plain(loss_fn, x0, steps, lr, dev)
-    run = zk.zoo_fit(family, (p.ref_obs, p.alt_obs, p.inst, p.max1, p.max2),
-                     x0, kernel_consts(family, lock_theta, lr), steps,
-                     lock_theta, is_insert)
-    st = run.state.cpu()
-    at = zk.state_slots(zk.FAMILIES[family])
-    return st[at["params"]].numpy(), float(st[at["final"]])
+        out = []
+        for cc in counts_list:
+            p = IndelPatterns.build(cc, dev)
+            loss = _loss(family, p, lock_theta, is_insert)
+            out.append([_fit_plain(loss, x0, steps, LR, dev) for x0 in x0s])
+        return out
+    batch = zk.ZooBatch(family, [_host_obs(cc) for cc in counts_list], x0s,
+                        kernel_consts(family, lock_theta, LR), steps,
+                        lock_theta, is_insert, dev)
+    batch.launch()
+    return batch.ends()
+
+
+def _result(family: str, x: np.ndarray, neg: float,
+            lock_theta: bool) -> dict:
+    """A fit's record: each fitted value (_FIELDS, bounded by _LIMITS),
+    theta (1e-4 where locked) and the log likelihood."""
+    out = {name: _host_bounded(x[i], lim)
+           for i, (name, lim) in enumerate(zip(_FIELDS[family],
+                                               _LIMITS[family]))}
+    out["theta"] = 1e-4 if lock_theta else _host_bounded(x[-1], 0.3)
+    out["log_lhood"] = -neg
+    return out
+
+
+def fit_contexts(family: str, counts_list, is_insert: bool = True,
+                 lock_theta: bool = False, steps: int | None = None,
+                 device=None, plain: bool = False) -> list[dict]:
+    """ML fits of family (a key of ops/zoo_kernels.FAMILIES) on each
+    context of counts_list, STEPS[family] Adam steps a start unless
+    `steps`, on `device`: each context's record (_result) of its start of
+    lower final loss, the first on a tie (the binomial mixtures run two
+    starts, NOISY_STARTS: the mixture surface is bimodal). `plain`: the
+    plain version on any device (_fit_starts)."""
+    dev = _dev(device)
+    steps = STEPS[family] if steps is None else steps
+    out = []
+    for ends in _fit_starts(family, counts_list, steps, lock_theta,
+                            is_insert, dev, plain):
+        best = ends[0]
+        for x, neg in ends[1:]:
+            if neg < best[1]:
+                best = (x, neg)
+        out.append(_result(family, *best, lock_theta))
+    return out
 
 
 def fit_indel_indy(counts, lock_theta: bool = False, steps: int = 600,
                    device=None, plain: bool = False):
     """ML fit of {insert rate, delete rate, theta}; `plain`: the plain
-    version on any device (_fit)."""
-    p = IndelPatterns.build(counts, device)
-
-    def loss(x):
-        li = _ln_bounded(x[0], 0.5)
-        ld = _ln_bounded(x[1], 0.5)
-        lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[2], 0.3)
-        return -indel_indy_lhood(p, li, ld, lt)
-
-    x, neg = _fit(loss, fit_starts("indy")[0], steps, "indy", p, lock_theta,
-                  device=device, plain=plain)
-    return {
-        "insert_rate": _host_bounded(x[0], 0.5),
-        "delete_rate": _host_bounded(x[1], 0.5),
-        "theta": 1e-4 if lock_theta else _host_bounded(x[2], 0.3),
-        "log_lhood": -neg,
-    }
+    version on any device (fit_contexts)."""
+    return fit_contexts("indy", [counts], True, lock_theta, steps, device,
+                        plain)[0]
 
 
 def fit_indel_binom_mixture(counts, lock_theta: bool = False,
@@ -400,38 +463,27 @@ def fit_indel_binom_mixture(counts, lock_theta: bool = False,
     bimodal: all-noisy recovers the indy model; the minimizer can get
     trapped on either side): the start of lower final loss, the first on
     a tie. `plain` as fit_indel_indy's."""
-    p = IndelPatterns.build(counts, device)
-
-    def loss(x):
-        li = _ln_bounded(x[0], 0.5)
-        ld = _ln_bounded(x[1], 0.5)
-        ln = _ln_bounded(x[2], 1.0)
-        lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[3], 0.3)
-        return -indel_binom_mixture_lhood(p, li, ld, ln, lt)
-
-    best = None
-    for x0 in fit_starts("binom_mixture"):
-        xi, negi = _fit(loss, x0, steps, "binom_mixture", p, lock_theta,
-                        device=device, plain=plain)
-        if best is None or negi < best[1]:
-            best = (xi, negi)
-    x, neg = best
-    return {
-        "insert_rate": _host_bounded(x[0], 0.5),
-        "delete_rate": _host_bounded(x[1], 0.5),
-        "noisy_locus_rate": _host_bounded(x[2], 1.0),
-        "theta": 1e-4 if lock_theta else _host_bounded(x[3], 0.3),
-        "log_lhood": -neg,
-    }
+    return fit_contexts("binom_mixture", [counts], True, lock_theta, steps,
+                        device, plain)[0]
 
 
 MAX_CONCENTRATION = 2000.0
+LR = 0.05
 
 # each indel fit's parameter limits in x's order (_ln_bounded's), theta's
-# last, by its ops/zoo_kernels family
+# last, by its ops/zoo_kernels family; the names of its fitted values in
+# the same order (theta's not among them); its Adam steps a start
 _LIMITS = {"indy": (0.5, 0.5, 0.3), "binom_mixture": (0.5, 0.5, 1.0, 0.3),
            "beta_binomial": (0.5, MAX_CONCENTRATION, 0.3),
            "indy_noovl": (0.5, 0.3), "binom_mixture_noovl": (0.5, 1.0, 0.3)}
+_FIELDS = {"indy": ("insert_rate", "delete_rate"),
+           "binom_mixture": ("insert_rate", "delete_rate",
+                             "noisy_locus_rate"),
+           "beta_binomial": ("mean", "concentration"),
+           "indy_noovl": ("indel_rate",),
+           "binom_mixture_noovl": ("indel_rate", "noisy_locus_rate")}
+STEPS = {"indy": 600, "binom_mixture": 1500, "beta_binomial": 600,
+         "indy_noovl": 600, "binom_mixture_noovl": 1500}
 # the binomial mixtures' noisy-locus starts (the mixture surface is
 # bimodal), in the order they run
 NOISY_STARTS = (0.9, 1e-2)
@@ -463,23 +515,8 @@ def fit_indel_beta_binomial(counts, is_insert: bool,
                             device=None, plain: bool = False):
     """ML fit of the beta-binomial {mean, concentration, theta} for one
     indel type; `plain` as fit_indel_indy's."""
-    p = IndelPatterns.build(counts, device)
-
-    def loss(x):
-        lm = _ln_bounded(x[0], 0.5)
-        lc = _ln_bounded(x[1], MAX_CONCENTRATION)
-        lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[2], 0.3)
-        return -indel_beta_binom_lhood(p, lm, lc, is_insert, lt)
-
-    x, neg = _fit(loss, fit_starts("beta_binomial")[0], steps,
-                  "beta_binomial", p, lock_theta,
-                  is_insert, device=device, plain=plain)
-    return {
-        "mean": _host_bounded(x[0], 0.5),
-        "concentration": _host_bounded(x[1], MAX_CONCENTRATION),
-        "theta": 1e-4 if lock_theta else _host_bounded(x[2], 0.3),
-        "log_lhood": -neg,
-    }
+    return fit_contexts("beta_binomial", [counts], is_insert, lock_theta,
+                        steps, device, plain)[0]
 
 
 def fit_snv_indy(sp: SnvPatterns, lock_theta: bool = False,
@@ -560,20 +597,8 @@ def fit_indel_indy_noovl(counts, is_insert: bool,
                          device=None, plain: bool = False):
     """ML fit of {indel rate, theta} for one indel type; `plain` as
     fit_indel_indy's."""
-    p = IndelPatterns.build(counts, device)
-
-    def loss(x):
-        li = _ln_bounded(x[0], 0.5)
-        lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[1], 0.3)
-        return -indel_indy_noovl_lhood(p, li, is_insert, lt)
-
-    x, neg = _fit(loss, fit_starts("indy_noovl")[0], steps, "indy_noovl", p,
-                  lock_theta, is_insert, device=device, plain=plain)
-    return {
-        "indel_rate": _host_bounded(x[0], 0.5),
-        "theta": 1e-4 if lock_theta else _host_bounded(x[1], 0.3),
-        "log_lhood": -neg,
-    }
+    return fit_contexts("indy_noovl", [counts], is_insert, lock_theta, steps,
+                        device, plain)[0]
 
 
 def fit_indel_binom_mixture_noovl(counts, is_insert: bool,
@@ -583,27 +608,8 @@ def fit_indel_binom_mixture_noovl(counts, is_insert: bool,
     """ML fit of {indel rate, noisy-locus rate, theta} for one indel
     type; multi-start on the noisy-locus rate (bimodal surface, see
     fit_indel_binom_mixture); `plain` as fit_indel_indy's."""
-    p = IndelPatterns.build(counts, device)
-
-    def loss(x):
-        li = _ln_bounded(x[0], 0.5)
-        ln = _ln_bounded(x[1], 1.0)
-        lt = DEFAULT_LOG_THETA if lock_theta else _ln_bounded(x[2], 0.3)
-        return -indel_binom_mixture_noovl_lhood(p, li, ln, is_insert, lt)
-
-    best = None
-    for x0 in fit_starts("binom_mixture_noovl"):
-        xi, negi = _fit(loss, x0, steps, "binom_mixture_noovl", p,
-                        lock_theta, is_insert, device=device, plain=plain)
-        if best is None or negi < best[1]:
-            best = (xi, negi)
-    x, neg = best
-    return {
-        "indel_rate": _host_bounded(x[0], 0.5),
-        "noisy_locus_rate": _host_bounded(x[1], 1.0),
-        "theta": 1e-4 if lock_theta else _host_bounded(x[2], 0.3),
-        "log_lhood": -neg,
-    }
+    return fit_contexts("binom_mixture_noovl", [counts], is_insert,
+                        lock_theta, steps, device, plain)[0]
 
 
 # ---------------------------------------------------------------------------

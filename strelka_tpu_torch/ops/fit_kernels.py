@@ -242,18 +242,24 @@ def _check_grid(name, grid, n: int) -> None:
                          f"loci in a regime of the entry")
 
 
+def bias_table(n_steps: int, b1: float, b2: float):
+    """Adam's bias corrections of steps 1..n_steps, [n_steps * 2] float64
+    on the host: 1 - b1**t, 1 - b2**t by Python's **, as special.Adam
+    takes them."""
+    return torch.tensor(
+        [x for t in range(1, n_steps + 1) for x in (1 - b1 ** t, 1 - b2 ** t)],
+        dtype=torch.float64)
+
+
 def start_io(params, state: int, n_steps: int, b1: float, b2: float):
     """The host buffer that a csrc/fit_grid.cuh fit starts from: its state
     [state] (the parameters params first, zero past them: Adam's moments),
-    the bias corrections [n_steps, 2] (1 - b1**t, 1 - b2**t by Python's
-    **, as special.Adam takes them) and the barrier's two uint32 counters
-    at 0 (one float64)."""
+    the bias corrections [n_steps, 2] (bias_table) and the barrier's two
+    uint32 counters at 0 (one float64)."""
     p = torch.as_tensor(params, dtype=torch.float64).cpu()
     io = torch.zeros(state + 2 * n_steps + 1, dtype=torch.float64)
     io[:p.numel()] = p
-    io[state:state + 2 * n_steps] = torch.tensor(
-        [x for t in range(1, n_steps + 1) for x in (1 - b1 ** t, 1 - b2 ** t)],
-        dtype=torch.float64)
+    io[state:state + 2 * n_steps] = bias_table(n_steps, b1, b2)
     return io
 
 

@@ -1,6 +1,6 @@
 """KZ, the error-model zoo's indel fits as CUDA kernels
-(csrc/error_zoo_fit.cu, one launch a fit start), and a torch model of
-their arithmetic.
+(csrc/error_zoo_fit.cu: a tool run's fit starts side by side, one
+thread-block cluster a start), and a torch model of their arithmetic.
 
 KZ replaces the step that the JAX package's error_zoo._fit jits
 (value_and_grad of a model's negative log likelihood, then optax's Adam
@@ -17,22 +17,50 @@ csrc/fit_grid.cuh (KE-F's fit, generalised), fit the five families that
   (rate, noisy, theta);
 - KZ-B: the beta-binomial, indelBetaBinomial* (mean, conc, theta).
 
-A launch runs a whole fit start (ZooRun): each locus's parameter-free
-values held on chip, n_steps Adam steps (the loss and its closed-form
-gradient summed over the loci in fit_grid's order, no float atomics;
-theta's slot left as it is where theta is locked), the last step kept,
-and the loss once more at the final parameters. The two starts of a
-binomial mixture are two launches; the fit keeps the start of lower final
-loss, the first on a tie, as _fit_plain's caller does.
+A fit start runs whole in its blocks: each locus's parameter-free values
+held on chip, n_steps Adam steps (the loss and its closed-form gradient
+summed over the loci in fit_grid's order, no float atomics; theta's slot
+left as it is where theta is locked), the last step kept, and the loss
+once more at the final parameters. A tool run fits every context of a
+counts file at once (ZooBatch, from models/error_zoo.fit_contexts): the
+patterns uploaded once, concatenated; a work list of every (context,
+start) in context and start order, each start on KZ's grid (kz_grid);
+the starts that one cluster holds run side by side in one batched launch
+padded to the widest of their clusters (cluster c of the launch runs
+start c of its list; the clusters need nothing of each other, so a
+launch past the card's resident clusters runs them in waves;
+launch_groups); each larger start is one launch of its own (ZooRun, the
+grid regimes); all on one stream, then one wait. The tool run's
+launches: tool_launches, one batched launch plus one a large start. A
+start alone in the cluster regime (ZooRun) is a batched launch of one.
+A binomial mixture keeps the start of lower final loss, the first on a
+tie.
 
-models/error_zoo._fit runs the plain version on CPU tensors and KZ on any
-other device. A wrapper here checks its operands, builds and binds the
-library (_build.load) and launches on the tensors' card and its current
-stream, and raises on what it does not take and where the build, the load
-or the launch fails: nothing falls back to the plain version. LAUNCHES
-counts each kernel's launches; PLAIN_ON_CUDA counts the autograd fits run
-on a card (the plain version asked for there, and the SNV fits, which
-have no kernel), which no CLI path makes.
+models/error_zoo.fit_contexts runs the plain version on CPU tensors and
+KZ on any other device. A wrapper here checks its operands, builds and
+binds the library (_build.load) and launches on the tensors' card and its
+current stream, and raises on what it does not take and where the build,
+the load or the launch fails: nothing falls back to the plain version.
+LAUNCHES counts each kernel's launches (batched or not); PLAIN_ON_CUDA
+counts the autograd fits run on a card (the plain version asked for
+there, and the SNV fits, which have no kernel), which no CLI path makes.
+
+KZ's grid rule (kz_grid): a context stays one cluster of up to 16 blocks
+(the H100's non-portable cluster), at up to its family's cluster_per loci
+a thread (at most its on_chip_per), before it goes to fit_kernels.fit_grid
+(the grid regime, or the global one past what the card holds on chip).
+cluster_per is set by measurement: a step of each family in a 16-block
+cluster against the grid regime on the same seeded patterns, in turns
+(chip_smoke.py phase 15c's kz_rule, NVIDIA H100 80GB HBM3 at 700 W;
+PERF.md section 6):
+a 16-block cluster at two loci a thread saves 0.25 us a step against
+20 grid blocks at 5,000 patterns for indelIndyNoOverlap and ties for
+indelIndy (4.509 against 4.504 us), and loses 0.8-3.7 us for the
+clean-locus and beta-binomial families, whose terms cost more a locus
+than the barrier saves; at three loci a thread or more the cluster
+loses for every family. So cluster_per is 2 for KZ-4 <false> and KZ-3
+<false>, 1 (the cluster up to 4,096 patterns, as fit_kernels.fit_grid)
+for the rest.
 
 zoo_fit_model is KZ's arithmetic as torch ops: the same elementwise
 expressions, digamma by the kernel's own algorithm (ATen's, every product
@@ -72,14 +100,16 @@ CONSTS = ("log_hom_alt", "log_hom_ref", "log_het", "ln2", "log_clean",
 class Family:
     """A zoo family's kernel and layout (csrc's zoo_fit_layout): the
     kernel, its clean flag, the rows held a locus, the sums a step, the
-    parameters (theta last), the state's doubles and the loci a thread
-    held on chip."""
+    parameters (theta last), the state's doubles, the loci a thread held
+    on chip, and KZ's grid rule: the loci a thread that a cluster of
+    CLUSTER_MAX blocks takes before the grid regime (kz_grid)."""
     kernel: str
     clean: bool
     rows: int
     sums: int
     params: int
     on_chip_per: int
+    cluster_per: int
 
     @property
     def state(self) -> int:
@@ -91,17 +121,36 @@ def _on_chip_per(rows: int) -> int:
     return (96 * 1024) // (rows * 8 * fk.THREADS)
 
 
-def _family(kernel, clean, rows, sums, params):
-    return Family(kernel, clean, rows, sums, params, _on_chip_per(rows))
+def _family(kernel, clean, rows, sums, params, cluster_per):
+    on_chip = _on_chip_per(rows)
+    return Family(kernel, clean, rows, sums, params, on_chip,
+                  min(cluster_per, on_chip))
 
 
+CLUSTER_MAX = fk.CLUSTER_MAX
+# KZ's grid rule by family: the loci a thread a 16-block cluster takes
+# (measured, see the module's docstring)
 FAMILIES = {
-    "indy": _family("KZ-4", False, 11, 8, 3),
-    "binom_mixture": _family("KZ-4", True, 15, 10, 4),
-    "indy_noovl": _family("KZ-3", False, 5, 6, 2),
-    "binom_mixture_noovl": _family("KZ-3", True, 6, 8, 3),
-    "beta_binomial": _family("KZ-B", False, 5, 6, 3),
+    "indy": _family("KZ-4", False, 11, 8, 3, 2),
+    "binom_mixture": _family("KZ-4", True, 15, 10, 4, 1),
+    "indy_noovl": _family("KZ-3", False, 5, 6, 2, 2),
+    "binom_mixture_noovl": _family("KZ-3", True, 6, 8, 3, 1),
+    "beta_binomial": _family("KZ-B", False, 5, 6, 3, 1),
 }
+
+
+def kz_grid(n: int, resident: int, f: Family) -> tuple[int, int, str]:
+    """(blocks, loci a thread, regime) of a fit start of family f over n
+    patterns, KZ's rule: one cluster of up to CLUSTER_MAX blocks at the
+    fewest loci a thread that it takes, while that is at most
+    f.cluster_per; past it fit_kernels.fit_grid on a card that keeps
+    `resident` of the kernel's blocks at once."""
+    if n < 1:
+        raise ValueError(f"kz_grid: wants n >= 1, got {n}")
+    per = -(-n // (fk.THREADS * CLUSTER_MAX))
+    if per <= f.cluster_per:
+        return -(-n // (fk.THREADS * per)), per, "cluster"
+    return fk.fit_grid(n, resident, f.on_chip_per)
 
 
 def state_slots(f: Family) -> dict:
@@ -121,8 +170,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "zoo_fit_layout": [_i, _i, _IP],
     "zoo_fit_resident_blocks": [_i, _i, _IP],
-    "zoo_fit_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i,
+    "zoo_fit_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i,
                        _CD, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp],
+    "zoo_fit_batch_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                             _i, _i, _CD, _i, _i, _vp, _vp, _vp],
 }
 _BOUND: dict = {}
 _RESIDENT: dict = {}
@@ -236,11 +287,13 @@ class ZooRun:
     card: the state (f.state float64, state_slots: the parameters, zero
     moments; every slot after a launch), the bias corrections [n_steps, 2]
     (1 - b1**t, 1 - b2**t by Python's **) and the barrier's two counters
-    in one buffer; the block partials [2, blocks, f.sums] past the cluster
-    regime, loc [f.rows, N] in the global regime. The grid is
-    fit_kernels.fit_grid(N, resident_blocks, f.on_chip_per); `grid`
-    (blocks, per, regime) replaces it to measure a regime where fit_grid
-    picks another."""
+    in one buffer; in the cluster regime the work row of a batched launch
+    of one start (zoo_fit_batch_launch: the kernel that the tool runs),
+    past it the block partials [2, blocks, f.sums] and, in the global
+    regime, loc [f.rows, N] (zoo_fit_launch). The grid is kz_grid(N,
+    resident_blocks, f); `grid` (blocks, per, regime) replaces it (a
+    batch's large starts, and to measure a regime where kz_grid picks
+    another)."""
 
     def __init__(self, family: str, obs, params, consts, n_steps: int,
                  lock_theta: bool, is_insert: bool = True, grid=None):
@@ -252,7 +305,7 @@ class ZooRun:
         host = _host_consts(consts)
         dev = obs[0].device
         if grid is None:
-            grid = fk.fit_grid(n, resident_blocks(f, dev), f.on_chip_per)
+            grid = kz_grid(n, resident_blocks(f, dev), f)
         blocks, per, regime = grid
         if not (blocks >= 1 and per >= 1 and blocks * per * fk.THREADS >= n
                 and regime in fk.REGIMES
@@ -263,27 +316,38 @@ class ZooRun:
             raise ValueError(f"{name}: {n_steps} steps of {blocks} blocks "
                              f"overflow the barrier's counter")
         self.family, self.grid, self.dev = f, tuple(grid), dev
-        self.n_steps = n_steps
+        self.n_steps, self.host = n_steps, host
+        self.flags = (int(lock_theta), int(is_insert))
         c = dict(zip(CONSTS, consts))
         io = fk.start_io(params, f.state, n_steps, c["b1"], c["b2"])
         self._start, io = io, io.to(dev, copy=True)
         # the launch reads these through their addresses
         self._obs = tuple(obs)
         self.state = io[:f.state]
+        self.bias = io[f.state:f.state + 2 * n_steps]
+        self.arrivals = io[f.state + 2 * n_steps:]
         f64 = dict(dtype=torch.float64, device=dev)
         self.partials = (torch.empty((2, blocks, f.sums), **f64)
                          if regime != "cluster" else None)
         self.loc = (torch.empty((f.rows, n), **f64)
                     if regime == "global" else None)
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-        self._args = [*_c_args(f), *(o.data_ptr() for o in obs), n, blocks,
-                      per, n_steps, int(regime == "cluster"), host,
-                      int(lock_theta), int(is_insert),
-                      io[f.state:].data_ptr(), self.state.data_ptr(),
-                      ptr(self.loc), ptr(self.partials),
-                      io[f.state + 2 * n_steps:].data_ptr()]
+        self.work = (torch.tensor([0, n, blocks, per, 0], dtype=torch.int64,
+                                  device=dev)
+                     if regime == "cluster" else None)
+        obs_at = [o.data_ptr() for o in obs]
+        if regime == "cluster":
+            self._entry = "zoo_fit_batch_launch"
+            self._args = [*_c_args(f), *obs_at, self.work.data_ptr(), 1,
+                          blocks, per, n_steps, host, *self.flags,
+                          self.bias.data_ptr(), self.state.data_ptr()]
+        else:
+            self._entry = "zoo_fit_launch"
+            self._args = [*_c_args(f), *obs_at, n, blocks, per, n_steps,
+                          host, *self.flags, self.bias.data_ptr(),
+                          self.state.data_ptr(),
+                          None if self.loc is None else self.loc.data_ptr(),
+                          self.partials.data_ptr(),
+                          self.arrivals.data_ptr()]
         self._io = io
 
     def launch(self) -> None:
@@ -291,14 +355,15 @@ class ZooRun:
         raises where the build or the load fails, the tensors are on no
         card or the launch fails."""
         name = self.family.kernel
-        fn = function("zoo_fit_launch")
+        fn = function(self._entry)
         if self.dev.type != "cuda":
             raise ValueError(f"{name}: unsupported device {self.dev}")
         with torch.cuda.device(self.dev):
             rc = fn(*self._args,
                     torch.cuda.current_stream(self.dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+            what = "batched launch" if self.work is not None else "launch"
+            raise RuntimeError(f"{name} {what} failed: CUDA error {rc}")
         LAUNCHES[name] += 1
 
     def reset(self) -> None:
@@ -307,15 +372,171 @@ class ZooRun:
         self._io.copy_(self._start)
 
 
-def zoo_fit(family: str, obs, params, consts, n_steps: int,
-            lock_theta: bool, is_insert: bool = True) -> ZooRun:
-    """A fit start of n_steps Adam steps from params in one launch of
-    family's kernel (ZooRun's operands); the result is its .state
-    (state_slots) on the card and its .grid."""
-    run = ZooRun(family, obs, params, consts, n_steps, lock_theta,
-                 is_insert)
-    run.launch()
-    return run
+@dataclass(frozen=True)
+class Start:
+    """A fit start of a tool run's work list: its context and start (in
+    the run's order), its patterns' first row in the concatenated
+    observations, its patterns and its grid (kz_grid)."""
+    context: int
+    start: int
+    offset: int
+    n: int
+    grid: tuple
+
+
+def work_list(family: str, sizes, starts: int, resident: int) -> list:
+    """Every (context, start) of a tool run over contexts of `sizes`
+    patterns (in the counts file's order) with `starts` starts each, in
+    context order and start order, each on kz_grid(n, resident, f)."""
+    f = FAMILIES[family]
+    out, offset = [], 0
+    for i, n in enumerate(sizes):
+        grid = kz_grid(n, resident, f)
+        out += [Start(i, k, offset, n, grid) for k in range(starts)]
+        offset += n
+    return out
+
+
+def launch_groups(work):
+    """A work list's launches: (the batched launch's cluster width, its
+    start indices, the indices of the starts launched alone). The
+    cluster-regime starts go side by side in one batched launch at the
+    widest of their clusters (0 where there is none), in work order, a
+    narrower start's extra blocks only meeting its barriers; each start
+    of another regime is one launch of its own, in work order. (One
+    padded launch took 2.03-7.60 ms where one batched launch a cluster
+    width took 3.61-13.80, on an H100 at 700 W, phase 15's files;
+    PERF.md section 6.)"""
+    cluster = [i for i, w in enumerate(work) if w.grid[2] == "cluster"]
+    large = [i for i, w in enumerate(work) if w.grid[2] != "cluster"]
+    width = max((work[i].grid[0] for i in cluster), default=0)
+    return width, cluster, large
+
+
+def tool_launches(family: str, sizes, starts: int, resident: int) -> int:
+    """KZ's launches in a tool run of `family` over contexts of `sizes`
+    patterns with `starts` starts each, on a card that keeps `resident`
+    of the kernel's blocks at once: one batched launch of its
+    cluster-regime starts, plus one a large fit start (launch_groups)."""
+    _, batched, large = launch_groups(work_list(family, sizes, starts,
+                                                resident))
+    return int(bool(batched)) + len(large)
+
+
+class ZooBatch:
+    """A tool run's fit starts of family `family`'s kernel on card `dev`,
+    bound once: obs, each context's (ref_obs [n], alt_obs [n, 6], inst [n]
+    float64, max1, max2 [n] int64) on the host, n >= 1; starts, the start
+    parameters (each [f.params]), run on every context in order; the
+    CONSTS doubles, n_steps >= 1 and the kernel's flags as ZooRun's. The
+    work list is work_list's (kz_grid on the card's resident blocks), its
+    launches launch_groups'. On the card, uploaded once: the observations
+    concatenated, every start's state ([starts in the list, f.state]:
+    the parameters, zero moments) and the bias corrections in one float64
+    buffer, the alt slots' indices and the batched launch's work rows
+    (fit_grid.cuh's kWorkCols: first pattern, patterns, blocks, loci a
+    thread, state slot) in one int64 buffer; a large start's operands as
+    ZooRun's, on slices of the same observations. launch() runs every
+    start, ends() waits once and reads them back, reset() puts every
+    start back. Raises where the build or the load fails (first, at the
+    resident blocks' query), the tensors are on no card or a launch
+    fails: nothing falls back."""
+
+    def __init__(self, family: str, obs, starts, consts, n_steps: int,
+                 lock_theta: bool, is_insert: bool, dev):
+        f = FAMILIES[family]
+        dev = torch.device(dev)
+        if not obs or not starts:
+            raise ValueError(f"{f.kernel}: wants a context and a start")
+        if n_steps < 1:
+            raise ValueError(f"{f.kernel}: n_steps must be >= 1, got "
+                             f"{n_steps}")
+        host = _host_consts(consts)
+        resident = resident_blocks(f, dev)
+        cols = [[torch.as_tensor(a) for a in o] for o in obs]
+        sizes = [len(o[0]) for o in cols]
+        if min(sizes) < 1:
+            raise ValueError(f"{f.kernel}: a context has no pattern")
+        self.family, self.dev, self.n_steps = f, dev, n_steps
+        self.work = work_list(family, sizes, len(starts), resident)
+        self.width, self.batched, large = launch_groups(self.work)
+        n, items, st = sum(sizes), len(self.work), f.state
+        c = dict(zip(CONSTS, consts))
+        f64 = torch.zeros(8 * n + items * st + 2 * n_steps,
+                          dtype=torch.float64)
+        f64[:n] = torch.cat([o[0] for o in cols])
+        f64[n:7 * n] = torch.cat([o[1] for o in cols]).reshape(-1)
+        f64[7 * n:8 * n] = torch.cat([o[2] for o in cols])
+        states = f64[8 * n:8 * n + items * st].view(items, st)
+        for i, w in enumerate(self.work):
+            states[i, :f.params] = torch.as_tensor(starts[w.start],
+                                                   dtype=torch.float64)
+        f64[8 * n + items * st:] = fk.bias_table(n_steps, c["b1"], c["b2"])
+        rows = [[w.offset, w.n, w.grid[0], w.grid[1], i]
+                for i in self.batched for w in (self.work[i],)]
+        i64 = torch.cat([torch.cat([o[3] for o in cols]),
+                         torch.cat([o[4] for o in cols]),
+                         torch.tensor(rows, dtype=torch.int64).reshape(-1)])
+        self._start = states.clone()
+        fd, idev = f64.to(dev), i64.to(dev)
+        self._bufs = (fd, idev)
+        self.obs = (fd[:n], fd[n:7 * n].view(n, 6), fd[7 * n:8 * n],
+                    idev[:n], idev[n:2 * n])
+        self.states = fd[8 * n:8 * n + items * st].view(items, st)
+        bias = fd[8 * n + items * st:]
+        self._args = [
+            *_c_args(f), *(o.data_ptr() for o in self.obs),
+            idev[2 * n:].data_ptr(), len(rows), self.width,
+            max((r[3] for r in rows), default=0), n_steps, host,
+            int(lock_theta), int(is_insert), bias.data_ptr(),
+            self.states.data_ptr()] if rows else None
+        self.large = [(i, ZooRun(family, tuple(
+            o[w.offset:w.offset + w.n] for o in self.obs),
+            starts[w.start], consts, n_steps, lock_theta, is_insert,
+            grid=w.grid)) for i in large for w in (self.work[i],)]
+
+    @property
+    def launches(self) -> int:
+        """A launch() call's launches (tool_launches)."""
+        return int(self._args is not None) + len(self.large)
+
+    def launch(self) -> None:
+        """Every start from its state as it stands, on the card's current
+        stream: the batched launch, then each large start's (its state
+        copied into its slot of .states)."""
+        name = self.family.kernel
+        fn = function("zoo_fit_batch_launch")
+        if self.dev.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {self.dev}")
+        if self._args is not None:
+            with torch.cuda.device(self.dev):
+                rc = fn(*self._args,
+                        torch.cuda.current_stream(self.dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} batched launch failed: CUDA "
+                                   f"error {rc}")
+            LAUNCHES[name] += 1
+        for i, run in self.large:
+            run.launch()
+            self.states[i].copy_(run.state)
+
+    def ends(self) -> list:
+        """Each context's starts after launch(), in start order: [[(the
+        parameters [f.params] float64 numpy, the final loss)]], read back
+        in one copy."""
+        st = self.states.cpu()
+        at = state_slots(self.family)
+        out: list = [[] for _ in range(self.work[-1].context + 1)]
+        for w, row in zip(self.work, st):
+            out[w.context].append((row[at["params"]].numpy(),
+                                   float(row[at["final"]])))
+        return out
+
+    def reset(self) -> None:
+        """Every start's state as before the first launch."""
+        self.states.copy_(self._start)
+        for _, run in self.large:
+            run.reset()
 
 
 # --------------------------------------------------------------------------
@@ -599,9 +820,57 @@ def _chain(f: Family, i: int, tot, r):
     return _theta_chain(tot[4], tot[5], tot[3], None, r, theta, False)
 
 
+def combine_lanes(f: Family, e) -> dict:
+    """csrc's combine spread over warp 0's lanes: each independent
+    transcendental of the next step's scalars on its own lane, from the
+    parameters' e = exp(lnb) (0-d float64 each), {lane: value}: KZ-4
+    log(wr), log(wc) on lanes 0 and 1; KZ-3 log1p(-e_rate),
+    log1p(-e_noisy); KZ-B lgamma of betaln(alpha, beta)'s a, b and s on
+    lanes 0-2 (algdiv(a, b)'s value and partials on lane 1 past b < 8)
+    and digamma of a, b and s on lanes 3-5; the no-indel prior's log(wt)
+    on lane 2 (KZ-4, KZ-3) or 6 (KZ-B). Lanes whose value the join does
+    not read (a branch not taken, a clean locus or theta the family has
+    not) are computed all the same, as on the card."""
+    th = e[-1]
+    if f.kernel == "KZ-4":
+        wt = 1.0 - (th * 1.5 + th * th)
+        wc = 1.0 - e[2] if f.clean else torch.ones_like(th)
+        return {0: torch.log((1.0 - e[0]) - e[1]), 1: torch.log(wc),
+                2: torch.log(wt)}
+    wt = 1.0 - th * 1.5
+    if f.kernel == "KZ-3":
+        return {0: torch.log1p(-e[0]), 1: torch.log1p(-e[1]),
+                2: torch.log(wt)}
+    alpha, beta = e[0] * e[1], e[1] * (1.0 - e[0])
+    a, b = torch.minimum(alpha, beta), torch.maximum(alpha, beta)
+    s = a + b
+    lanes = {0: torch.lgamma(a), 2: torch.lgamma(s), 3: digamma(a),
+             4: digamma(b), 5: digamma(s), 6: torch.log(wt)}
+    lanes[1] = (algdiv_grad(a, b) if not bool(b < 8)
+                else (torch.lgamma(b), None, None))
+    return lanes
+
+
+def _join_beta(x, y, lanes):
+    """betaln(x, y) and its partials from combine_lanes' KZ-B lanes, in
+    csrc's betaln_join order."""
+    a, b = torch.minimum(x, y), torch.maximum(x, y)
+    lg1, ada, adb = lanes[1]
+    if bool(b < 8):
+        val = lanes[0] + (lg1 - lanes[2])
+        ga, gb = lanes[3] - lanes[5], lanes[4] - lanes[5]
+    else:
+        val = lanes[0] + lg1
+        ga, gb = lanes[3] + ada, adb
+    if bool(x == y):
+        return val, ga * 0.5 + gb * 0.5, ga * 0.5 + gb * 0.5
+    return (val, ga, gb) if bool(x < y) else (val, gb, ga)
+
+
 def _scalars(f: Family, x, c: dict, lock_theta: bool) -> dict:
     """A step's scalars from the parameters x [f.params] (csrc's bounded
-    on each parameter, then combine)."""
+    on each parameter, then combine: combine_lanes' values joined by lane
+    0)."""
     r = {"lnb": [], "dx": [], "e": []}
     for i in range(f.params):
         lnb, dx, e = bounded(x[i], c[f"lim{i}"])
@@ -609,22 +878,24 @@ def _scalars(f: Family, x, c: dict, lock_theta: bool) -> dict:
         r["dx"].append(dx)
         r["e"].append(e)
     e = r["e"]
+    lanes = combine_lanes(f, e)
     if f.kernel == "KZ-4":
         r["wr"] = (1.0 - e[0]) - e[1]
-        r["lref"] = torch.log(r["wr"])
+        r["lref"] = lanes[0]
         if f.clean:
             r["wc"] = 1.0 - e[2]
-            r["lcl"] = torch.log(r["wc"])
+            r["lcl"] = lanes[1]
     elif f.kernel == "KZ-3":
         r["wr"] = (-e[0]) + 1.0
-        r["lref"] = torch.log1p(-e[0])
+        r["lref"] = lanes[0]
         if f.clean:
             r["wc"] = (-e[1]) + 1.0
-            r["lcl"] = torch.log1p(-e[1])
+            r["lcl"] = lanes[1]
     else:
         r["alpha"] = e[0] * e[1]
         r["beta"] = e[1] * (1.0 - e[0])
-        r["b0"], r["db0a"], r["db0b"] = betaln_grad(r["alpha"], r["beta"])
+        r["b0"], r["db0a"], r["db0b"] = _join_beta(r["alpha"], r["beta"],
+                                                   lanes)
     if lock_theta:
         r["prior"] = [c["prior_hom"], c["prior_het"], c["prior_noindel"],
                       c["prior_althet"]]
@@ -632,7 +903,8 @@ def _scalars(f: Family, x, c: dict, lock_theta: bool) -> dict:
         lt, th = r["lnb"][-1], e[-1]
         r["wt"] = (1.0 - (th * 1.5 + th * th) if f.kernel == "KZ-4"
                    else 1.0 - th * 1.5)
-        r["prior"] = [lt - c["ln2"], lt, torch.log(r["wt"]), lt * 2.0]
+        r["prior"] = [lt - c["ln2"], lt, lanes[6 if f.kernel == "KZ-B"
+                                                else 2], lt * 2.0]
     return r
 
 
@@ -641,7 +913,7 @@ def zoo_fit_model(family: str, obs, params, consts, n_steps: int,
     """A whole fit start of family's kernel as torch ops on obs's device:
     prep_model's rows, n_steps steps of the per-locus terms summed by
     fit_kernels.grid_sum on `grid` ((blocks, loci a thread); default
-    fit_grid(N, MAX_BLOCKS, f.on_chip_per)'s), the chains, Adam
+    kz_grid(N, MAX_BLOCKS, f)'s), the chains, Adam
     (fit_kernels.adam_update; theta's slot left where lock_theta) and the
     final loss. Returns (the state [f.state] that the kernel writes, the
     losses of every step [n_steps])."""
@@ -650,7 +922,7 @@ def zoo_fit_model(family: str, obs, params, consts, n_steps: int,
     v = prep_model(family, obs, consts, is_insert)
     dev = v.device
     if grid is None:
-        grid = fk.fit_grid(v.shape[1], fk.MAX_BLOCKS, f.on_chip_per)[:2]
+        grid = kz_grid(v.shape[1], fk.MAX_BLOCKS, f)[:2]
     x = torch.as_tensor(params, dtype=torch.float64).to(dev).clone()
     mu, nu = torch.zeros_like(x), torch.zeros_like(x)
     zero = torch.zeros((), dtype=torch.float64, device=dev)
@@ -731,7 +1003,7 @@ def fit_work(family: str, n: int, n_steps: int,
     the fit's final parameters: the branch the data takes there) and the
     rest on its lgamma branch, and betaln(alpha, beta) once a step."""
     f = FAMILIES[family]
-    blocks = fk.fit_grid(n, fk.MAX_BLOCKS, f.on_chip_per)[0]
+    blocks = kz_grid(n, fk.MAX_BLOCKS, f)[0]
     nbytes = OBS_ROWS * 8 * n + 2 * 8 * n_steps + 2 * f.state * 8
     per_locus = F64_PER_LOCUS[family]
     tail = f.params * F64_TAIL_PER_PARAM + F64_TAIL

@@ -255,42 +255,46 @@ def cat_files(in_paths: list[str], out_path: str) -> None:
                     out.write(chunk)
 
 
+# the model names that fit on the device: (models/error_zoo's family,
+# its indel type: insertions)
+FITTED_MODELS = {
+    "indelIndy": ("indy", True),
+    "indelBinomialMixture": ("binom_mixture", True),
+    "indelBetaBinomialInsert": ("beta_binomial", True),
+    "indelBetaBinomialDelete": ("beta_binomial", False),
+    "indelIndyNoOverlapInsert": ("indy_noovl", True),
+    "indelIndyNoOverlapDelete": ("indy_noovl", False),
+    "indelBinomialMixtureNoOverlapInsert": ("binom_mixture_noovl", True),
+    "indelBinomialMixtureNoOverlapDelete": ("binom_mixture_noovl", False),
+}
+
+
 def estimate_parameters(counts_path: str, model: str,
                         lock_theta: bool = False, device=None) -> dict:
     """Research-grade error-model fits over a merged counts file
     (EstimateParametersFromAlleleCounts; models in
-    models/error_zoo.py), on `device` (default: the current device).
+    models/error_zoo.py), on `device` (default: the current device): a
+    fitted model's contexts all at once (error_zoo.fit_contexts: on a
+    card every fit start side by side), indelModel1* on the host.
     Returns {context: fit dict}."""
     from ..models import error_zoo as ez
     from ..pipeline.allele_counts import load_context_counts
 
     counts = load_context_counts(counts_path)
-    out = {}
-    for (ps, rc), cc in sorted(counts.items()):
-        key = f"unit{ps}_rep{rc}"
-        if model == "indelIndy":
-            out[key] = ez.fit_indel_indy(cc, lock_theta, device=device)
-        elif model == "indelBinomialMixture":
-            out[key] = ez.fit_indel_binom_mixture(cc, lock_theta,
-                                                  device=device)
-        elif model == "indelBetaBinomialInsert":
-            out[key] = ez.fit_indel_beta_binomial(cc, True, lock_theta,
-                                                  device=device)
-        elif model == "indelBetaBinomialDelete":
-            out[key] = ez.fit_indel_beta_binomial(cc, False, lock_theta,
-                                                  device=device)
-        elif model in ("indelIndyNoOverlapInsert", "indelIndyNoOverlapDelete"):
-            out[key] = ez.fit_indel_indy_noovl(
-                cc, model.endswith("Insert"), lock_theta, device=device)
-        elif model in ("indelBinomialMixtureNoOverlapInsert",
-                       "indelBinomialMixtureNoOverlapDelete"):
-            out[key] = ez.fit_indel_binom_mixture_noovl(
-                cc, model.endswith("Insert"), lock_theta, device=device)
-        elif model in ("indelModel1Insert", "indelModel1Delete"):
-            out[key] = ez.indel_model1_report(cc, model.endswith("Insert"))
-        else:
-            raise ValueError(f"unknown model: {model}")
-    return out
+    keys = sorted(counts)
+    if not keys:
+        return {}
+    names = [f"unit{ps}_rep{rc}" for ps, rc in keys]
+    if model in FITTED_MODELS:
+        family, is_insert = FITTED_MODELS[model]
+        fits = ez.fit_contexts(family, [counts[k] for k in keys], is_insert,
+                               lock_theta, device=device)
+        return dict(zip(names, fits))
+    if model in ("indelModel1Insert", "indelModel1Delete"):
+        return {name: ez.indel_model1_report(counts[k],
+                                             model.endswith("Insert"))
+                for name, k in zip(names, keys)}
+    raise ValueError(f"unknown model: {model}")
 
 
 def _take_device(rest: list[str]) -> tuple[list[str], str]:

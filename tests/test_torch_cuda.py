@@ -13,8 +13,10 @@ FMA, Adam, fit_context, two error_zoo fits) on the card against the CPU,
 KE-F (the error fit, one launch a fit) against its plain step and its
 torch model at the CLI's sizes, a 16-block cluster, 50,000 and 100,000
 patterns and past what the card holds on chip, KZ (the zoo's fits behind
-tools estimate-parameters, one launch a fit start) against its torch
-model bit for bit in every regime and against the plain version,
+tools estimate-parameters: a run's fit starts side by side, one cluster a
+start) against its torch model bit for bit in every regime, each start of
+a batched launch against the same start alone, the tool's launches, and
+against the plain version,
 and the engine mesh: K1 sharded over a mesh that repeats cuda:0 against
 one launch, a launch on cuda:1 against one on cuda:0 (with two cards),
 the SNV and somatic chunks split over the mesh, and --mesh on the CLI.
@@ -1118,10 +1120,13 @@ FIT_RTOL = 1e-10
 
 
 def indel_counts(seed, n, depth, rate, noisy):
-    """(ref, alt[6]) of n loci: noisy ones with indel errors at `rate`,
-    a few het indels; deduplicated by the port's error_fit."""
+    """(ref, alt[6]) of n loci at `depth` reads (or a (lo, hi) range of
+    depths drawn a locus): noisy ones with indel errors at `rate`, a few
+    het indels; deduplicated by the port's error_fit."""
     from strelka_tpu_torch.models import error_fit as ef
     rng = np.random.default_rng(seed)
+    if not np.isscalar(depth):
+        depth = rng.integers(*depth, n)
     e = np.where(rng.random(n) < noisy, rate, 1e-8)
     ins, dels = rng.binomial(depth, e), rng.binomial(depth, e)
     het = rng.random(n) < 0.002
@@ -1475,10 +1480,10 @@ def test_kz_grid_and_global_regimes_keep_the_bits(cuda, family):
 
 @pytest.mark.parametrize("name", list(KZ_FITS))
 def test_kz_fit_matches_plain_fit_on_card(cuda, name):
-    """Each of the tool's fitted model names on the card through KZ (one
-    launch a fit start, the plain version no time) against the plain
-    version on the card (plain=True) and on the CPU: every field within
-    FIT_RTOL; a second run gives the same bits."""
+    """Each of the tool's fitted model names on the card through KZ (its
+    starts side by side: one launch, the plain version no time) against
+    the plain version on the card (plain=True) and on the CPU: every field
+    within FIT_RTOL; a second run gives the same bits."""
     from strelka_tpu_torch.models import error_zoo as ez
     from strelka_tpu_torch.ops import zoo_kernels as zk
     fn, args, family = KZ_FITS[name]
@@ -1488,8 +1493,9 @@ def test_kz_fit_matches_plain_fit_on_card(cuda, name):
     steps = 300
     zk.reset()
     got = getattr(ez, fn)(cc, *args, steps=steps, device=cuda)
-    assert zk.LAUNCHES[f.kernel] == starts
-    assert sum(zk.LAUNCHES.values()) == starts
+    assert zk.LAUNCHES[f.kernel] == 1 == zk.tool_launches(
+        family, [len(cc.ref_obs)], starts, zk.resident_blocks(f, cuda))
+    assert sum(zk.LAUNCHES.values()) == 1
     assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
     again = getattr(ez, fn)(cc, *args, steps=steps, device=cuda)
     assert again == got
@@ -1503,10 +1509,10 @@ def test_kz_fit_matches_plain_fit_on_card(cuda, name):
 
 
 def test_kz_refused_launch_raises(cuda, monkeypatch):
-    """A fit whose grid the card cannot place raises and counts nothing:
-    the whole grid one thread-block cluster of 196 blocks, past the
-    card's largest (cudaLaunchKernelEx refuses it); the plain version
-    never runs in its place."""
+    """A fit whose grid cannot be placed raises and counts nothing: the
+    whole grid one thread-block cluster of 196 blocks, past the card's
+    largest (the batched entry refuses it); the plain version never runs
+    in its place."""
     from strelka_tpu_torch.models import error_zoo as ez
     from strelka_tpu_torch.ops import zoo_kernels as zk
     cc = fit_kernels.synthetic_counts(9, 60_000, 300)
@@ -1514,8 +1520,174 @@ def test_kz_refused_launch_raises(cuda, monkeypatch):
                         lambda n, resident, per=4: (-(-n // 256), 1,
                                                     "cluster"))
     zk.reset()
-    with pytest.raises(RuntimeError, match="KZ-4 launch failed"):
+    with pytest.raises(RuntimeError, match="KZ-4 batched launch failed"):
         ez.fit_indel_indy(cc, steps=5, device=cuda)
+    assert zk.LAUNCHES == {"KZ-4": 0, "KZ-3": 0, "KZ-B": 0}
+    assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
+
+
+def kz_contexts():
+    """A counts file's contexts for the batched path, slices of the
+    107,434 seeded patterns: two cluster blocks (275 patterns), a 16-block
+    cluster at two loci a thread (5,000), one block (93) and past the
+    cluster (40,000: the grid regime)."""
+    from strelka_tpu_torch.models.error_fit import ContextCounts
+    big = fit_kernels.synthetic_counts(9, 130_000, 500)
+
+    def cut(a, b):
+        return ContextCounts(big.ref_obs[a:b], big.alt_obs[a:b],
+                             big.instance_count[a:b])
+    return [cut(0, 275), cut(1000, 6000), cut(300, 393), cut(6000, 46_000)]
+
+
+@pytest.mark.parametrize("resident", [None, 3])
+@pytest.mark.parametrize("family", ["indy", "binom_mixture", "indy_noovl",
+                                    "binom_mixture_noovl", "beta_binomial"])
+def test_kz_zoo_batch_starts_bit_for_bit_with_alone_and_model(
+        cuda, monkeypatch, family, resident):
+    """A tool run's fit starts side by side (ZooBatch: one launch padded
+    to the widest cluster, and the large starts alone, on the card's
+    resident blocks or with the card taken to keep 3, which moves the
+    large starts' grids): each start's state bit for bit with the same
+    start launched alone (ZooRun on its grid: a batched launch of one in
+    the cluster regime) and with zoo_fit_model on that grid; KZ launched
+    ZooBatch.launches times; a relaunch after reset() gives the same
+    bits."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    f = zk.FAMILIES[family]
+    if resident:
+        monkeypatch.setattr(zk, "resident_blocks", lambda f, dev: resident)
+    ctxs = kz_contexts()
+    obs = [ez._host_obs(cc) for cc in ctxs]
+    x0s = ez.fit_starts(family)
+    lock, is_insert, steps = False, family != "beta_binomial", 40
+    c = ez.kernel_consts(family, lock)
+    zk.reset()
+    batch = zk.ZooBatch(family, obs, x0s, c, steps, lock, is_insert, cuda)
+    batch.launch()
+    got = batch.states.cpu()
+    assert zk.LAUNCHES[f.kernel] == batch.launches
+    assert batch.batched and batch.launches == 1 + len(batch.large)
+    grids = [w.grid for w in batch.work]
+    assert grids[len(x0s)] == zk.kz_grid(5000, zk.resident_blocks(f, cuda),
+                                         f)
+    if f.cluster_per >= 2:
+        assert grids[len(x0s)] == (10, 2, "cluster")
+    for i, w in enumerate(batch.work):
+        o = tuple(t[w.offset:w.offset + w.n] for t in batch.obs)
+        alone = zk.ZooRun(family, o, x0s[w.start], c, steps, lock,
+                          is_insert, grid=w.grid)
+        alone.launch()
+        assert same(got[i], alone.state), (i, w)
+        want, _ = zk.zoo_fit_model(family, o, x0s[w.start], c, steps, lock,
+                                   is_insert, grid=w.grid[:2])
+        assert same(got[i], want), (i, w)
+    batch.reset()
+    batch.launch()
+    assert same(batch.states, got)
+
+
+# the tool-run contexts of test_kz_zoo_tool_run_launches_and_matches_cpu
+# by data: indel counts (1,272, 20,586 and 16 patterns: 5 cluster blocks,
+# past the cluster, one block) and slices of the seeded synthetic patterns
+# (275, 5,000 and 93: 2 cluster blocks, a 16-block cluster or past it by
+# family, one block), at KZ_TOOL_STEPS Adam steps a start
+KZ_TOOL_STEPS = 200
+KZ_TOOL_DATA = {
+    "indel_counts": lambda: [indel_counts(2, 4000, (10, 200), 1e-2, 0.5),
+                             indel_counts(3, 60_000, (10, 600), 2e-2, 0.5),
+                             indel_counts(4, 2000, 30, 1e-2, 0.5)],
+    "synthetic": lambda: kz_contexts()[:3]}
+# (data, model name, context index): a fit whose loss is flat along its
+# first listed field, which any change in the order of the loss's sums
+# moves past FIT_RTOL, and the fields that move with it. At KZ_TOOL_STEPS
+# on the CPU (tests/test_torch_zoo_batch.py::
+# test_sum_order_moves_a_flat_fit): the 93-pattern synthetic context's
+# noisy-locus rate of indelBinomialMixtureNoOverlapInsert is 5.86e-8
+# relative from the plain fit through KZ's arithmetic (zoo_fit_model),
+# and 1.90e-8 through the JAX package's; its indel rate 1.41e-11 and
+# 4.94e-11 there, and 1.22e-10 on an H100 (the card's exp and log);
+# its log likelihood agrees to 2e-16.
+KZ_SUM_ORDER_SENSITIVE = {
+    ("synthetic", "indelBinomialMixtureNoOverlapInsert", 2):
+        ("noisy_locus_rate", "indel_rate")}
+# the bound that such a field keeps against the CPU (a flat direction,
+# not a wrong fit)
+KZ_FLAT_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("data", list(KZ_TOOL_DATA))
+def test_kz_zoo_tool_run_launches_and_matches_cpu(cuda, data):
+    """Each fitted model name of tools estimate-parameters on three
+    contexts (KZ_TOOL_DATA) through fit_contexts, as the tool calls it,
+    at KZ_TOOL_STEPS steps on the card: KZ launched tool_launches times
+    (one padded batched launch, then each large start alone), the plain
+    version no time; every field within FIT_RTOL of the CPU's, but on a
+    fit of KZ_SUM_ORDER_SENSITIVE: there the record equals that of
+    zoo_fit_model's starts on the card bit for bit (KZ's own arithmetic;
+    the tool's pick of the lower final loss), and each listed field stays
+    within KZ_FLAT_RTOL of the CPU's, its distance printed."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    from strelka_tpu_torch.workflow import tools
+    ctxs = KZ_TOOL_DATA[data]()
+    sizes = [len(cc.ref_obs) for cc in ctxs]
+    steps = KZ_TOOL_STEPS
+    for name, (family, is_insert) in tools.FITTED_MODELS.items():
+        f = zk.FAMILIES[family]
+        starts = len(ez.fit_starts(family))
+        zk.reset()
+        got = ez.fit_contexts(family, ctxs, is_insert, False, steps, cuda)
+        launches = zk.tool_launches(family, sizes, starts,
+                                    zk.resident_blocks(f, cuda))
+        assert zk.LAUNCHES[f.kernel] == sum(zk.LAUNCHES.values()) == \
+            launches, name
+        if data == "indel_counts":
+            assert launches == 1 + starts, name
+        assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
+        want = ez.fit_contexts(family, ctxs, is_insert, False, steps, "cpu")
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert list(g) == list(w)
+            flat = KZ_SUM_ORDER_SENSITIVE.get((data, name, i), ())
+            if flat:
+                obs = tuple(torch.as_tensor(a).to(cuda)
+                            for a in ez._host_obs(ctxs[i]))
+                at = zk.state_slots(f)
+                ends = []
+                for x0 in ez.fit_starts(family):
+                    st, _ = zk.zoo_fit_model(
+                        family, obs, x0, ez.kernel_consts(family, False),
+                        steps, False, is_insert)
+                    ends.append((st[at["params"]].cpu().numpy(),
+                                 float(st[at["final"]])))
+                best = ends[0]
+                for e in ends[1:]:
+                    best = e if e[1] < best[1] else best
+                assert g == ez._result(family, *best, False), (name, i)
+            for k, v in w.items():
+                if k in flat:
+                    rel = abs(g[k] - v) / abs(v)
+                    print(f"{name} context {i} {k}: {rel:.3e} from the CPU")
+                    assert rel <= KZ_FLAT_RTOL, (name, i, k)
+                else:
+                    assert g[k] == pytest.approx(v, rel=FIT_RTOL, abs=0), (
+                        name, i, k)
+
+
+def test_kz_zoo_large_start_refused_launch_raises(cuda, monkeypatch):
+    """A start past the cluster whose launch fails raises, counts nothing
+    and runs no plain fit: its grid forced to 420 blocks of one locus a
+    thread, past the 264 that the grid regime takes (the entry refuses
+    it)."""
+    from strelka_tpu_torch.models import error_zoo as ez
+    from strelka_tpu_torch.ops import zoo_kernels as zk
+    monkeypatch.setattr(zk, "kz_grid", lambda n, resident, f: (
+        -(-n // 256), 1, "grid"))
+    zk.reset()
+    with pytest.raises(RuntimeError, match="KZ-4 launch failed"):
+        ez.fit_indel_indy(fit_kernels.synthetic_counts(9, 130_000, 500),
+                          steps=5, device=cuda)
     assert zk.LAUNCHES == {"KZ-4": 0, "KZ-3": 0, "KZ-B": 0}
     assert zk.PLAIN_ON_CUDA == {"zoo_fit": 0}
 

@@ -2,8 +2,9 @@
 of csrc/error_zoo_fit.cu) against the JAX package's zoo fits on the CPU,
 on counts from tests/test_torch_error_zoo.py's seeded generator; the
 grids it sums on; the binomial mixtures' pick between their two starts;
-ZooRun's host operands; and the dispatch of models/error_zoo._fit (the
-plain version on the CPU, KZ elsewhere, no fallback). The kernels
+ZooRun's host operands; and the dispatch of
+models/error_zoo.fit_contexts (the plain version on the CPU, KZ
+elsewhere, no fallback). The kernels
 themselves run on a card only: tests/test_torch_cuda.py holds them
 against this model and the plain version there.
 
@@ -67,19 +68,27 @@ def obs_of(p):
 
 
 def model_fit(monkeypatch, name, tc, lock, steps):
-    """The port's fit `name` on the CPU with _fit's kernel route taken by
-    zoo_fit_model (the family, flags and start that each fit hands the
-    kernel), its result dict."""
+    """The port's fit `name` on the CPU with the kernel's route of
+    _fit_starts taken by zoo_fit_model (the family, flags and starts that
+    each fit hands the kernel), its result dict."""
     fn, args, _ = FITS[name]
 
-    def through_model(loss_fn, x0, n, family, p, lock_theta, is_insert=True,
-                      lr=0.05, device=None, plain=False):
-        st, _ = zk.zoo_fit_model(family, obs_of(p), x0,
-                                 tez.kernel_consts(family, lock_theta, lr),
-                                 n, lock_theta, is_insert)
+    def through_model(family, counts_list, n, lock_theta, is_insert, dev,
+                      plain):
+        c = tez.kernel_consts(family, lock_theta)
         at = zk.state_slots(zk.FAMILIES[family])
-        return st[at["params"]].numpy(), float(st[at["final"]])
-    monkeypatch.setattr(tez, "_fit", through_model)
+        out = []
+        for cc in counts_list:
+            obs = obs_of(tez.IndelPatterns.build(cc, "cpu"))
+            ends = []
+            for x0 in tez.fit_starts(family):
+                st, _ = zk.zoo_fit_model(family, obs, x0, c, n, lock_theta,
+                                         is_insert)
+                ends.append((st[at["params"]].numpy(),
+                             float(st[at["final"]])))
+            out.append(ends)
+        return out
+    monkeypatch.setattr(tez, "_fit_starts", through_model)
     return getattr(tez, fn)(tc, *args, lock_theta=lock, steps=steps,
                             device="cpu")
 
@@ -285,17 +294,17 @@ def test_family_layouts():
 def test_binomial_mixtures_pick_the_lower_final_loss(monkeypatch, fn,
                                                      noisy_slot, finals,
                                                      pick):
-    """The binomial mixtures run two starts (noisy 0.9, then 1e-2), each
-    one _fit, and keep the start of lower final loss, the first on a
-    tie."""
+    """The binomial mixtures run two starts (noisy 0.9, then 1e-2) and
+    keep the start of lower final loss, the first on a tie."""
     _, tc = counts(5)
     starts = []
 
-    def fake(loss_fn, x0, steps, family, p, lock_theta, is_insert=True,
-             lr=0.05, device=None, plain=False):
-        starts.append(np.array(x0))
-        return np.array(x0) + len(starts), finals[len(starts) - 1]
-    monkeypatch.setattr(tez, "_fit", fake)
+    def fake(family, counts_list, steps, lock_theta, is_insert, dev, plain):
+        x0s = tez.fit_starts(family)
+        starts.extend(np.array(x) for x in x0s)
+        return [[(np.array(x) + k + 1, finals[k])
+                 for k, x in enumerate(x0s)] for _ in counts_list]
+    monkeypatch.setattr(tez, "_fit_starts", fake)
     args = (tc,) if fn == "fit_indel_binom_mixture" else (tc, True)
     got = getattr(tez, fn)(*args, steps=3, device="cpu")
     assert len(starts) == 2
@@ -331,7 +340,7 @@ def test_kernel_consts_fold_what_the_plain_version_folds():
 def test_cpu_fits_never_reach_the_kernel(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a CPU fit reached KZ's wrapper")
-    monkeypatch.setattr(zk, "zoo_fit", boom)
+    monkeypatch.setattr(zk, "ZooBatch", boom)
     monkeypatch.setattr(zk, "ZooRun", boom)
     zk.reset()
     _, tc = counts(5)
@@ -379,7 +388,7 @@ def test_plain_flag_runs_the_plain_version_off_the_cpu(monkeypatch,
     def boom(*a, **k):
         raise AssertionError("plain=True reached KZ's wrapper")
     seen = []
-    monkeypatch.setattr(zk, "zoo_fit", boom)
+    monkeypatch.setattr(zk, "ZooBatch", boom)
     monkeypatch.setattr(tez, "_fit_plain", lambda loss_fn, x0, steps, lr,
                         dev: (seen.append(dev.type), (np.asarray(x0), 1.0))[1])
     _no_card(monkeypatch, tmp_path)
@@ -432,20 +441,24 @@ def test_zoo_run_rejects_what_the_kernel_does_not_take(monkeypatch):
 
 @pytest.mark.parametrize("family,n,resident,regime", [
     ("binom_mixture", 300, fk.MAX_BLOCKS, "cluster"),
-    ("beta_binomial", 5000, fk.MAX_BLOCKS, "grid"),
-    ("indy_noovl", 6000, 1, "global")])
+    ("indy_noovl", 5000, fk.MAX_BLOCKS, "cluster"),
+    ("beta_binomial", 40_000, fk.MAX_BLOCKS, "grid"),
+    ("indy_noovl", 40_000, 1, "global")])
 def test_zoo_run_operands_by_regime(monkeypatch, family, n, resident,
                                     regime):
     """ZooRun's host side, on CPU tensors with the card's parts stubbed:
-    the grid from fit_grid(N, resident_blocks, on_chip_per), the start
+    the grid from kz_grid(N, resident_blocks, family) (a 16-block
+    cluster at several loci a thread past 4,096 patterns), the start
     parameters and zero moments, the bias table of Python's ** and the
     barrier's zero counters in one buffer, the partials past the cluster
-    regime and loc in the global regime; each launch passes them to the C
-    entry in its argument order, and reset() puts the start back."""
+    regime and loc in the global regime; each launch passes them to its
+    regime's C entry in its argument order (the cluster regime's the
+    batched entry, with one work row: the kernel that a tool run
+    launches), and reset() puts the start back."""
     monkeypatch.setattr(zk, "resident_blocks", lambda f, dev: resident)
     launched = []
-    monkeypatch.setattr(zk, "function",
-                        lambda name: lambda *a: launched.append(a) or 0)
+    monkeypatch.setattr(zk, "function", lambda name: lambda *a: launched.append(
+        (name, a)) or 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 7})())
     monkeypatch.setattr(torch.cuda, "device",
@@ -458,8 +471,7 @@ def test_zoo_run_operands_by_regime(monkeypatch, family, n, resident,
     x0 = torch.arange(f.params, dtype=torch.float64) - 5.0
     run = zk.ZooRun(family, obs, x0, c, 7, True, False)
     blocks, per, got = run.grid
-    assert (got, run.grid) == (regime, fk.fit_grid(n, resident,
-                                                   f.on_chip_per))
+    assert (got, run.grid) == (regime, zk.kz_grid(n, resident, f))
     assert torch.equal(run.state[:f.params], x0)
     assert not run.state[f.params:].any()
     b1, b2 = c[zk.CONSTS.index("b1")], c[zk.CONSTS.index("b2")]
@@ -476,17 +488,26 @@ def test_zoo_run_operands_by_regime(monkeypatch, family, n, resident,
         run.launch()
     monkeypatch.setattr(run, "dev", torch.device("cuda", 0))
     run.launch()
-    args = launched[0]
+    entry, args = launched[0]
     assert args[:2] == (zk.KINDS[f.kernel], int(f.clean))
     assert args[2:7] == tuple(o.data_ptr() for o in obs)
-    assert args[7:12] == (n, blocks, per, 7, int(regime == "cluster"))
-    assert list(args[12]) == [float(x) for x in c]
-    assert args[13:15] == (1, 0)
-    assert args[15:] == (bias.data_ptr(), run.state.data_ptr(),
-                         None if run.loc is None else run.loc.data_ptr(),
-                         None if run.partials is None
-                         else run.partials.data_ptr(),
-                         run._io[-1:].data_ptr(), 7)
+    if regime == "cluster":
+        assert entry == "zoo_fit_batch_launch"
+        assert run.work.tolist() == [0, n, blocks, per, 0]
+        assert args[7:12] == (run.work.data_ptr(), 1, blocks, per, 7)
+        rest = args[15:]
+        assert rest == (bias.data_ptr(), run.state.data_ptr(), 7)
+    else:
+        assert entry == "zoo_fit_launch"
+        assert args[7:11] == (n, blocks, per, 7)
+        rest = args[14:]
+        assert rest == (bias.data_ptr(), run.state.data_ptr(),
+                        None if run.loc is None else run.loc.data_ptr(),
+                        run.partials.data_ptr(), run._io[-1:].data_ptr(), 7)
+    host, flags = args[len(args) - len(rest) - 3], \
+        args[len(args) - len(rest) - 2:len(args) - len(rest)]
+    assert list(host) == [float(x) for x in c]
+    assert flags == (1, 0)
     assert zk.LAUNCHES[f.kernel] >= 1
     start = run._io.clone()
     run._io.normal_()
