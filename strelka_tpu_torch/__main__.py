@@ -29,13 +29,19 @@ from __future__ import annotations
 
 import sys
 
+from .utils import spans
+
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
-    cmd, rest = argv[0], argv[1:]
+    with spans.job(cmd=argv[0]):
+        return _run(argv[0], argv[1:])
+
+
+def _run(cmd: str, rest: list[str]) -> int:
     if cmd == "germline":
         from .workflow.germline import run_germline
         return run_germline(rest)

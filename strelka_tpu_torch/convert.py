@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from . import device as devmod
+
 # name -> dtype of every table
 TABLE_DTYPES = {
     "delta_lut": np.float32,             # [128] quantized ln(1-e)-ln(e/3)
@@ -97,7 +99,7 @@ def tables_from_numpy(arrays: dict[str, np.ndarray], device,
         if a.dtype != dt:
             raise TypeError(f"table {name} is {a.dtype}, expected "
                             f"{np.dtype(dt)}")
-        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        out[name] = devmod.put("tables", a, torch.device(device))
     return out
 
 

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as devmod
 from . import digt
 
 LN_ONE_THIRD = float(np.log(1.0 / 3.0))
@@ -681,9 +682,9 @@ def _xla_tables(extension: float, increment: float, device):
     dev = torch.device(device)
     het = None
     if extension > 0:
-        het = torch.from_numpy(
-            _het_vf_table(float(extension), float(increment))[0]).to(dev)
-    return {"call_vals": torch.from_numpy(_call_vals_table()).to(dev),
+        het = devmod.put("tables", _het_vf_table(float(extension),
+                                                 float(increment))[0], dev)
+    return {"call_vals": devmod.put("tables", _call_vals_table(), dev),
             "het_vf": het}
 
 
@@ -1237,7 +1238,6 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
     dependent-eprob deltas from dependent_eprob_deltas; None disables
     the adjustment.
     """
-    from .. import device as devmod
     dev = devmod.current() if device is None else devmod.resolve(device)
     base = np.asarray(tile.base_id)
     L, D = base.shape
@@ -1290,7 +1290,7 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
                         o = np.full((len(rows), Dsb), fill, dtype=a.dtype)
                         o[:, :D] = a
                         a = o
-                    return torch.from_numpy(np.ascontiguousarray(a)).to(sdev)
+                    return devmod.put("kgsb", a, sdev)
                 sub = SnvPileupTile(
                     base_id=put(base[rows]), qual=put(qual[rows]),
                     is_fwd=put(fwd[rows], False),
@@ -1303,7 +1303,7 @@ def call_snv_tile_chunked(tile: SnvPileupTile, theta: float = 0.001,
                     sub, put(gmax[rows]), put(lt[t0:t1]), dd,
                     het_vf_extension, het_vf_increment)))
             for rows, vals in launched:
-                sb[rows] = vals.cpu().numpy()
+                sb[rows] = devmod.pull("kgsb", vals)
     return out._replace(strand_bias=sb)
 
 
@@ -1398,13 +1398,13 @@ def _genotype_chunks(dev, base, qual, mask, ref_gt, hap, s_delta, theta,
             def put(a, sdev=sdev):
                 # blocking copy of a fresh host array: no staging buffer
                 # is reused while a launch may still read it
-                return torch.from_numpy(np.ascontiguousarray(a)).to(sdev)
+                return devmod.put("snv_tile", a, sdev)
             launched.append(_genotype_rows(
                 sdev, put, base, qual, mask, ref_gt, hap, s_delta, theta,
                 rna, hist_ok, t0, t1, L > SNV_TILE_L))
         for res in launched:
             for f in _PULL:
-                outs[f].append(getattr(res, f).cpu().numpy())
+                outs[f].append(devmod.pull("snv_tile", getattr(res, f)))
     cat = {f: np.concatenate(v) for f, v in outs.items()}
     return SnvCallResult(genome_pprob=None, poly_pprob=None,
                          strand_bias=None, **cat)

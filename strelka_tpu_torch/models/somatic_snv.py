@@ -571,4 +571,4 @@ def _posterior_tables(dev, contam_tolerance, shared_error_rate,
                    -np.inf)
     eye = np.eye(PRESTRAND_SIZE, dtype=bool)
     return (tabs["joint_pf"], tabs["joint_gp"],
-            *(torch.from_numpy(a).to(dev) for a in (eq, off, eye)))
+            *(devmod.put("tables", a, dev) for a in (eq, off, eye)))

@@ -30,6 +30,8 @@ import os
 import time
 from dataclasses import dataclass, field
 
+from ..utils import spans
+
 SCAN_SIZE = 12_000_000          # scanSizeMb (strelkaSharedOptions.py:161)
 MIN_SEGMENT_GROUP_SIZE = 200_000  # small-contig grouping target
 
@@ -232,42 +234,49 @@ class SegmentRunner:
                 self.log.info("task %s already complete (resume skips)",
                               label)
                 continue
-            attempt = 0
-            task_t0 = time.time()
-            spans = ",".join(f"{s.chrom}:{s.begin}-{s.end}" for s in group)
-            self.log.info("task %s begin [%s]", label, spans)
-            while True:
-                try:
-                    result, seg_stats = task_fn(group)
-                    break
-                except Exception as e:  # noqa: BLE001 — retry any task error
-                    attempt += 1
-                    if attempt > self.max_retries:
-                        self.log.error(
-                            "task %s failed after %d attempts: %s",
-                            label, attempt, e)
-                        raise RuntimeError(
-                            f"task {label} failed after {attempt} attempts: {e}"
-                        ) from e
-                    self.log.warning("task %s attempt %d failed (%s); "
-                                     "retrying in %.1fs", label, attempt, e,
-                                     self.retry_wait * attempt)
-                    time.sleep(self.retry_wait * attempt)
-            task_dt = time.time() - task_t0
-            self.log.info("task %s complete in %.2fs (attempts=%d)",
-                          label, task_dt, attempt + 1)
-            if seg_stats is not None:
-                self.stats.merge(seg_stats)
-            self.stats.segments_completed += 1
-            if on_complete is not None:
-                on_complete(gi, result)
-            # per-task wall time in the state file (SegmentTimeTracker
-            # analog; pyflow writes per-task timing logs)
-            self.state.record(label, {"wall_sec": round(task_dt, 3),
-                                      "attempts": attempt + 1})
+            with spans.span("segment", segment=label):
+                self._run_task(label, group, gi, task_fn, on_complete)
         self.stats.lifetime_sec += time.time() - t0
         self.write_stats()
         return self.stats
+
+    def _run_task(self, label, group, gi, task_fn, on_complete) -> None:
+        """One task: task_fn with retries, its stats, on_complete and
+        its state record."""
+        attempt = 0
+        task_t0 = time.time()
+        where = ",".join(f"{s.chrom}:{s.begin}-{s.end}" for s in group)
+        self.log.info("task %s begin [%s]", label, where)
+        while True:
+            try:
+                result, seg_stats = task_fn(group)
+                break
+            except Exception as e:  # noqa: BLE001 — retry any task error
+                attempt += 1
+                if attempt > self.max_retries:
+                    self.log.error(
+                        "task %s failed after %d attempts: %s",
+                        label, attempt, e)
+                    raise RuntimeError(
+                        f"task {label} failed after {attempt} attempts: {e}"
+                    ) from e
+                self.log.warning("task %s attempt %d failed (%s); "
+                                 "retrying in %.1fs", label, attempt, e,
+                                 self.retry_wait * attempt)
+                time.sleep(self.retry_wait * attempt)
+        task_dt = time.time() - task_t0
+        self.log.info("task %s complete in %.2fs (attempts=%d)",
+                      label, task_dt, attempt + 1)
+        if seg_stats is not None:
+            self.stats.merge(seg_stats)
+        self.stats.segments_completed += 1
+        if on_complete is not None:
+            with spans.span("segment.write"):
+                on_complete(gi, result)
+        # per-task wall time in the state file (SegmentTimeTracker
+        # analog; pyflow writes per-task timing logs)
+        self.state.record(label, {"wall_sec": round(task_dt, 3),
+                                  "attempts": attempt + 1})
 
     def write_stats(self):
         with open(os.path.join(self.workspace,

@@ -24,6 +24,7 @@ from ..io import bam as bamio
 from ..io.fasta import FastaReference, decode_bases
 from ..models import digt, error_model, indel_genotype as ig, snv_digt
 from ..options import GermlineOptions
+from ..utils import spans
 from . import candidates as cand
 from . import pileup as pl
 from . import reads as rd
@@ -285,6 +286,7 @@ def call_sample_sites(
     return sd
 
 
+@spans.span("region")
 def call_region(
     opt: GermlineOptions,
     ref: FastaReference,
@@ -298,7 +300,11 @@ def call_region(
     collect_realigned: bool = False,
     indel_error_model_files: list[str] | None = None,
 ) -> RegionCallResult:
-    """Joint germline calling for N samples over one region."""
+    """Joint germline calling for N samples over one region, in the
+    stages of its spans: region.prep, region.discover,
+    region.candidates, region.realign, region.pileup and
+    region.genotype."""
+    spans.stage("region.prep")
     n_samples = len(batches)
     halo = opt.max_indel_size + 250  # supplementalRegionBorderSize semantics
     fetch_begin = max(0, begin - halo)
@@ -332,9 +338,11 @@ def call_region(
         levels.append(level)
         cand.extract_read_indels(batch, ea, level, ref_codes, fetch_begin,
                                  store, s, opt.max_indel_size)
+    spans.count("reads.kept", sum(b.n for b in kept))
 
     # active-region haplotype discovery: indels/SNVs confirmed by
     # haplotyping gate candidacy (IndelBuffer isHaplotypingEnabled path)
+    spans.stage("region.discover")
     from . import active_region as arp
     candidate_snvs: set[tuple[int, int]] = set()  # (pos, base)
     snv_hap_ids: dict[tuple[int, int, int], int] = {}  # (sample,pos,base)->hap
@@ -399,6 +407,7 @@ def call_region(
             phase_set_of_pos[p] = region.begin + 1  # PS = 1-based start
 
     # external candidate indels (e.g. Manta VCF) + forced-GT alleles
+    spans.stage("region.candidates")
     ng_forced: list[cand.IndelKey] = []
 
     def _add_vcf_indels(paths, is_forced):
@@ -501,6 +510,7 @@ def call_region(
     import dataclasses
 
     all_cand = sorted(k for k, ok in candidacy.items() if ok)
+    spans.count("indel.candidates", len(all_cand))
     pos_alleles: dict[int, list[cand.IndelKey]] = {}
     for k in all_cand:
         pos_alleles.setdefault(k.pos, []).append(k)
@@ -677,6 +687,7 @@ def call_region(
          if p in final_scores[s]}
         for s in range(n_samples)]
 
+    spans.stage("region.realign")
     # pre-realignment read batches: the forced-output pathway scores
     # displaced forced alleles against their governing locus AFTER
     # genotyping (the contrast group depends on which loci are variant),
@@ -719,12 +730,14 @@ def call_region(
 
     # per-sample pileups over the report range (post-realignment,
     # matching the reference's align -> pileup stage order)
+    spans.stage("region.pileup")
     for s in range(n_samples):
         samples.append(build_sample_pileup(
             opt, kept[s], eas[s], levels[s], ref_codes, fetch_begin,
             begin, end, candidate_snv_mask=snv_exempt_mask,
             exempt_snv_keys=exempt_keys))
 
+    spans.stage("region.genotype")
     # indel genotyping runs BEFORE site genotyping (the reference
     # processes indels first at each position,
     # starling_pos_processor.hh:70-74) because genotyped deletion
@@ -869,6 +882,7 @@ def call_region(
             sample_edge_dist=[0.0] * n_samples,
             not_genotyped=True))
     indel_calls.sort(key=lambda c: c.pos)
+    spans.count("indel.loci", len(loci_positions) + len(forced_jobs))
 
     # IndelConflict: variant indel loci whose ranges overlap or touch
     # buffer together in the overlap resolver, and a flush with more
@@ -925,6 +939,7 @@ def call_region(
     homalt_del = (group_ploidy == 0) & (ploidy_adj < 0)
 
     # site genotyping with the deletion-adjusted ploidy
+    spans.count("snv.sites", n_samples * L_report)
     for s in range(n_samples):
         sd = samples[s]
         genotype_sample_snvs(opt, sd, haploid_mask=(caller_ploidy[s] == 1))

@@ -14,6 +14,7 @@ from ..io.fasta import decode_bases
 from ..io.vcf import identity_header_lines
 from ..models import digt
 from ..options import GermlineOptions
+from ..utils import spans
 from .germline_caller import IndelCall, RegionCallResult, snv_hpol
 
 
@@ -783,6 +784,7 @@ def _build_region_phase_plan(result, pre, pgt_a, cp_a, ALL_L, ref_list,
     return build_phase_plan([e[2] for e in events], n_samples)
 
 
+@spans.span("emit")
 def emit_region(
     opt: GermlineOptions,
     result: RegionCallResult,

@@ -20,12 +20,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
+from .. import device as devmod
 from ..io import bam as bamio
 from ..io.fasta import FastaReference, decode_bases
 from ..models import error_model, somatic_indel as si, somatic_snv as ss
 from ..options import SomaticOptions
+from ..utils import spans
 from . import candidates as cand
 from . import pileup as pl
 from . import reads as rd
@@ -114,13 +115,6 @@ def _tile_rows(pus, dev) -> int:
     return ss.rows_per_launch(dev, ss.tile_row_bytes(dev, depth))
 
 
-def _put(a, dev):
-    """Host array `a` as a tensor on `dev`: a view of it on the CPU
-    (whose ops have read it by the time they return), a blocking copy
-    on a card, so no host buffer is read after the call returns."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-
 def _grid_lhoods(pu: pl.PileupRegion, rows, rg, dev, tier2=False):
     """[n, GRID_SIZE] f32 frequency-grid lhoods on `dev` for the pileup
     rows `rows` (a slice or an index array) with ref_gt `rg` (on
@@ -129,10 +123,12 @@ def _grid_lhoods(pu: pl.PileupRegion, rows, rg, dev, tier2=False):
     Raw base/qual lanes pass through unmasked: freq_grid_lhoods gates
     every contribution on the mask (is_ref/is_alt are AND'd with it)."""
     use = pu.tier2_used if tier2 else pu.used
-    used = _put(use[rows], dev) & _put(pu.valid[rows], dev)
-    return ss.freq_grid_lhoods(_put(pu.base_id[rows], dev),
-                               _put(pu.qual[rows], dev), used,
-                               _put(pu.is_fwd[rows], dev), rg)
+
+    def put(a):
+        return devmod.put("ksg", a, dev)
+    used = put(use[rows]) & put(pu.valid[rows])
+    return ss.freq_grid_lhoods(put(pu.base_id[rows]), put(pu.qual[rows]),
+                               used, put(pu.is_fwd[rows]), rg)
 
 
 def _snv_tier1_fused(pus, ref_gt, run_fn, dev):
@@ -151,7 +147,7 @@ def _snv_tier1_fused(pus, ref_gt, run_fn, dev):
     for c0 in range(0, max(L, 1), tl):  # one empty chunk when L == 0
         for sdev, t0, t1 in shards(c0, min(c0 + tl, L)):
             rows = slice(t0, t1)
-            rg = _put(ref_gt[rows].astype(np.int32), sdev)
+            rg = devmod.put("ksg", ref_gt[rows].astype(np.int32), sdev)
             parts.append(run_fn(*(_grid_lhoods(pu, rows, rg, sdev)
                                   for pu in pus)))
     return _host_result(parts)
@@ -161,7 +157,7 @@ def _host_result(parts):
     """One SomaticSnvResult of host numpy arrays from the per-chunk (or
     per-shard) results `parts`, in order."""
     return ss.SomaticSnvResult(*(
-        np.concatenate([getattr(r, f).cpu().numpy() for r in parts])
+        np.concatenate([devmod.pull("ksp", getattr(r, f)) for r in parts])
         for f in ss.SomaticSnvResult._fields))
 
 
@@ -176,7 +172,7 @@ def _snv_tier2_rows(pus, ref_gt, rows, run_fn, dev):
     for c0 in range(0, len(rows), tl):
         for sdev, t0, t1 in shards(c0, min(c0 + tl, len(rows))):
             sub = rows[t0:t1]
-            rg = _put(ref_gt[sub].astype(np.int32), sdev)
+            rg = devmod.put("ksg", ref_gt[sub].astype(np.int32), sdev)
             parts.append(run_fn(*(_grid_lhoods(pu, sub, rg, sdev, tier2=True)
                                   for pu in pus)))
     return _host_result(parts)
@@ -202,6 +198,7 @@ def _classify_indel_reads(ref_lnp, ind_lnp, n_nonambig, ln_rbm):
             p_ref, p_ind)
 
 
+@spans.span("region")
 def call_somatic_region(
     opt: SomaticOptions,
     ref: FastaReference,
@@ -213,6 +210,10 @@ def call_somatic_region(
     external_indel_vcfs: list[str] | None = None,
     collect_realigned: bool = False,
 ) -> SomaticRegionResult:
+    """Tumor/normal calling over one region, in the stages of its
+    spans: region.prep, region.candidates, region.realign, region.pileup
+    and region.genotype."""
+    spans.stage("region.prep")
     halo = opt.max_indel_size + 250
     fetch_begin = max(0, begin - halo)
     fetch_end = min(ref.contig_length(chrom), end + halo)
@@ -240,7 +241,9 @@ def call_somatic_region(
         levels.append(level)
         cand.extract_read_indels(batch, ea, level, ref_all, fetch_begin,
                                  store, s, opt.max_indel_size)
+    spans.count("reads.kept", sum(b.n for b in kept))
 
+    spans.stage("region.candidates")
     if external_indel_vcfs:
         from ..io.vcf import read_vcf
         for path in external_indel_vcfs:
@@ -270,8 +273,10 @@ def call_somatic_region(
         alpha=opt.indel_candidate_signal_test_alpha)
     cand_keys = sorted(k for k, ok in candidacy.items()
                        if ok and begin <= k.pos - 1 < end)
+    spans.count("indel.candidates", len(cand_keys))
 
     # apply realignments before pileup (reference stage order)
+    spans.stage("region.realign")
     from . import realign_batch as rb
     from . import realign_apply as ra
     loci_single = [[k] for k in cand_keys]
@@ -304,6 +309,7 @@ def call_somatic_region(
                 eas[s] = rd.expand_alignments(new_batch)
 
     # --- pileups (post-realignment) ---
+    spans.stage("region.pileup")
     from ..io.native import pileup_native
     for s in range(2):
         # depth padded to a multiple of _TILE_D_PAD lanes, as the JAX
@@ -335,7 +341,9 @@ def call_somatic_region(
             tier2_mm_filter=t2mmf, depth_pad=_TILE_D_PAD))
 
     # --- SNVs: tier1 grid lhoods + joint call, device-resident ---
-    from .. import device as devmod
+    spans.stage("region.genotype")
+    spans.count("snv.sites", L)
+    spans.count("indel.loci", len(cand_keys))
     dev = devmod.current()
     shared_rate = opt.shared_site_error_rate
     def run_tier(nlh, tlh):

@@ -45,6 +45,7 @@ from ..io.fasta import FastaReference
 from ..options import GermlineOptions
 from ..parallel import runner as rn
 from ..pipeline import germline_caller, gvcf
+from ..utils import spans
 
 
 def parse_region(text: str, ref: FastaReference):
@@ -236,6 +237,7 @@ def estimate_sequence_error(args, ref, regions, batches_per_chrom,
 
 def _run_germline(args, argv) -> int:
     t0 = time.time()
+    spans.stage("job.setup")
     opt = GermlineOptions(min_mapping_quality=args.min_mapping_quality)
     if args.rna:
         # strelkaGermlineWorkflow.py's RNA branch: het-VF extension 0.45
@@ -311,6 +313,7 @@ def _run_germline(args, argv) -> int:
     whole_genome = (args.region is None and proc_cnt <= 1
                     and not args.call_regions_bed)
 
+    spans.stage("decode")
     sample_names = []
     batches_per_chrom: dict[str, list] = {}
     for path in args.align_files:
@@ -346,12 +349,14 @@ def _run_germline(args, argv) -> int:
     # (strelkaSequenceErrorEstimation.py: count until target reached,
     # merge, fit; static-model fallback when the fit is unacceptable)
     if args.estimate_sequence_error and not args.merge_only:
+        spans.stage("job.errest")
         estimated = estimate_sequence_error(args, ref, regions,
                                             batches_per_chrom, n_samples)
         if args.indel_error_models_files is None:
             args.indel_error_models_files = estimated
 
     # --- chromosome depth (feeds HighDepth filter) ---------------------
+    spans.stage("job.depth")
     chrom_depth: dict[str, float] = {}
     if not args.exome:
         for chrom, _b, _e in regions:
@@ -464,6 +469,7 @@ def _run_germline(args, argv) -> int:
                                    f"seg_{gi:06d}.S{si+1}.gvcf"), "w") as f:
                 f.write("\n".join(lines_g[si]) + ("\n" if lines_g[si] else ""))
 
+    spans.stage(None)
     if args.dry_run:
         runner.dry_run(groups)
         return 0
@@ -486,6 +492,7 @@ def _run_germline(args, argv) -> int:
     from ..io.tabix import IndexedVcfWriter
     all_chroms = list(ref.contig_names)
 
+    @spans.span("merge")
     def concat_indexed(path, header_text, frag_name_fn):
         with IndexedVcfWriter(path, all_chroms) as w:
             w.write_header(header_text)
@@ -517,13 +524,15 @@ def _run_germline(args, argv) -> int:
                     frags.append(read_bam(frag)[1])
             if not frags:
                 continue
-            merged = concat_batches(frags)
-            out_bam = os.path.join(args.output_dir,
-                                   f"realigned.S{si + 1}.bam")
-            write_bam(out_bam, headers[si], merged)
+            with spans.span("merge"):
+                merged = concat_batches(frags)
+                out_bam = os.path.join(args.output_dir,
+                                       f"realigned.S{si + 1}.bam")
+                write_bam(out_bam, headers[si], merged)
             print(f"realigned reads: {out_bam} ({merged.n} records)",
                   file=sys.stderr)
 
+    spans.stage("job.finish")
     total_stats = rn.merge_run_stats(workspace)
     with open(os.path.join(args.output_dir, "runStats.xml"),
               "w") as _sf:
@@ -543,4 +552,6 @@ def _run_germline(args, argv) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(run_germline())
+    # a --jobs worker's or a merge's process: one job
+    with spans.job(cmd="germline"):
+        raise SystemExit(run_germline())

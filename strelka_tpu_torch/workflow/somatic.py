@@ -38,6 +38,7 @@ from ..options import SomaticOptions
 from ..parallel import runner as rn
 from ..pipeline import somatic_caller as sc
 from ..pipeline.gvcf import format_evsf
+from ..utils import spans
 
 BASES = "ACGT"
 
@@ -187,6 +188,7 @@ def interrupted_hpol(ref_codes: np.ndarray, begin: int, pos: int, right: int) ->
     return best
 
 
+@spans.span("emit")
 def _emit_somatic_segment(args, opt, res, norm_chrom_depth, snv_forest,
                           indel_forest, noise_at):
     """Record lines for one called segment (snv, indel, callable).
@@ -416,6 +418,7 @@ def run_somatic(argv=None) -> int:
 
 def _run_somatic(args, argv) -> int:
     t0 = time.time()
+    spans.stage("job.setup")
     opt = SomaticOptions()
     if args.config:
         from ..options import apply_ini
@@ -477,6 +480,7 @@ def _run_somatic(args, argv) -> int:
                 pass  # no usable index: whole-file read
         return read_alignments(path, ref)
 
+    spans.stage("decode")
     nhdr, nbatch_all = _read_input(args.normal_align_file)
     thdr, tbatch_all = _read_input(args.tumor_align_file)
 
@@ -491,6 +495,7 @@ def _run_somatic(args, argv) -> int:
         print(f"\nCONFIGURATION ERROR:\n{e}\n", file=sys.stderr)
         return 1
 
+    spans.stage("job.setup")
     from ..models import evs
     snv_forest = indel_forest = None
     if not args.disable_evs:
@@ -540,6 +545,7 @@ def _run_somatic(args, argv) -> int:
     runner = rn.SegmentRunner(workspace, process_index=proc_idx,
                               process_count=proc_cnt)
 
+    spans.stage("decode")
     batches_of = {}
     for chrom, _b, _e in regions:
         ntid = nhdr.ref_names.index(chrom) if chrom in nhdr.ref_names else -1
@@ -548,6 +554,7 @@ def _run_somatic(args, argv) -> int:
             nbatch_all.select(np.asarray(nbatch_all.tid == ntid)),
             tbatch_all.select(np.asarray(tbatch_all.tid == ttid)))
 
+    spans.stage("job.depth")
     # per-chrom ref-end positions for segment batch slicing (keeps
     # per-segment work O(segment reads), not O(chrom reads)); chrom
     # depth (GetChromDepth analog) comes from the full chrom batch
@@ -609,6 +616,7 @@ def _run_somatic(args, argv) -> int:
                                    f"seg_{gi:06d}.{suffix}"), "w") as f:
                 f.write("\n".join(lines) + ("\n" if lines else ""))
 
+    spans.stage(None)
     if args.dry_run:
         runner.dry_run(groups)
         return 0
@@ -636,7 +644,7 @@ def _run_somatic(args, argv) -> int:
             (indel_path, indel_header(chrom0, clen0, opt, evs_on,
                                       depth_filter=max_depth_on),
              "indels")):
-        with IndexedVcfWriter(path, all_chroms) as w:
+        with spans.span("merge"), IndexedVcfWriter(path, all_chroms) as w:
             w.write_header(header_text)
             for gi in range(len(groups)):
                 frag = os.path.join(workspace, f"seg_{gi:06d}.{suffix}")
@@ -650,7 +658,7 @@ def _run_somatic(args, argv) -> int:
                                 else:
                                     n_indel += 1
     if args.output_callable_regions:
-        with BgzfWriter(os.path.join(
+        with spans.span("merge"), BgzfWriter(os.path.join(
                 args.output_dir, "somatic.callable.regions.bed.gz")) as w:
             for gi in range(len(groups)):
                 frag = os.path.join(workspace, f"seg_{gi:06d}.callable")
@@ -670,13 +678,15 @@ def _run_somatic(args, argv) -> int:
                     frags.append(read_bam(frag)[1])
             if not frags:
                 continue
-            merged = concat_batches(frags)
-            out_bam = os.path.join(args.output_dir,
-                                   f"realigned.{label}.bam")
-            write_bam(out_bam, hdr, merged)
+            with spans.span("merge"):
+                merged = concat_batches(frags)
+                out_bam = os.path.join(args.output_dir,
+                                       f"realigned.{label}.bam")
+                write_bam(out_bam, hdr, merged)
             print(f"realigned reads: {out_bam} ({merged.n} records)",
                   file=sys.stderr)
 
+    spans.stage("job.finish")
     total_stats = rn.merge_run_stats(workspace)
     with open(os.path.join(args.output_dir, "runStats.xml"), "w") as _sf:
         _sf.write(total_stats.to_xml())
@@ -694,4 +704,6 @@ def _run_somatic(args, argv) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(run_somatic())
+    # a --jobs worker's or a merge's process: one job
+    with spans.job(cmd="somatic"):
+        raise SystemExit(run_somatic())
